@@ -1,0 +1,98 @@
+"""Plain PyTorch oracles for the ELP_BSD decode and the packed matmul.
+
+``decode_values`` is the select-chain decoder; ``decode_values_shift_add``
+builds each digit's ``±2^shift`` term in one integer construction of the
+float32 sign and exponent fields, ``(shift + 127) << 23 | sign << 31``,
+viewed as float32. Both are bit-identical to each other and to the JAX
+package's ``kernels/ref.py``. The CUDA kernels run the shift-add form.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.elp_bsd import ElpBsdFormat
+
+
+def _exp2_int(shift: torch.Tensor) -> torch.Tensor:
+    """``2.0**shift`` for integer ``shift`` via float32 exponent construction."""
+    return ((shift + 127).to(torch.int32) << 23).view(torch.float32)
+
+
+def decode_values(codes: torch.Tensor, fmt: ElpBsdFormat) -> torch.Tensor:
+    """Decode raw codes (integer tensor) to unscaled float32 values."""
+    codes = codes.to(torch.int32)
+    out = torch.zeros(codes.shape, dtype=torch.float32, device=codes.device)
+    for (off, sbits, ibits), tab in zip(fmt.field_layout(), fmt.shift_tables()):
+        field = (codes >> off) & ((1 << (sbits + ibits)) - 1)
+        idx = field & ((1 << ibits) - 1)
+        shift = torch.full_like(codes, int(tab[0]))
+        for e in range(1, len(tab)):
+            shift = torch.where(idx == e, int(tab[e]), shift)
+        mag = _exp2_int(shift)
+        if sbits:
+            sign = 1.0 - 2.0 * ((field >> ibits) & 1).to(torch.float32)
+            out = out + sign * mag
+        else:
+            out = out + mag
+    return out
+
+
+def decode_values_shift_add(codes: torch.Tensor, fmt: ElpBsdFormat) -> torch.Tensor:
+    """Shift-add decode: bit-identical to :func:`decode_values`.
+
+    Per digit the term is the int32 bit pattern ``(shift + 127) << 23``
+    with the digit's sign bit OR'd into bit 31; the shift comes from
+    ``a + b * index`` for affine LUTs, else from a select chain. The
+    terms (at most two, all exact) are summed in digit order.
+    """
+    codes = codes.to(torch.int32)
+    out = None
+    for off, sbits, ibits, tab, affine in fmt.shift_add_decomposition():
+        field = (codes >> off) & ((1 << (sbits + ibits)) - 1)
+        idx = field & ((1 << ibits) - 1)
+        if affine is not None:
+            a, b = affine
+            shift = a + idx * b if b else torch.full_like(codes, a)
+        else:
+            shift = torch.full_like(codes, int(tab[0]))
+            for e in range(1, len(tab)):
+                shift = torch.where(idx == e, int(tab[e]), shift)
+        bits = (shift + 127) << 23
+        if sbits:
+            bits = bits | (((field >> ibits) & 1) << 31)
+        term = bits.to(torch.int32).view(torch.float32)
+        out = term if out is None else out + term
+    return out
+
+
+def unpack_nibbles_k(packed: torch.Tensor) -> torch.Tensor:
+    """``[..., K/2, N]`` uint8 (two 4-bit codes along K per byte) -> ``[..., K, N]``.
+
+    Row ``2r`` is the low nibble, row ``2r + 1`` the high one.
+    """
+    p = packed.to(torch.int32)
+    out = torch.stack([p & 0x0F, (p >> 4) & 0x0F], dim=-2)  # [..., K/2, 2, N]
+    return out.reshape(*packed.shape[:-2], 2 * packed.shape[-2], packed.shape[-1])
+
+
+def dequantize_ref(
+    codes: torch.Tensor, sf: torch.Tensor, fmt: ElpBsdFormat, *, nibble: bool = False
+) -> torch.Tensor:
+    """Oracle dequantization: codes -> float32 weights ``[K, N]``."""
+    if nibble:
+        codes = unpack_nibbles_k(codes)
+    return decode_values(codes, fmt) * sf
+
+
+def elp_bsd_matmul_ref(
+    x: torch.Tensor,
+    codes: torch.Tensor,
+    sf: torch.Tensor,
+    fmt: ElpBsdFormat,
+    *,
+    nibble: bool = False,
+    out_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Oracle: ``x @ dequantize(codes)`` in float32."""
+    w = dequantize_ref(codes, sf, fmt, nibble=nibble)
+    return torch.matmul(x.to(torch.float32), w).to(out_dtype)
