@@ -1,24 +1,44 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the two CUDA kernels of the packed CNN path from ``src/repro_torch/csrc``,
-holds each against its plain PyTorch version at full-width AlexNet shapes
-(batch 64) and times kernel, plain version and one library call, then
-drives the main path: ``api.quantize`` (static calibration, bias fold,
-ELP_BSD a4 packing) of seeded full-width AlexNet weights and
-``QuantizedModel.forward`` on 64 seeded images, checking that the forward
-launched the tiled kernel 5 times and the decode-step kernel 3 times and
-that its logits match the same packed model run on the CPU.
+Builds the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+each, in parallel) and drives the port's two main paths:
+
+* the packed CNN path: each matmul kernel held against its plain PyTorch
+  version at full-width AlexNet shapes (batch 64) and timed beside its
+  plain version and one library call; then ``api.quantize`` (static
+  calibration, bias fold, ELP_BSD a4 packing) of seeded full-width AlexNet
+  weights and ``QuantizedModel.forward`` on 64 seeded images, checking
+  5 tiled + 3 decode-step launches and the logits against the same packed
+  model run on the CPU;
+* the packed LM serving path at full-width qwen3-8b: the flash-attention
+  kernel held against its plain version (f32 and bf16, causal and not, at
+  the prefill shape [16, 32, 128, 128] and at [1, 32, 4096, 128]) and the
+  two matmul kernels at the LM's shapes (M = 2048 prefill, M = 16 decode
+  step), each timed beside its plain version and one library call; then
+  ``api.quantize`` (calibration on [2, 4, 128] seeded token ids, per-slice
+  a4 packing of every block matmul) of seeded bf16 qwen3-8b weights and
+  ``QuantizedModel.generate`` of 16 new tokens for 16 seeded 128-token
+  prompts, checking 252 tiled + 36 flash launches in the prefill and 252
+  decode-step launches per decode step; the generated tokens teacher-forced
+  through the same packed model with every kernel swapped for its plain
+  version, logits compared, beside controls of that comparison (correct
+  changes of rounding and planted faults) and the same reading with float
+  activations; and the reduced 2-layer qwen3-8b on the card against the CPU.
 
     python3 chip_smoke.py
 
 Exits non-zero on any failure, and without a result when there is no
 CUDA device. The last line is the JSON device record; the line before it
 holds the card's name and power limit, and before that one JSON object
-with each kernel's numbers.
+with each kernel's numbers: ``launches`` counts the kernel's launches on
+both main paths (one AlexNet forward, one generate), and ``ms``,
+``plain_ms``, ``bound_ms`` and ``library_ms`` are the per-shape times of
+those launches, each shape weighted by its launches.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -30,9 +50,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): float32 outside the
-# tensor cores and device memory bandwidth.
-F32_FLOPS = 67e12
+# H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): operations by operand
+# type (float32 outside the tensor cores, bfloat16 on them) and device memory
+# bandwidth. A kernel's bound takes the rate of its inputs' type.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 HBM_BYTES_PER_S = 3.35e12
 BATCH = 64
 REL_TOL = 2e-5  # kernel vs plain: float32 sums over K <= 12544 in another order
@@ -46,6 +67,25 @@ REL_TOL = 2e-5  # kernel vs plain: float32 sums over K <= 12544 in another order
 FLOAT_LOGIT_REL_TOL = 1e-4
 STATIC_LOGIT_REL_TOL = 5e-2
 L2_FLUSH_BYTES = 128 << 20  # twice the 50 MB L2: every timed launch starts cold
+# Flash attention, kernel vs plain, elementwise: |got - want| <= rel * |want|
+# + abs_rel * max |want|. float32: sums in another order (2e-5 of max |out|).
+# bfloat16: each rounds its float32 result once, so one bf16 step may
+# separate them (at most 2^-7 of the value, exactly that at a power of two,
+# so such a step reads just under the limit), on top of five times that
+# float32 noise for the results before rounding.
+FLASH_TOL = {"float32": (0.0, 2e-5), "bfloat16": (2.0 ** -7, 1e-4)}
+# The LM path's kernels held against their plain versions (same packed
+# model, same tokens), relative to max |logit|, with static 8-bit and with
+# float activations. Through 36 layers of random weights a correct change
+# of float32 rounding reads at full scale: every kernel's function summed in
+# float64 reads 3.7e-2 (static) and 2.0e-2 (float) against the plain
+# versions, about what the kernels read. Planted faults read 0.38 (the
+# decode-step matmul skipping its last 128 K rows) and 0.65 (each query
+# seeing the next key). The limit sits between; faults within the noise
+# (P.V accumulated in bf16 reads 4.9e-2) are for the elementwise flash check.
+LM_LOGIT_REL_TOL = 5e-2
+LM_FLOAT_LOGIT_REL_TOL = 5e-2
+LM_BATCH, LM_PROMPT, LM_NEW = 16, 128, 16
 
 
 def timed_ms(fn, torch, flush, iters: int = 7) -> float:
@@ -65,11 +105,506 @@ def timed_ms(fn, torch, flush, iters: int = 7) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    """The least time for the work: operations at the f32 peak, bytes at the HBM rate."""
-    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return {"ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+def bound(flops: float, nbytes: float, dtype) -> dict:
+    """The least time for the work: operations at the peak of ``dtype`` inputs, bytes at HBM."""
+    ops_ms = flops / PEAK_FLOPS[str(dtype)[6:]] * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def _flash_bound(q, k, causal: bool) -> dict:
+    """Operations (4*hd per unmasked query-key pair) at q's type's peak, q/k/v/out bytes at HBM."""
+    b, h, sq, hd = q.shape
+    sk = k.shape[2]
+    pairs = b * h * (sq * (sq + 1) / 2 if causal else sq * sk)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    return bound(4.0 * hd * pairs, nbytes, q.dtype)
+
+
+def _worst(got, want, tol) -> float:
+    """Largest |got - want| / (rel * |want| + abs_rel * max |want|), tol = (rel, abs_rel)."""
+    want = want.float()
+    limit = tol[0] * want.abs() + tol[1] * want.abs().max()
+    return ((got.float() - want).abs() / limit).max().item()
+
+
+def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
+    """Each kernel of the LM path against its plain version at the path's shapes, timed
+    beside it and one library call; rows carry each shape's launches per generate."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.elp_bsd import resolve_format
+    from repro_torch.device import full_f32
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul, elp_bsd_matmul_plain
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.fused_decode import fused_decode_matmul, fused_decode_matmul_plain
+    from repro_torch.runtime.quantized_params import quantize_stacked
+
+    cfg = get_config("qwen3_8b")
+    n_layers, steps = cfg.n_layers, LM_NEW - 1
+
+    def record(name, row, got, want, tol):
+        err, worst = (got.float() - want.float()).abs().max().item(), _worst(got, want, tol)
+        ok = bool(torch.isfinite(got.float()).all()) and worst <= 1.0
+        print(f"[lm-kernels] {name} {row['shape']}: max_abs_err {err:.3e}, worst |err| / limit "
+              f"{worst:.3f} (limit {tol[0]:g} * |plain| + {tol[1]:g} * max|plain|) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} {row['shape']}")
+        row["max_abs_err"] = err
+
+    # Flash attention: the issue's two shapes with H = KVH (the JAX kernel's
+    # contract), then the main path's own call (strided q, GQA k/v).
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, s in ((LM_BATCH, LM_PROMPT), (1, 4096)):
+            q, k, v = (torch.randn(b, 32, s, 128, device=dev, generator=gen).to(dtype)
+                       for _ in range(3))
+            for causal in (True, False):
+                cases.append((f"{str(dtype)[6:]} [{b}, 32, {s}, 128] causal={causal}",
+                              q, k, v, causal, 0))
+    qm = torch.randn(LM_BATCH, LM_PROMPT, 32, 128, device=dev, generator=gen).to(torch.bfloat16)
+    km, vm = (torch.randn(LM_BATCH, LM_PROMPT, 8, 128, device=dev, generator=gen)
+              .to(torch.bfloat16) for _ in range(2))
+    cases.append(("main path: bfloat16 q[16, 32, 128, 128] strided, GQA k/v[16, 8, 128, 128], "
+                  "causal", qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2), True,
+                  n_layers))
+    for label, q, k, v, causal, weight in cases:
+        run = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+        ref = lambda: flash_attention_plain(q, k, v, causal=causal)  # noqa: E731
+        gqa = k.shape[1] != q.shape[1]
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal, enable_gqa=gqa)
+        row = {"shape": label, "weight": weight, "lm": True}
+        record("flash_attention", row, run(), ref(), FLASH_TOL[str(q.dtype)[6:]])
+        with full_f32():
+            row["library_ms"] = timed_ms(library, torch, flush)
+        row["ms"] = timed_ms(run, torch, flush)
+        row["plain_ms"] = timed_ms(ref, torch, flush)
+        row.update(_flash_bound(q, k, causal))
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        rows["flash_attention"].append(row)
+    # The elementwise limit must see a subtle fault that the logits cannot:
+    # P.V accumulated in bf16, at the main path's call.
+    _, q, k, v, causal, _ = cases[-1]
+    worst = _worst(_flash_bf16_acc(q, k, v, causal=causal),
+                   flash_attention_plain(q, k, v, causal=causal), FLASH_TOL["bfloat16"])
+    print(f"[lm-kernels] control: flash with P.V accumulated in bf16 against the plain "
+          f"version, main path call: worst |err| / limit {worst:.3f} (must exceed 1)")
+    if worst <= 1.0:
+        failures.append("the elementwise flash limit does not see P.V accumulated in bf16")
+
+    # The packed matmuls: each block matmul shape of qwen3-8b, a4 nibble codes
+    # of one per-slice layer view, bf16 activations as the main path gives
+    # them, at M = 2048 (prefill, tiled) and M = 16 (decode step). The
+    # decoded weights are exact in bf16, so the inputs are bf16 and one bf16
+    # torch.matmul (float32 accumulation) on the dequantized weight is the
+    # library yardstick.
+    fmt = resolve_format("elp4")
+    shapes = [("wq/wo", 4096, 4096, 2), ("wk/wv", 4096, 1024, 2), ("w1/w3", 4096, 12288, 2),
+              ("w2", 12288, 4096, 1)]
+    for label, kdim, n, per_layer in shapes:
+        w = (torch.randn(1, kdim, n, device=dev, generator=gen) / math.sqrt(kdim)).to(torch.bfloat16)
+        pw = quantize_stacked(w, fmt).layer(0)
+        wq = ops.dequantize(pw).to(torch.bfloat16)
+        del w
+        for name, kernel, plain, m, weight in (
+            ("elp_bsd_matmul", elp_bsd_matmul, elp_bsd_matmul_plain, LM_BATCH * LM_PROMPT,
+             n_layers * per_layer),
+            ("fused_decode_matmul", fused_decode_matmul, fused_decode_matmul_plain, LM_BATCH,
+             steps * n_layers * per_layer),
+        ):
+            x = torch.randn(m, kdim, device=dev, generator=gen).to(torch.bfloat16)
+            # float32 out, as quantized_matmul asks of the kernels
+            run = lambda: kernel(x, pw.codes, pw.sf, fmt, nibble=True,  # noqa: E731
+                                 out_dtype=torch.float32)
+            ref = lambda: plain(x, pw.codes, pw.sf, fmt, nibble=True,  # noqa: E731
+                                out_dtype=torch.float32)
+            library = lambda: torch.matmul(x, wq)  # noqa: E731
+            row = {"shape": f"{label} M={m} K={kdim} N={n}", "weight": weight, "lm": True}
+            record(name, row, run(), ref(), (0.0, REL_TOL))
+            row["library_ms"] = timed_ms(library, torch, flush)
+            row["ms"] = timed_ms(run, torch, flush)
+            row["plain_ms"] = timed_ms(ref, torch, flush)
+            row.update(bound(2.0 * m * kdim * n, x.numel() * 2 + pw.codes.numel() + 4 + m * n * 4,
+                             x.dtype))
+            row["tflops"] = row["flops"] / row["ms"] / 1e9
+            rows[name].append(row)
+    for name in ("flash_attention", "elp_bsd_matmul", "fused_decode_matmul"):
+        for r in rows[name]:
+            if r.get("lm"):
+                print(f"[lm-kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms "
+                      f"({r['tflops']:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, library "
+                      f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+                      f"{r['weight']} launches per generate")
+
+
+def _counts():
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_decode import fused_decode_matmul
+
+    return (elp_bsd_matmul.launches, fused_decode_matmul.launches, flash_attention.launches)
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_decode import fused_decode_matmul
+
+    for k in (elp_bsd_matmul, fused_decode_matmul, flash_attention):
+        k.launches = 0
+
+
+def _teacher_forced(torch, transformer, params, cfg, prompts, tokens, cache) -> list:
+    """Logits of the prefill and of each decode step fed ``tokens[:, i]``."""
+    logits, cache = transformer.prefill(params, cfg, prompts, cache)
+    out = [logits]
+    for i in range(tokens.shape[1] - 1):
+        logits, cache = transformer.decode_step(params, cfg, tokens[:, i:i + 1], cache,
+                                                prompts.shape[1] + i)
+        out.append(logits)
+    return out
+
+
+def _rel(got: list, want: list) -> float:
+    """Largest max |got - want| / max |want| over the positions."""
+    return max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(got, want))
+
+
+def _plain_flash(shift: int = 0):
+    """The plain flash version under the kernel's signature; ``shift`` > 0 plants a
+    fault: each query also sees the ``shift`` keys after it."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    def flash(q, k, v, *, causal=True, block_q=128, block_k=128, q_offset=0):
+        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset + shift)
+    return flash
+
+
+def _flash_probs(q, k, q_offset: int, causal: bool, dtype):
+    """Unnormalised softmax numerators in ``dtype``, as the plain version forms them."""
+    import torch
+
+    group = q.shape[1] // k.shape[1]
+    logits = (q.to(dtype) * (1.0 / math.sqrt(q.shape[3]))) @ (
+        k.to(dtype).repeat_interleave(group, dim=1).transpose(-1, -2))
+    if causal:
+        qpos = q_offset + torch.arange(q.shape[2], device=q.device)
+        logits = logits.masked_fill(qpos[:, None] < torch.arange(k.shape[2], device=q.device),
+                                    -1e30)
+    return torch.exp(logits - logits.amax(-1, keepdim=True))
+
+
+def _flash_f64(q, k, v, *, causal=True, block_q=128, block_k=128, q_offset=0):
+    """Attention summed in float64 and rounded once to q's type: a correct result."""
+    import torch
+
+    p = _flash_probs(q, k, q_offset, causal, torch.float64)
+    vd = v.double().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    return ((p @ vd) / p.sum(-1, keepdim=True)).to(q.dtype)
+
+
+def _flash_bf16_acc(q, k, v, *, causal=True, block_q=128, block_k=128, q_offset=0):
+    """A planted fault: P·V accumulated in bfloat16, one key at a time."""
+    import torch
+
+    p = _flash_probs(q, k, q_offset, causal, torch.float32)
+    vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    acc = torch.zeros(*p.shape[:3], vf.shape[3], dtype=torch.bfloat16, device=q.device)
+    for j in range(k.shape[2]):
+        acc = (acc.float() + p[..., j:j + 1] * vf[:, :, j:j + 1]).to(torch.bfloat16)
+    return (acc.float() / p.sum(-1, keepdim=True)).to(q.dtype)
+
+
+def _f64_sum(x, codes, sf, fmt, *, nibble=False, out_dtype=None):
+    """The plain product summed in float64 and rounded once: a correct result."""
+    import torch
+
+    from repro_torch.kernels.ref import decode_values_shift_add, unpack_nibbles_k
+
+    w = decode_values_shift_add(unpack_nibbles_k(codes) if nibble else codes, fmt)
+    out = torch.matmul(x.double(), w[: x.shape[1]].double()) * sf.double().reshape(())
+    return out.float().to(out_dtype or x.dtype)
+
+
+def _bf16_step(fn, gen):
+    """``fn`` with each element of its output moved one bfloat16 step up or down at random."""
+    import torch
+
+    def moved(*args, **kwargs):
+        y = fn(*args, **kwargs)
+        yf = y.float()
+        _, e = torch.frexp(yf)  # 2^(e-1) <= |y| < 2^e: one bf16 step is 2^(e-8)
+        sign = torch.randint(0, 2, y.shape, device=y.device, generator=gen) * 2 - 1
+        return (yf + torch.ldexp(sign.float(), e - 8) * (yf != 0)).to(y.dtype)
+    return moved
+
+
+def _skip_k_tail(x, codes, sf, fmt, *, nibble=False, out_dtype=None):
+    """A planted fault: the plain decode-step product without its last 128 K rows."""
+    from repro_torch.kernels.fused_decode import fused_decode_matmul_plain
+
+    k = x.shape[1] - 128
+    return fused_decode_matmul_plain(x[:, :k], codes[:k // 2 if nibble else k], sf, fmt,
+                                     nibble=nibble, out_dtype=out_dtype)
+
+
+def lm_main_path(torch, dev, failures) -> dict:
+    """Full-width qwen3-8b: seeded params, api.quantize, QuantizedModel.generate;
+    then the same packed model with each kernel swapped for its plain version."""
+    import repro_torch.kernels.ops as ops_mod
+    import repro_torch.models.transformer as transformer
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul_plain
+    from repro_torch.kernels.fused_decode import fused_decode_matmul_plain
+    from repro_torch.runtime.quantized_params import QUANTIZABLE
+
+    cfg = get_config("qwen3_8b")
+    n_layers = cfg.n_layers
+    per_layer = 7  # wq, wk, wv, wo, w1, w3, w2
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    calib = torch.randint(0, cfg.vocab, (2, 4, LM_PROMPT), device=dev, generator=gen)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    n_par = sum(v.numel() for k, v in params.items() if k != "blocks")
+    n_par += sum(v.numel() for v in params["blocks"].values())
+    bf16_bytes = sum(v.numel() * v.element_size() for k, v in params["blocks"].items()
+                     if k in QUANTIZABLE)
+    print(f"[lm] seeded qwen3-8b params ({n_par} weights, {cfg.dtype}) on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    qm = api.quantize(cfg, params, api.QuantScheme(fmt="elp4", act="static"), calib_data=calib)
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    del params  # the float block weights go; embed, norms and lm_head live on in qm.params
+    torch.cuda.empty_cache()
+    rep = qm.report
+    print(f"[lm] conversion s {conv_s:.2f} (api.quantize: calibrate on 2x4x{LM_PROMPT} tokens, "
+          f"pack {n_layers * per_layer} layer slices); block matmul code + sf bytes "
+          f"{rep.packed_weight_bytes} against {bf16_bytes} bf16 bytes of the same leaves "
+          f"({bf16_bytes / rep.packed_weight_bytes:.2f}x); memory_allocated after dropping the "
+          f"float blocks {torch.cuda.memory_allocated()} B")
+
+    # The main path, counted from zero, with each prefill and decode step of
+    # static_generate counted on its own (the model API it calls is wrapped
+    # here, in this script only).
+    phases = []
+
+    def counting_get_model(cfg_):
+        inner = real_get_model(cfg_)
+
+        def wrap(fn, label):
+            def call(*args, **kwargs):
+                before = _counts()
+                out = fn(*args, **kwargs)
+                phases.append((label, tuple(a - b for a, b in zip(_counts(), before))))
+                return out
+            return call
+
+        return dataclasses.replace(inner, prefill=wrap(inner.prefill, "prefill"),
+                                   decode_step=wrap(inner.decode_step, "decode"))
+
+    real_get_model = engine_mod.get_model
+    engine_mod.get_model = counting_get_model
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    try:
+        t0 = time.perf_counter()
+        new = qm.generate(prompts, LM_NEW)
+        torch.cuda.synchronize()
+        gen_first_s = time.perf_counter() - t0
+    finally:
+        engine_mod.get_model = real_get_model
+    c = _counts()
+    want_phases = ([("prefill", (n_layers * per_layer, 0, n_layers))]
+                   + [("decode", (0, n_layers * per_layer, 0))] * (LM_NEW - 1))
+    print(f"[lm] launches (tiled, decode-step, flash) by phase of the generate: prefill "
+          f"{phases[0][1] if phases else None}, decode steps "
+          f"{sorted(set(p_[1] for p_ in phases[1:]))} over {len(phases) - 1} steps")
+    if phases != want_phases:
+        failures.append(f"LM launch counts by phase {phases}")
+    launches = {"elp_bsd_matmul": c[0], "fused_decode_matmul": c[1], "flash_attention": c[2]}
+    want = (n_layers * per_layer, (LM_NEW - 1) * n_layers * per_layer, n_layers)
+    print(f"[lm] launches in one generate ({LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_NEW} new "
+          f"tokens): {launches} (expected {want})")
+    if c != want:
+        failures.append(f"LM launch counts {launches}")
+    if (tuple(new.shape) != (LM_BATCH, LM_NEW) or int(new.min()) < 0
+            or int(new.max()) >= cfg.vocab):
+        failures.append(f"generated tokens of shape {tuple(new.shape)} or out of the vocab")
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    again = qm.generate(prompts, LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if not torch.equal(again, new):
+        failures.append("a second generate gave other tokens")
+    print(f"[lm] generate: first {gen_first_s * 1e3:.1f} ms, second {gen_s * 1e3:.1f} ms; "
+          f"tokens/s {LM_BATCH * LM_NEW / gen_s:.1f} (second run); max_memory_allocated "
+          f"{peak} B (first generate)")
+
+    # Per phase: the prefill and each decode step through the model API, counted and timed.
+    p = qm.params
+    cache = transformer.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+    pre_ms, step_ms, kernel_logits = [], [], None
+    for run in range(3):
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(p, cfg, prompts, cache)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+        if _counts() != (n_layers * per_layer, 0, n_layers):
+            failures.append(f"prefill launch counts {_counts()}")
+        outs, toks, times = [logits], [logits.argmax(-1).to(torch.int32)], []
+        for i in range(LM_NEW - 1):
+            _zero_counts()
+            t0 = time.perf_counter()
+            logits, cache = transformer.decode_step(p, cfg, toks[-1], cache, LM_PROMPT + i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if _counts() != (0, n_layers * per_layer, 0):
+                failures.append(f"decode step {i} launch counts {_counts()}")
+            outs.append(logits)
+            toks.append(logits.argmax(-1).to(torch.int32))
+        step_ms.append(times)
+        if not torch.equal(torch.cat(toks, 1), new):
+            failures.append(f"prefill/decode run {run} tokens differ from generate's")
+        if run == 0:
+            kernel_logits = outs
+    later_steps = [t for times in step_ms for t in times][1:]
+    print(f"[lm] prefill ms at b{LM_BATCH} s{LM_PROMPT}: first {pre_ms[0]:.2f}, median of the "
+          f"later {statistics.median(pre_ms[1:]):.2f} (runs {[round(t, 2) for t in pre_ms]})")
+    print(f"[lm] decode ms/step at b{LM_BATCH}: first {step_ms[0][0]:.3f}, median of the later "
+          f"{statistics.median(later_steps):.3f} (min {min(later_steps):.3f}, max "
+          f"{max(later_steps):.3f}, {len(later_steps)} steps)")
+
+    # Held on the card: the same packed model and tokens with every kernel
+    # rebound to its plain version (here only; the package has no switch).
+    plain_mm = (elp_bsd_matmul_plain, fused_decode_matmul_plain)
+
+    def forced(params, mm, flash) -> list:
+        saved = (ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul, transformer.flash_attention)
+        (ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul), transformer.flash_attention = mm, flash
+        try:
+            return _teacher_forced(torch, transformer, params, cfg, prompts, new, cache)
+        finally:
+            ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul, transformer.flash_attention = saved
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    plain_logits = forced(p, plain_mm, _plain_flash())
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if _counts() != (0, 0, 0):
+        failures.append(f"the plain run launched kernels {_counts()}")
+    rels, checked, agree = [], 0, 0
+    for j, (kl, pl) in enumerate(zip(kernel_logits, plain_logits)):
+        scale = pl.abs().max().item()
+        rels.append((kl - pl).abs().max().item() / scale)
+        top2 = pl[:, -1].topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > LM_LOGIT_REL_TOL * scale
+        same = new[:, j] == pl[:, -1].argmax(-1)
+        checked += int(clear.sum())
+        agree += int((same & clear).sum())
+        if not bool(same[clear].all()):
+            failures.append(f"greedy token {j} differs from the plain argmax where its gap is clear")
+    all_same = sum(int((new[:, j] == pl[:, -1].argmax(-1)).sum())
+                   for j, pl in enumerate(plain_logits))
+    print(f"[lm] kernels vs plain versions, teacher-forced on the generated tokens "
+          f"({plain_s:.1f} s plain): max |logit diff| / max |logit| per position "
+          f"{[f'{r:.2e}' for r in rels]} (limit {LM_LOGIT_REL_TOL:g}); greedy = plain argmax at "
+          f"{all_same}/{LM_BATCH * LM_NEW} positions, {agree}/{checked} where the plain top-2 "
+          f"gap exceeds the limit")
+    if max(rels) > LM_LOGIT_REL_TOL:
+        failures.append(f"LM logits: kernels vs plain {max(rels):.3e} relative")
+
+    # Controls of that gate, each against the plain run: correct changes of
+    # rounding (its noise; moving every output a whole bf16 step is more than
+    # a correct kernel does), a subtle fault inside that noise, and gross
+    # faults of the kind a wrong kernel makes, which must read above the limit.
+    step_gen = torch.Generator(device=dev).manual_seed(4)
+    controls = [
+        ("noise", "every kernel's function summed in float64, rounded once",
+         (_f64_sum,) * 2, _flash_f64),
+        ("noise", "every flash output moved one bf16 step up or down", plain_mm,
+         _bf16_step(_plain_flash(), step_gen)),
+        ("noise", "every matmul output moved one bf16 step up or down",
+         tuple(_bf16_step(f, step_gen) for f in plain_mm), _plain_flash()),
+        ("subtle fault", "flash accumulates P.V in bf16", plain_mm, _flash_bf16_acc),
+        ("fault", "flash lets each query see the next key", plain_mm, _plain_flash(shift=1)),
+        ("fault", "the decode-step matmul skips its last 128 K rows",
+         (elp_bsd_matmul_plain, _skip_k_tail), _plain_flash()),
+    ]
+    for kind, label, mm, flash in controls:
+        r = _rel(forced(p, mm, flash), plain_logits)
+        print(f"[lm-control] static act, {kind}: {label}: {r:.3e} of max |logit| "
+              f"(limit {LM_LOGIT_REL_TOL:g})")
+        if kind == "fault" and r <= LM_LOGIT_REL_TOL:
+            failures.append(f"the LM logit gate does not see the planted fault: {label}")
+    del qm, p, kernel_logits, plain_logits
+    torch.cuda.empty_cache()
+
+    # The same reading with float activations, where no 8-bit rounding
+    # step amplifies the float32 and bf16 rounding differences.
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0)
+    qf = api.quantize(cfg, params, api.QuantScheme(fmt="elp4", act="float"))
+    del params
+    torch.cuda.empty_cache()
+    pf = qf.params
+    kernels_f = forced(pf, (ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul),
+                       transformer.flash_attention)
+    plain_f = forced(pf, plain_mm, _plain_flash())
+    noise_f = forced(pf, (_f64_sum,) * 2, _flash_f64)
+    rel_f, noise_rel_f = _rel(kernels_f, plain_f), _rel(noise_f, plain_f)
+    print(f"[lm-control] float act ({time.perf_counter() - t0:.1f} s): kernels vs plain "
+          f"{rel_f:.3e} of max |logit| (limit {LM_FLOAT_LOGIT_REL_TOL:g}); noise, every "
+          f"kernel's function summed in float64, {noise_rel_f:.3e}")
+    if rel_f > LM_FLOAT_LOGIT_REL_TOL:
+        failures.append(f"LM logits, float act: kernels vs plain {rel_f:.3e} relative")
+    del qf, pf, cache, kernels_f, plain_f, noise_f
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_card_vs_cpu(torch, dev, failures) -> None:
+    """Reduced qwen3-8b (2 layers), packed once on the CPU: card against CPU."""
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config("qwen3_8b").reduced()
+    params = transformer.init_params(cfg, 0, device="cpu")
+    g = torch.Generator().manual_seed(3)
+    calib = torch.randint(0, cfg.vocab, (2, 4, 32), generator=g)
+    prompts = torch.randint(0, cfg.vocab, (4, 80), generator=g)  # prefill M = 320: tiled
+    for act, rel in (("float", FLOAT_LOGIT_REL_TOL), ("static", STATIC_LOGIT_REL_TOL)):
+        qc = api.quantize(cfg, params, api.QuantScheme(fmt="elp4", act=act),
+                          calib_data=calib if act == "static" else None, device="cpu")
+        qg = qc.to(dev)
+        tc = qc.generate(prompts, 8)
+        tg = qg.generate(prompts.to(dev), 8).cpu()
+        lc = _teacher_forced(torch, transformer, qc.params, cfg, prompts, tc,
+                             transformer.init_cache(cfg, 4, 88, device="cpu"))
+        lg = _teacher_forced(torch, transformer, qg.params, cfg, prompts.to(dev), tc.to(dev),
+                             transformer.init_cache(cfg, 4, 88, device=dev))
+        diff = max((a.cpu() - b).abs().max().item() / b.abs().max().item()
+                   for a, b in zip(lg, lc))
+        same = bool(torch.equal(tc, tg))
+        print(f"[lm-small] {cfg.name} act={act}: card vs CPU logits (prefill + 7 steps) max "
+              f"{diff:.3e} of max |logit| (limit {rel:g}); greedy tokens identical {same}")
+        if diff > rel or (act == "float" and not same):
+            failures.append(f"reduced LM card vs CPU, act={act}")
 
 
 def main() -> int:
@@ -106,8 +641,8 @@ def main() -> int:
 
     # -- phase 2: build ----------------------------------------------------------
     t0 = time.perf_counter()
-    reports = _build.build(["elp_bsd_matmul", "fused_decode"])
-    print(f"[build] nvcc {time.perf_counter() - t0:.1f} s for both kernels")
+    reports = _build.build(["elp_bsd_matmul", "fused_decode", "flash_attention"])
+    print(f"[build] nvcc {time.perf_counter() - t0:.1f} s for the three kernels (in parallel)")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -162,10 +697,9 @@ def main() -> int:
         row["ms"] = timed_ms(run, torch, flush)
         row["plain_ms"] = timed_ms(ref, torch, flush)
         # The function's own work: x, codes and sf read once, out written once.
-        flops = 2.0 * m * kdim * n
         nbytes = lhs.numel() * 4 + pw.codes.numel() + 4 + m * n * 4
-        row.update(bound(flops, nbytes))
-        row["tflops"] = flops / row["ms"] / 1e9
+        row.update(bound(2.0 * m * kdim * n, nbytes, lhs.dtype))
+        row["tflops"] = row["flops"] / row["ms"] / 1e9
         rows[name].append(row)
 
     # The five AlexNet convs at batch 64: (input H = W, Cin, k, stride, Cout).
@@ -271,6 +805,25 @@ def main() -> int:
             failures.append(f"card logits ({label}) differ from the CPU port")
     print(f"[main] CPU reference runs took {time.perf_counter() - t0:.1f} s")
 
+    cnn_launches = launches
+    del qm, qm_cpu, params, calib, batch, logits, float_card, pairs
+    torch.cuda.empty_cache()
+
+    # -- phase 5: the LM path's kernels at its shapes ------------------------------
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    rows["flash_attention"] = []
+    for r in rows["elp_bsd_matmul"] + rows["fused_decode_matmul"]:
+        r["weight"] = 1  # each AlexNet shape runs once per forward
+    lm_kernel_phase(torch, dev, gen, flush, rows, failures)
+    del flush
+    torch.cuda.empty_cache()
+
+    # -- phase 6: the LM main path, and phase 7: its kernels held on the card -----
+    lm_launches = lm_main_path(torch, dev, failures)
+
+    # -- phase 8: the reduced LM on the card against the CPU -----------------------
+    lm_card_vs_cpu(torch, dev, failures)
+
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
         return 1
@@ -280,23 +833,26 @@ def main() -> int:
                            "src/repro/kernels/elp_bsd_matmul.py:69"),
         "fused_decode_matmul": ("src/repro_torch/csrc/fused_decode.cu",
                                 "src/repro/kernels/fused_decode.py:70"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:71"),
     }
     kernels = []
     for name, rs in rows.items():
-        # one forward's worth: the sums over the main path's shapes
-        ops_ms, bytes_ms = sum(r["ops_ms"] for r in rs), sum(r["bytes_ms"] for r in rs)
+        # both main paths' worth: every shape's time times its launches there
+        rs = [r for r in rs if r.get("weight")]
+        wsum = lambda key: sum(r["weight"] * r[key] for r in rs)  # noqa: E731
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": sources[name][0],
             "replaces": sources[name][1],
-            "launches": launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": sum(r["ms"] for r in rs),
-            "plain_ms": sum(r["plain_ms"] for r in rs),
-            "bound_ms": sum(r["bound_ms"] for r in rs),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": sum(r["library_ms"] for r in rs),
+            "launches": cnn_launches.get(name, 0) + lm_launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "ms": wsum("ms"),
+            "plain_ms": wsum("plain_ms"),
+            "bound_ms": wsum("bound_ms"),
+            "bound_by": "operations" if wsum("ops_ms") >= wsum("bytes_ms") else "bytes",
+            "library_ms": wsum("library_ms"),
         })
     print(json.dumps({"kernels": kernels}))
     print(f"{smi}")

@@ -8,7 +8,8 @@ package is imported: the first launch builds what it needs, and
 :func:`build` compiles several sources at once (one ``nvcc`` each, all
 started together) and returns each one's ``-Xptxas -v`` report.
 
-Every kernel has two C entry points::
+Each library is loaded with the ctypes signatures of its C entry points
+(:func:`load`). The two packed matmul kernels share two::
 
     long long <name>_workspace(int M, int N, int K)
     int <name>_f32(const float* x, const uint8_t* codes, const float* sf, float* out,
@@ -20,7 +21,8 @@ partial sums on the current device (0 for none, -1 for a shape the kernel
 cannot take): the kernel's source picks the split from its own tiles and
 its occupancy. The second launches on ``stream`` with that workspace and
 returns the launches' ``cudaError_t``, or -1 for a descriptor, shape or
-workspace the kernel cannot take.
+workspace the kernel cannot take. The attention kernel's entry point is
+declared by its wrapper (:mod:`repro_torch.kernels.flash_attention`).
 """
 from __future__ import annotations
 
@@ -94,21 +96,33 @@ def build(names: list[str]) -> dict[str, str]:
     return reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu`` (built on first use)."""
+def matmul_signatures(name: str) -> dict:
+    """ctypes signatures of a packed matmul library's two entry points."""
+    # Every pointer and the stream as c_void_p: left undeclared, ctypes
+    # would pass them as 32-bit ints and cut them.
+    return {
+        f"{name}_f32": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                        + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
+                        ctypes.c_int),
+        f"{name}_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
+    }
+
+
+def load(name: str, signatures: dict | None = None) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu`` (built on first use).
+
+    ``signatures`` maps each C entry point to its ``(argtypes, restype)``;
+    the default is the packed matmul kernels' pair (:func:`matmul_signatures`).
+    """
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(lib_path(name)))
-        fn = getattr(lib, f"{name}_f32")
-        # Every pointer and the stream as c_void_p: left undeclared, ctypes
-        # would pass them as 32-bit ints and cut them.
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        ws = getattr(lib, f"{name}_workspace")
-        ws.argtypes = [ctypes.c_int] * 3
-        ws.restype = ctypes.c_longlong
+        sigs = signatures if signatures is not None else matmul_signatures(name)
+        for fn_name, (argtypes, restype) in sigs.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = restype
         _LIBS[name] = lib
     return lib
 

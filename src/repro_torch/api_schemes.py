@@ -1,12 +1,15 @@
-"""Quantization schemes and the CNN adapter behind :mod:`repro_torch.api`.
+"""Quantization schemes and the model adapters behind :mod:`repro_torch.api`.
 
 :class:`QuantScheme` is the JAX package's frozen description of one
 CoNLoCNN conversion (weight format, granularity, nibble packing,
 Algorithm 1, the activation policy and its calibration knobs, kernel
 blocks, the Sec. V search knobs), validated the same way.
-:class:`CnnAdapter` puts a :class:`~repro_torch.models.cnn.CnnSpec` behind
-the calls :func:`repro_torch.api.quantize` makes. LM adapters are not
-ported yet (ROADMAP.md, queue 1).
+:class:`CnnAdapter` puts a :class:`~repro_torch.models.cnn.CnnSpec` and
+:class:`LmAdapter` a decoder-LM
+:class:`~repro_torch.configs.base.ArchConfig` behind the calls
+:func:`repro_torch.api.quantize` makes. The packing walks live here:
+:func:`pack_cnn_params` and :func:`pack_lm_params` (with
+:func:`stamp_lm_act`).
 """
 from __future__ import annotations
 
@@ -16,8 +19,11 @@ from typing import Any, ClassVar
 import torch
 
 from repro_torch.calib.policy import CLIP_MODES, CalibrationTable
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.elp_bsd import ElpBsdFormat, resolve_format
+from repro_torch.kernels.ops import PackedWeight
 from repro_torch.models.cnn import CnnSpec
+from repro_torch.runtime.quantized_params import ACT_SITE_BY_LEAF, QUANTIZABLE, quantize_stacked
 
 ACT_POLICIES = ("float", "dynamic", "static")
 GRANULARITIES = (None, "per_tensor", "per_channel", "per_slice")
@@ -33,7 +39,7 @@ class QuantScheme:
     ``act`` is ``"float"``, ``"dynamic"`` or ``"static"`` (calibrated
     scales, needs ``calib_data``); ``block_sizes`` is None or a
     ``(block_m, block_n, block_k)`` tuple. The speculative fields are
-    validated but belong to the LM serve path, not ported yet.
+    validated, but speculative decoding is not ported yet.
     """
 
     fmt: str = "elp_bsd_a4"
@@ -184,13 +190,178 @@ class CnnAdapter:
             nibble=scheme.nibble,
         )
 
+    def generate(self, params, batch, max_new_tokens: int, **kw):
+        raise NotImplementedError(
+            "CNN models classify — use QuantizedModel.forward(images); "
+            "generate() is the LM serve path"
+        )
 
-def as_adapter(model) -> CnnAdapter:
-    """``CnnSpec`` -> :class:`CnnAdapter` (idempotent); LMs are not ported yet."""
+
+def _map_named(fn, tree, name=None):
+    """``fn(name, leaf)`` over a nested params dict, ``name`` the leaf's own key."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, k) for k, v in tree.items()}
+    return fn(name, tree)
+
+
+def stamp_lm_act(packed: dict, calib: CalibrationTable) -> dict:
+    """Stamp static activation quantizers onto a packed LM tree.
+
+    Each PackedWeight gets the scale of the tap site measuring its input:
+    the leaf's own site when the table has one, else
+    :data:`~repro_torch.runtime.quantized_params.ACT_SITE_BY_LEAF`. Leaves
+    without a measured site stay without activation quantization.
+    """
+    def visit(name, leaf):
+        if isinstance(leaf, PackedWeight):
+            sc = calib.lookup(name, default=ACT_SITE_BY_LEAF.get(name))
+            if sc is not None:
+                return dataclasses.replace(leaf, act_scale=sc.amax, act_bits=sc.bits)
+        return leaf
+
+    return _map_named(visit, packed)
+
+
+def pack_lm_params(
+    params: dict,
+    cfg: ArchConfig,
+    fmt: "ElpBsdFormat | str",
+    *,
+    compensate: bool = True,
+    calib: CalibrationTable | None = None,
+) -> dict:
+    """Replace every quantizable matmul leaf with a stacked PackedWeight.
+
+    ``calib`` (from :func:`repro_torch.calib.runner.calibrate_lm`) also
+    runs :func:`stamp_lm_act`. The float leaves that are packed are not
+    kept in the result.
+    """
+    del cfg  # the walk is name-driven, as in the JAX package
+    fmt = resolve_format(fmt)
+
+    def visit(name, leaf):
+        if name in QUANTIZABLE and leaf.ndim >= 2:
+            return quantize_stacked(leaf, fmt, compensate=compensate)
+        return leaf
+
+    packed = _map_named(visit, params)
+    return stamp_lm_act(packed, calib) if calib is not None else packed
+
+
+# Families whose forward supports the activation-tap contract, of those ported.
+_LM_TAP_FAMILIES = ("dense",)
+
+
+@dataclasses.dataclass(frozen=True)
+class LmAdapter:
+    """Decoder LMs (an ``ArchConfig`` of a ported family) behind the façade.
+
+    ``forward(tokens)`` is a fresh-cache prefill returning the last
+    position's logits. Static activation scales are baked into the
+    PackedWeights at pack time.
+    """
+
+    cfg: ArchConfig
+    kind: ClassVar[str] = "lm"
+
+    def init_params(self, seed: int = 0, *, device=None):
+        from repro_torch.models import get_model
+
+        return get_model(self.cfg).init_params(self.cfg, seed, device=device)
+
+    def _batch(self, x) -> dict:
+        return x if isinstance(x, dict) else {"tokens": x}
+
+    def forward(self, params, x, **kw):
+        from repro_torch.models import get_model
+
+        api = get_model(self.cfg)
+        batch = self._batch(x)
+        b, s = batch["tokens"].shape
+        cache = api.init_cache(self.cfg, b, s + (self.cfg.frontend_tokens or 0),
+                               device=params["embed"].device)
+        logits, _ = api.prefill(params, self.cfg, batch, cache)
+        return logits
+
+    def tapped_forward(self, params):
+        from repro_torch.calib.runner import TapCollector
+        from repro_torch.models import transformer
+
+        if self.cfg.family not in _LM_TAP_FAMILIES:
+            raise NotImplementedError(
+                f"activation taps are implemented for {_LM_TAP_FAMILIES} families, "
+                f"not {self.cfg.family!r}"
+            )
+
+        def tapped(tokens):
+            tc = TapCollector()
+            transformer.forward(params, self.cfg, tokens, tap=tc)
+            return tc.acts
+
+        return tapped
+
+    def calibrate(self, params, calib_data, scheme: QuantScheme):
+        from repro_torch.calib.runner import calibrate_lm
+
+        if self.cfg.family not in _LM_TAP_FAMILIES:
+            raise NotImplementedError(
+                f"static activation calibration needs the tap contract, implemented "
+                f"for {_LM_TAP_FAMILIES} families — not {self.cfg.family!r}"
+            )
+        table = calibrate_lm(
+            params, self.cfg, calib_data, bits=scheme.resolved_act_bits() or 8,
+            clip=scheme.clip, pct=scheme.pct, rho_threshold=scheme.rho_threshold,
+        )
+        return table, params
+
+    def pack(self, params, scheme: QuantScheme, table: CalibrationTable | None = None):
+        if scheme.granularity not in (None, "per_slice"):
+            raise ValueError(
+                "stacked LM matmuls quantize per_slice (one SF per layer slice); "
+                f"granularity={scheme.granularity!r} has no meaning here"
+            )
+        if scheme.act == "dynamic":
+            raise ValueError(
+                'LM serving implements act="float" and act="static" (calibrated '
+                "scales baked into the packed weights); there is no dynamic-range "
+                'activation path in the decode graph — use act="static" with '
+                'calib_data, or act="float"'
+            )
+        return pack_lm_params(params, self.cfg, scheme.format, compensate=scheme.compensate,
+                              calib=table)
+
+    def stamp_act(self, packed, table: CalibrationTable):
+        return stamp_lm_act(packed, table)
+
+    def generate(self, params, batch, max_new_tokens: int, *, greedy: bool = True,
+                 generator=None, max_len: int | None = None):
+        """Lockstep generation through :func:`repro_torch.serve.engine.static_generate`.
+
+        The JAX package sends greedy keyless calls to its continuous-batching
+        ``ServeEngine``, which its own tests hold token-identical to
+        ``static_generate``; until the engine is ported (ROADMAP.md, queue 1
+        item 6) every call takes the static loop.
+        """
+        from repro_torch.serve.engine import ServeSetup, static_generate
+
+        batch = self._batch(batch)
+        b, s = batch["tokens"].shape
+        if max_len is None:
+            max_len = s + max_new_tokens + (self.cfg.frontend_tokens or 0)
+        setup = ServeSetup(cfg=self.cfg, mesh=None, max_len=max_len, batch=b)
+        return static_generate(setup, params, batch, max_new_tokens, greedy=greedy,
+                               generator=generator)
+
+
+def as_adapter(model):
+    """``CnnSpec`` -> :class:`CnnAdapter`, ``ArchConfig`` -> :class:`LmAdapter` (idempotent)."""
     if isinstance(model, CnnSpec):
         return CnnAdapter(model)
-    if isinstance(model, CnnAdapter):
+    if isinstance(model, ArchConfig):
+        return LmAdapter(model)
+    if isinstance(model, (CnnAdapter, LmAdapter)):
         return model
     raise NotImplementedError(
-        f"repro_torch converts CNNs (a CnnSpec); {type(model).__name__} models are {NOT_PORTED}"
+        f"repro_torch converts CNNs (a CnnSpec) and decoder LMs (an ArchConfig); "
+        f"{type(model).__name__} models are {NOT_PORTED}"
     )

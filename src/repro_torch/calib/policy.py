@@ -51,8 +51,14 @@ class CalibrationTable:
                 return s
         raise KeyError(f"no calibration for site {name!r}; have {self.names()}")
 
-    def lookup(self, name: str) -> SiteCalibration | None:
-        return self.site(name) if name in self.names() else None
+    def lookup(self, name: str, default: str | None = None) -> SiteCalibration | None:
+        """Site ``name``, else site ``default`` when given and present, else None."""
+        names = self.names()
+        if name in names:
+            return self.site(name)
+        if default is not None and default in names:
+            return self.site(default)
+        return None
 
 
 def build_table(

@@ -1,0 +1,21 @@
+"""qwen3-8b: dense GQA decoder with QK-norm. [hf:Qwen/Qwen3-8B]
+
+36L d_model=4096 32H (GQA kv=8) head_dim=128 d_ff=12288 vocab=151936.
+SwiGLU, qk_norm=True (per-head RMSNorm on Q and K), rope_theta=1e6.
+"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=12288,
+    vocab=151936,
+    head_dim=128,
+    mlp_kind="swiglu",
+    qk_norm=True,
+    rope_theta=1e6,
+)

@@ -47,16 +47,30 @@ def _check_uniform_bits(bits: int) -> None:
         )
 
 
+def _static_step(max_abs: float, qmax: float, device: torch.device) -> torch.Tensor:
+    """The float32 step ``max(max_abs, 1e-12) / qmax`` of a static quantizer, on ``device``."""
+    step = np.maximum(np.float32(max_abs), np.float32(1e-12)) / np.float32(qmax)
+    return torch.full((), float(step), dtype=torch.float32, device=device)
+
+
 def fake_quant_uniform(
     x: torch.Tensor, bits: int, max_abs: "float | torch.Tensor"
 ) -> torch.Tensor:
-    """Simulated symmetric fixed-point quantization (round half to even)."""
+    """Simulated symmetric fixed-point quantization (round half to even).
+
+    The step and the rounding are float32 whatever ``x``'s dtype, as in the
+    JAX package (its float32 scale promotes a bfloat16 ``x``). A Python
+    ``max_abs`` (a calibrated static scale) gives the same float32 step,
+    computed on the host and filled into a device tensor (a Python divisor
+    would make the card multiply by its reciprocal, which rounds otherwise).
+    """
     _check_uniform_bits(bits)
     qmax = float(2 ** (bits - 1) - 1)
-    scale = torch.clamp(
-        torch.as_tensor(max_abs, dtype=torch.float32, device=x.device), min=1e-12
-    ) / qmax
-    q = torch.clamp(torch.round(x / scale), -qmax, qmax)
+    if isinstance(max_abs, torch.Tensor):
+        scale = torch.clamp(max_abs.to(device=x.device, dtype=torch.float32), min=1e-12) / qmax
+    else:
+        scale = _static_step(float(max_abs), qmax, x.device)
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale), -qmax, qmax)
     return (q * scale).to(x.dtype)
 
 

@@ -1,1 +1,1 @@
-"""Packed ELP_BSD execution: the two Hopper kernels, their plain versions and wrappers."""
+"""The Hopper kernels (two packed matmuls, flash attention), their plain versions and wrappers."""

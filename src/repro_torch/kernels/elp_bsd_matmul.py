@@ -12,8 +12,9 @@ tiles staged in shared memory, codes decoded there by shift-add, an
 8 x 8 float32 micro-tile per thread, ragged edges masked, and K split over
 several blocks per tile (summed by a deterministic second pass) where the
 tiles alone would leave SMs idle in the last wave; the kernel's source
-picks that split from its own tiles and occupancy. On an H100 it is bound by the
-float32 CUDA-core rate (67 TFLOP/s); the bf16 tensor-core rate is the
+picks that split from its own tiles and occupancy. Its float32 arithmetic
+caps it at the H100's CUDA-core rate (67 TFLOP/s); on the LM path's bf16
+activations the work's own bound is the bf16 tensor-core rate, the
 headroom for a later variant. The decoded weight never reaches device
 memory.
 

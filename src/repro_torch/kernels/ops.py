@@ -34,12 +34,13 @@ IMPLS = ("auto", "tiled", "fused")
 
 @dataclasses.dataclass
 class PackedWeight:
-    """ELP_BSD-encoded weight matrix ``[K, N]``.
+    """ELP_BSD-encoded weight matrix ``[K, N]``, or a stack ``[L, K, N]`` of them.
 
     Attributes:
-      codes: uint8 ``[K, N]`` (u8 mode) or ``[ceil(K/2), N]`` (nibble mode).
+      codes: uint8 ``[K, N]`` (u8 mode) or ``[ceil(K/2), N]`` (nibble mode),
+        with a leading layer axis for a stacked LM leaf.
       sf: float32 scale factors, ``[1, 1]`` per tensor or ``[1, N]`` per
-        output channel.
+        output channel; ``[L, 1, 1]`` per layer slice of a stack.
       fmt_name: a preset format name.
       nibble: whether codes are nibble-packed along K.
       shape: logical ``(K, N)``.
@@ -67,6 +68,22 @@ class PackedWeight:
 
     def to(self, device) -> "PackedWeight":
         return dataclasses.replace(self, codes=self.codes.to(device), sf=self.sf.to(device))
+
+    @property
+    def n_layers(self) -> int | None:
+        """Slices of a stacked leaf (codes ``[L, K', N]``), None for one matrix."""
+        return self.codes.shape[0] if self.codes.ndim == 3 else None
+
+    def layer(self, i: int) -> "PackedWeight":
+        """Slice ``i`` of a stacked leaf as one ``[K', N]`` weight, sharing storage (no copy).
+
+        The codes become ``[K', N]`` and ``sf`` its one element, so the
+        slice goes through :func:`quantized_matmul` like any single weight.
+        """
+        if self.codes.ndim != 3:
+            raise ValueError(f"layer() slices a stacked [L, K', N] leaf; codes are "
+                             f"{tuple(self.codes.shape)}")
+        return dataclasses.replace(self, codes=self.codes[i], sf=self.sf[i])
 
 
 def pack_weight(
@@ -141,11 +158,26 @@ def pack_conv_weight(
     return pw, ct.values.to(w.dtype)
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a (nested) params dict, PackedWeights whole, in key order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of a (nested) params dict, PackedWeights whole."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def packed_tree_bytes(tree: dict, *, packed_only: bool = False) -> int:
-    """Weight-storage bytes of a flat params dict: codes plus float32 scales
-    per PackedWeight, ``numel * itemsize`` for other tensors unless ``packed_only``."""
+    """Weight-storage bytes of a (nested) params dict: codes plus float32 scales
+    per PackedWeight (stacked leaves whole), ``numel * itemsize`` for other
+    tensors unless ``packed_only``."""
     total = 0
-    for leaf in tree.values():
+    for leaf in tree_leaves(tree):
         if isinstance(leaf, PackedWeight):
             total += leaf.nbytes + leaf.sf.numel() * 4
         elif not packed_only:
@@ -155,11 +187,11 @@ def packed_tree_bytes(tree: dict, *, packed_only: bool = False) -> int:
 
 def _decode(pw: PackedWeight, decoder) -> torch.Tensor:
     codes = kref.unpack_nibbles_k(pw.codes) if pw.nibble else pw.codes
-    return (decoder(codes, pw.fmt) * pw.sf)[: pw.shape[0], : pw.shape[1]]
+    return (decoder(codes, pw.fmt) * pw.sf)[..., : pw.shape[0], : pw.shape[1]]
 
 
 def dequantize(pw: PackedWeight) -> torch.Tensor:
-    """Decode a PackedWeight to float32 ``[K, N]`` (select-chain decoder)."""
+    """Decode a PackedWeight to float32 ``[..., K, N]`` (select-chain decoder)."""
     return _decode(pw, kref.decode_values)
 
 
@@ -175,8 +207,8 @@ def dequantize_nd(pw: PackedWeight) -> torch.Tensor:
 
 
 def dequantize_tree(tree: dict) -> dict:
-    """Every PackedWeight of a flat params dict decoded to float32 (source layouts)."""
-    return {k: dequantize_nd(v) if isinstance(v, PackedWeight) else v for k, v in tree.items()}
+    """Every PackedWeight of a (nested) params dict decoded to float32 (source layouts)."""
+    return tree_map(lambda v: dequantize_nd(v) if isinstance(v, PackedWeight) else v, tree)
 
 
 def quantized_matmul(
@@ -224,7 +256,10 @@ def quantized_matmul(
             f"got block_k={block_k} for weight {pw.shape} fmt={pw.fmt_name}"
         )
     if pw.codes.ndim != 2:
-        raise ValueError("quantized_matmul takes a single [K, N] weight")
+        raise ValueError(
+            "quantized_matmul takes a single [K, N] weight; slice a stacked leaf with "
+            "PackedWeight.layer(i)"
+        )
     if impl == "auto":
         impl = "fused" if m0 <= MAX_FUSED_M else "tiled"
     # No padding: the kernels mask ragged M, N and K, so K rows past the

@@ -11,7 +11,6 @@ fc layers through :func:`~repro_torch.kernels.ops.quantized_matmul`.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any
 
 import numpy as np
@@ -22,6 +21,7 @@ from repro_torch.core.quantize import fake_quant_dynamic, fake_quant_uniform
 from repro_torch.device import full_f32, resolve_device
 from repro_torch.kernels.conv import conv2d_nhwc, quantized_conv2d
 from repro_torch.kernels.ops import PackedWeight, quantized_matmul
+from repro_torch.models.layers import dense_init
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,18 +109,6 @@ VGG_MINI = CnnSpec(
     (Conv(16, 3), Conv(16, 3), Pool(), Conv(32, 3), Conv(32, 3), Pool(), Fc(128), Fc(10)),
     input_hw=32,
 )
-
-
-def dense_init(
-    gen: torch.Generator, shape: tuple[int, ...], dtype=torch.float32, scale: float = 1.0,
-    device=None,
-) -> torch.Tensor:
-    """Truncated-normal fan-in init (He-style), fan-in = ``shape[0]``, cut at 2 std."""
-    fan_in = shape[0] if len(shape) >= 2 else 1
-    std = scale / math.sqrt(max(fan_in, 1))
-    w = torch.empty(shape, dtype=torch.float32)
-    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * std).to(dtype=dtype, device=device)
 
 
 def init_params(spec: CnnSpec, seed: int = 0, dtype=torch.float32, device=None) -> dict:

@@ -66,9 +66,12 @@ def test_not_ported_features_raise_not_implemented(mini):
         api.quantize(object(), params, device="cpu")
     qm = api.quantize(cnn.ALEXNET_MINI, params, device="cpu")
     for call in (lambda: qm.save("x"), lambda: api.QuantizedModel.load("x"),
-                 lambda: qm.generate(None, 4), lambda: qm.serve([])):
+                 lambda: qm.serve([])):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
+    # generation is the LM path (ported); a CNN artifact says so, as in the JAX package
+    with pytest.raises(NotImplementedError, match="CNN models classify"):
+        qm.generate(None, 4)
     with pytest.raises(ValueError, match="calib_data"):
         api.quantize(cnn.ALEXNET_MINI, params, api.QuantScheme(act="static"), device="cpu")
 

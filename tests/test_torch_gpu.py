@@ -161,3 +161,140 @@ def test_entry_points_default_to_the_card(cuda):
     assert all(v.device.type == "cuda" for v in params.values())
     assert math.isclose(float(params["fc3_w"].std()), float(
         cnn.init_params(cnn.ALEXNET_MINI, seed=1, device="cpu")["fc3_w"].std()), rel_tol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The decoder-LM slice: flash attention, stacked packed leaves, prefill/decode
+# ---------------------------------------------------------------------------
+FLASH_SHAPES = [
+    # (B, H, KVH, Sq, Sk, hd, q_offset, block): the JAX tests' shapes, GQA heads,
+    # qwen3-8b's head, a prefill after a cached prefix, a ragged small head
+    (1, 2, 2, 256, 256, 64, 0, 128),
+    (2, 4, 4, 384, 384, 128, 0, 128),
+    (2, 8, 2, 256, 256, 128, 0, 128),
+    (1, 4, 2, 128, 256, 128, 128, 128),
+    (1, 4, 4, 48, 48, 16, 0, 16),
+]
+
+
+def _assert_flash_close(got, want) -> None:
+    """Elementwise |got - want| <= rel * |want| + abs_rel * max |want|.
+
+    float32: sums in another order (2e-5 of max |out|). bfloat16: kernel
+    and plain version each round a float32 result once, so one bf16 step
+    (at most 2^-7 of the value) may separate them, on top of five times the
+    float32 noise for the results before rounding.
+    """
+    rel, abs_rel = (0.0, 2e-5) if want.dtype == torch.float32 else (2.0 ** -7, 1e-4)
+    got, want = got.float(), want.float()
+    assert bool(torch.isfinite(got).all())
+    excess = (got - want).abs() - rel * want.abs() - abs_rel * want.abs().max()
+    assert excess.max().item() <= 0, (got - want).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,kvh,sq,sk,hd,q_offset,block", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, dtype, causal, b, h, kvh, sq, sk, hd, q_offset, block):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=cuda).manual_seed(sq + hd)
+    q = torch.randn(b, h, sq, hd, device=cuda, generator=g).to(dtype)
+    k = torch.randn(b, kvh, sk, hd, device=cuda, generator=g).to(dtype)
+    v = torch.randn(b, kvh, sk, hd, device=cuda, generator=g).to(dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, block_q=block, block_k=block,
+                          q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and got.dtype == dtype
+    _assert_flash_close(got, flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset))
+
+
+def test_flash_kernel_reads_strided_activations(cuda):
+    """q/k/v as [B, H, S, hd] views of [B, S, H, hd] tensors: read in place, output
+    in q's strides."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(2, 128, 8, 128, device=cuda, generator=g).to(torch.bfloat16)
+    kv = torch.randn(2, 2, 128, 2, 128, device=cuda, generator=g).to(torch.bfloat16)
+    qt, kt, vt = q.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+    got = flash_attention(qt, kt, vt)
+    assert got.stride() == qt.stride()
+    _assert_flash_close(got, flash_attention_plain(qt.contiguous(), kt.contiguous(),
+                                                   vt.contiguous()))
+
+
+def test_flash_wrapper_raises_on_bad_inputs(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.zeros(1, 2, 128, 64, device=cuda)
+    with pytest.raises(ValueError, match="tile by the block sizes"):
+        flash_attention(q[:, :, :100], q, q)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention(q, q.half(), q.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(*(torch.zeros(1, 1, 128, 256, device=cuda),) * 3)
+
+
+@pytest.mark.parametrize("impl", ["tiled", "fused"])
+def test_stacked_packed_layer_view_through_both_kernels(cuda, impl):
+    """A stacked [L, K', N] leaf's layer view shares the stack's storage and runs
+    through each matmul kernel as a single weight, matching its plain version."""
+    from repro_torch.runtime.quantized_params import quantize_stacked
+
+    rng = np.random.default_rng(11)
+    w = torch.from_numpy((rng.normal(size=(3, 256, 384)) * 0.05).astype(np.float32)).to(cuda)
+    pw = quantize_stacked(w, PRESET_FORMATS["elp_bsd_a4"])
+    assert tuple(pw.codes.shape) == (3, 128, 384) and tuple(pw.sf.shape) == (3, 1, 1)
+    x = torch.randn(300 if impl == "tiled" else 16, 256, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    for i in range(3):
+        view = pw.layer(i)
+        assert view.codes.data_ptr() == pw.codes.data_ptr() + i * 128 * 384
+        kernel = elp_bsd_matmul if impl == "tiled" else fused_decode_matmul
+        before = kernel.launches
+        got = ops.quantized_matmul(x, view, impl=impl)
+        assert kernel.launches == before + 1
+        want = elp_bsd_matmul_plain(x, view.codes, view.sf, view.fmt, nibble=True)
+        _close(got, want)
+
+
+@pytest.mark.parametrize("act", ["float", "static"])
+def test_lm_prefill_and_decode_on_card_match_cpu(cuda, act):
+    """qwen3-8b reduced to 2 layers, packed once on the CPU: prefill and decode
+    steps on the card (tiled kernel for the prefill's M = 320 rows, decode-step
+    kernel for M = 4, flash kernel for prefill attention) against the same model
+    on the CPU (plain versions). Float activations within 1e-4 * max |logit|
+    (float32 sums in another order); static 8-bit activations within 5e-2
+    (rounding half-step flips, as for the CNNs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer
+
+    cfg = get_config("qwen3_8b").reduced()
+    params = transformer.init_params(cfg, 0, device="cpu")
+    rng = np.random.default_rng(4)
+    calib = rng.integers(0, cfg.vocab, (2, 4, 32)).astype(np.int64)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 80)).astype(np.int64))
+    qm = api.quantize(cfg, params, api.QuantScheme(fmt="elp4", act=act),
+                      calib_data=calib if act == "static" else None, device="cpu")
+    qg = qm.to(cuda)
+    rel = 1e-4 if act == "float" else 5e-2
+    cache_c = transformer.init_cache(cfg, 4, 84, device="cpu")
+    cache_g = transformer.init_cache(cfg, 4, 84, device=cuda)
+    counts = (elp_bsd_matmul.launches, fused_decode_matmul.launches, flash_attention.launches)
+    want, cache_c = transformer.prefill(qm.params, cfg, prompts, cache_c)
+    got, cache_g = transformer.prefill(qg.params, cfg, prompts.to(cuda), cache_g)
+    assert (elp_bsd_matmul.launches - counts[0], fused_decode_matmul.launches - counts[1],
+            flash_attention.launches - counts[2]) == (14, 0, 2)
+    assert (got.cpu() - want).abs().max().item() <= rel * want.abs().max().item()
+    tok = want.argmax(-1)
+    for i in range(3):
+        counts = (elp_bsd_matmul.launches, fused_decode_matmul.launches)
+        want, cache_c = transformer.decode_step(qm.params, cfg, tok, cache_c, 80 + i)
+        got, cache_g = transformer.decode_step(qg.params, cfg, tok.to(cuda), cache_g, 80 + i)
+        assert (elp_bsd_matmul.launches - counts[0], fused_decode_matmul.launches - counts[1]) \
+            == (0, 14)
+        assert (got.cpu() - want).abs().max().item() <= rel * want.abs().max().item(), i
+        tok = want.argmax(-1)
