@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-each, in parallel) and drives the port's two main paths:
+Builds the four CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+each, in parallel) and drives the port's two main paths. The tiled matmul
+has two routes, each its own kernel: ``elp_bsd_matmul/f32`` (float32
+activations, CUDA cores) and ``elp_bsd_matmul/wgmma`` (bf16 activations,
+tensor cores).
 
 * the packed CNN path: each matmul kernel held against its plain PyTorch
   version at full-width AlexNet shapes (batch 64) and timed beside its
   plain version and one library call; then ``api.quantize`` (static
   calibration, bias fold, ELP_BSD a4 packing) of seeded full-width AlexNet
   weights and ``QuantizedModel.forward`` on 64 seeded images, checking
-  5 tiled + 3 decode-step launches and the logits against the same packed
-  model run on the CPU;
+  5 tiled (float32 route) + 3 decode-step launches and the logits against
+  the same packed model run on the CPU;
 * the packed LM serving path at full-width qwen3-8b: the flash-attention
   kernel held against its plain version (f32 and bf16, causal and not, at
   the prefill shape [16, 32, 128, 128] and at [1, 32, 4096, 128]) and the
-  two matmul kernels at the LM's shapes (M = 2048 prefill, M = 16 decode
-  step), each timed beside its plain version and one library call; then
+  matmul kernels at the LM's shapes (M = 2048 prefill on the wgmma route,
+  plus one ragged shape and one c6 u8 shape there; M = 16 decode step),
+  each timed beside its plain version and one library call; then
   ``api.quantize`` (calibration on [2, 4, 128] seeded token ids, per-slice
   a4 packing of every block matmul) of seeded bf16 qwen3-8b weights and
   ``QuantizedModel.generate`` of 16 new tokens for 16 seeded 128-token
-  prompts, checking 252 tiled + 36 flash launches in the prefill and 252
+  prompts, checking 252 tiled launches on the wgmma route (0 on the float32
+  route) + 36 flash launches in the prefill and 252
   decode-step launches per decode step; the generated tokens teacher-forced
   through the same packed model with every kernel swapped for its plain
   version, logits compared, beside controls of that comparison (correct
@@ -139,7 +144,7 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
     from repro_torch.core.elp_bsd import resolve_format
     from repro_torch.device import full_f32
     from repro_torch.kernels import ops
-    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul, elp_bsd_matmul_plain
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul, elp_bsd_matmul_plain, route
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.fused_decode import fused_decode_matmul, fused_decode_matmul_plain
     from repro_torch.runtime.quantized_params import quantize_stacked
@@ -200,33 +205,47 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
 
     # The packed matmuls: each block matmul shape of qwen3-8b, a4 nibble codes
     # of one per-slice layer view, bf16 activations as the main path gives
-    # them, at M = 2048 (prefill, tiled) and M = 16 (decode step). The
-    # decoded weights are exact in bf16, so the inputs are bf16 and one bf16
-    # torch.matmul (float32 accumulation) on the dequantized weight is the
-    # library yardstick.
+    # them, at M = 2048 (prefill, tiled kernel, wgmma route) and M = 16
+    # (decode step). The decoded weights are exact in bf16, so the inputs are
+    # bf16 and one bf16 torch.matmul (float32 accumulation) on the
+    # dequantized weight is the library yardstick. The wgmma route also runs
+    # at a ragged shape (odd K and N off TMA's 16-byte rows: padded copies)
+    # and on c6 u8 codes, which the main path does not launch. Each wgmma
+    # case prints its distance from the product summed in float64 beside
+    # its distance from the plain version.
     fmt = resolve_format("elp4")
-    shapes = [("wq/wo", 4096, 4096, 2), ("wk/wv", 4096, 1024, 2), ("w1/w3", 4096, 12288, 2),
-              ("w2", 12288, 4096, 1)]
-    for label, kdim, n, per_layer in shapes:
+    shapes = [("wq/wo", 4096, 4096, 2, fmt), ("wk/wv", 4096, 1024, 2, fmt),
+              ("w1/w3", 4096, 12288, 2, fmt), ("w2", 12288, 4096, 1, fmt),
+              ("ragged", 4001, 1000, 0, fmt), ("c6 u8 wq/wo", 4096, 4096, 0, resolve_format("elp8"))]
+    for label, kdim, n, per_layer, f in shapes:
         w = (torch.randn(1, kdim, n, device=dev, generator=gen) / math.sqrt(kdim)).to(torch.bfloat16)
-        pw = quantize_stacked(w, fmt).layer(0)
+        pw = quantize_stacked(w, f).layer(0)
         wq = ops.dequantize(pw).to(torch.bfloat16)
         del w
-        for name, kernel, plain, m, weight in (
-            ("elp_bsd_matmul", elp_bsd_matmul, elp_bsd_matmul_plain, LM_BATCH * LM_PROMPT,
-             n_layers * per_layer),
-            ("fused_decode_matmul", fused_decode_matmul, fused_decode_matmul_plain, LM_BATCH,
-             steps * n_layers * per_layer),
-        ):
+        cases = [("elp_bsd_matmul/wgmma", elp_bsd_matmul, elp_bsd_matmul_plain,
+                  1999 if label == "ragged" else LM_BATCH * LM_PROMPT, n_layers * per_layer)]
+        if f is fmt and per_layer:
+            cases.append(("fused_decode_matmul", fused_decode_matmul, fused_decode_matmul_plain,
+                          LM_BATCH, steps * n_layers * per_layer))
+        for name, kernel, plain, m, weight in cases:
             x = torch.randn(m, kdim, device=dev, generator=gen).to(torch.bfloat16)
             # float32 out, as quantized_matmul asks of the kernels
-            run = lambda: kernel(x, pw.codes, pw.sf, fmt, nibble=True,  # noqa: E731
+            run = lambda: kernel(x, pw.codes, pw.sf, f, nibble=pw.nibble,  # noqa: E731
                                  out_dtype=torch.float32)
-            ref = lambda: plain(x, pw.codes, pw.sf, fmt, nibble=True,  # noqa: E731
+            ref = lambda: plain(x, pw.codes, pw.sf, f, nibble=pw.nibble,  # noqa: E731
                                 out_dtype=torch.float32)
             library = lambda: torch.matmul(x, wq)  # noqa: E731
             row = {"shape": f"{label} M={m} K={kdim} N={n}", "weight": weight, "lm": True}
-            record(name, row, run(), ref(), (0.0, REL_TOL))
+            if kernel is elp_bsd_matmul and route(x, f) != "wgmma":
+                failures.append(f"{row['shape']} routed to {route(x, f)}")
+            got = run()
+            record(name, row, got, ref(), (0.0, REL_TOL))
+            if kernel is elp_bsd_matmul:
+                exact = _f64_sum(x, pw.codes, pw.sf, f, nibble=pw.nibble, out_dtype=torch.float32)
+                print(f"[lm-kernels] {name} {row['shape']}: max |kernel - float64 sum| "
+                      f"{(got - exact).abs().max().item():.3e}, max |plain - float64 sum| "
+                      f"{(ref() - exact).abs().max().item():.3e}")
+                del exact
             row["library_ms"] = timed_ms(library, torch, flush)
             row["ms"] = timed_ms(run, torch, flush)
             row["plain_ms"] = timed_ms(ref, torch, flush)
@@ -234,7 +253,7 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
                              x.dtype))
             row["tflops"] = row["flops"] / row["ms"] / 1e9
             rows[name].append(row)
-    for name in ("flash_attention", "elp_bsd_matmul", "fused_decode_matmul"):
+    for name in ("flash_attention", "elp_bsd_matmul/wgmma", "fused_decode_matmul"):
         for r in rows[name]:
             if r.get("lm"):
                 print(f"[lm-kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms "
@@ -244,11 +263,13 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
 
 
 def _counts():
+    """Launches so far: (tiled wgmma route, tiled f32 route, decode-step, flash)."""
     from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_decode import fused_decode_matmul
 
-    return (elp_bsd_matmul.launches, fused_decode_matmul.launches, flash_attention.launches)
+    return (elp_bsd_matmul.launches_by_route["wgmma"], elp_bsd_matmul.launches_by_route["f32"],
+            fused_decode_matmul.launches, flash_attention.launches)
 
 
 def _zero_counts() -> None:
@@ -258,6 +279,8 @@ def _zero_counts() -> None:
 
     for k in (elp_bsd_matmul, fused_decode_matmul, flash_attention):
         k.launches = 0
+    for r in elp_bsd_matmul.launches_by_route:
+        elp_bsd_matmul.launches_by_route[r] = 0
 
 
 def _teacher_forced(torch, transformer, params, cfg, prompts, tokens, cache) -> list:
@@ -425,15 +448,17 @@ def lm_main_path(torch, dev, failures) -> dict:
     finally:
         engine_mod.get_model = real_get_model
     c = _counts()
-    want_phases = ([("prefill", (n_layers * per_layer, 0, n_layers))]
-                   + [("decode", (0, n_layers * per_layer, 0))] * (LM_NEW - 1))
-    print(f"[lm] launches (tiled, decode-step, flash) by phase of the generate: prefill "
+    want_phases = ([("prefill", (n_layers * per_layer, 0, 0, n_layers))]
+                   + [("decode", (0, 0, n_layers * per_layer, 0))] * (LM_NEW - 1))
+    print(f"[lm] launches (tiled wgmma route, tiled f32 route, decode-step, flash) by phase of "
+          f"the generate: prefill "
           f"{phases[0][1] if phases else None}, decode steps "
           f"{sorted(set(p_[1] for p_ in phases[1:]))} over {len(phases) - 1} steps")
     if phases != want_phases:
         failures.append(f"LM launch counts by phase {phases}")
-    launches = {"elp_bsd_matmul": c[0], "fused_decode_matmul": c[1], "flash_attention": c[2]}
-    want = (n_layers * per_layer, (LM_NEW - 1) * n_layers * per_layer, n_layers)
+    launches = {"elp_bsd_matmul/wgmma": c[0], "elp_bsd_matmul/f32": c[1],
+                "fused_decode_matmul": c[2], "flash_attention": c[3]}
+    want = (n_layers * per_layer, 0, (LM_NEW - 1) * n_layers * per_layer, n_layers)
     print(f"[lm] launches in one generate ({LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_NEW} new "
           f"tokens): {launches} (expected {want})")
     if c != want:
@@ -463,7 +488,7 @@ def lm_main_path(torch, dev, failures) -> dict:
         logits, cache = transformer.prefill(p, cfg, prompts, cache)
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t0) * 1e3)
-        if _counts() != (n_layers * per_layer, 0, n_layers):
+        if _counts() != (n_layers * per_layer, 0, 0, n_layers):
             failures.append(f"prefill launch counts {_counts()}")
         outs, toks, times = [logits], [logits.argmax(-1).to(torch.int32)], []
         for i in range(LM_NEW - 1):
@@ -472,7 +497,7 @@ def lm_main_path(torch, dev, failures) -> dict:
             logits, cache = transformer.decode_step(p, cfg, toks[-1], cache, LM_PROMPT + i)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            if _counts() != (0, n_layers * per_layer, 0):
+            if _counts() != (0, 0, n_layers * per_layer, 0):
                 failures.append(f"decode step {i} launch counts {_counts()}")
             outs.append(logits)
             toks.append(logits.argmax(-1).to(torch.int32))
@@ -505,7 +530,7 @@ def lm_main_path(torch, dev, failures) -> dict:
     plain_logits = forced(p, plain_mm, _plain_flash())
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    if _counts() != (0, 0, 0):
+    if _counts() != (0, 0, 0, 0):
         failures.append(f"the plain run launched kernels {_counts()}")
     rels, checked, agree = [], 0, 0
     for j, (kl, pl) in enumerate(zip(kernel_logits, plain_logits)):
@@ -641,11 +666,12 @@ def main() -> int:
 
     # -- phase 2: build ----------------------------------------------------------
     t0 = time.perf_counter()
-    reports = _build.build(["elp_bsd_matmul", "fused_decode", "flash_attention"])
-    print(f"[build] nvcc {time.perf_counter() - t0:.1f} s for the three kernels (in parallel)")
+    reports = _build.build(list(_build.SOURCES))
+    print(f"[build] nvcc {time.perf_counter() - t0:.1f} s for the {len(reports)} kernel sources "
+          "(in parallel)")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"[build] {name}: {line.strip()}")
 
     # -- phase 3: kernels against their plain versions ---------------------------
@@ -656,7 +682,7 @@ def main() -> int:
           f"{REL_TOL:g} * max|plain|")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    rows = {"elp_bsd_matmul": [], "fused_decode_matmul": []}
+    rows = {"elp_bsd_matmul/f32": [], "fused_decode_matmul": []}
     failures = []
 
     def check(kernel, label, got, want):
@@ -669,7 +695,7 @@ def main() -> int:
             failures.append(f"{kernel} {label}")
         return err
 
-    under_test = {"elp_bsd_matmul": (elp_bsd_matmul, elp_bsd_matmul_plain, "tiled"),
+    under_test = {"elp_bsd_matmul/f32": (elp_bsd_matmul, elp_bsd_matmul_plain, "tiled"),
                "fused_decode_matmul": (fused_decode_matmul, fused_decode_matmul_plain, "fused")}
 
     def case(name, lhs, pw, label, library=None):
@@ -714,12 +740,12 @@ def main() -> int:
         wq = ops.dequantize_nd(pw).permute(3, 2, 0, 1).contiguous()
         xi = pad_nhwc(img, k, k, stride, "SAME").permute(0, 3, 1, 2).contiguous()
         library = lambda: F.conv2d(xi, wq, stride=stride).permute(0, 2, 3, 1)  # noqa: E731
-        case("elp_bsd_matmul", patches, pw, f"conv{i} a4/nibble", library)
+        case("elp_bsd_matmul/f32", patches, pw, f"conv{i} a4/nibble", library)
         if i == 1:
             pw, _ = ops.pack_conv_weight(w, "elp_bsd_a4", granularity="per_channel")
-            case("elp_bsd_matmul", patches, pw, f"conv{i} a4/nibble per-channel sf")
+            case("elp_bsd_matmul/f32", patches, pw, f"conv{i} a4/nibble per-channel sf")
         if i == 2:
-            case("elp_bsd_matmul", patches, ops.pack_conv_weight(w, "elp_bsd_c6")[0],
+            case("elp_bsd_matmul/f32", patches, ops.pack_conv_weight(w, "elp_bsd_c6")[0],
                  f"conv{i} c6/u8")
 
     # The three AlexNet fc layers at M = 64: (K, N). Library: torch.matmul
@@ -762,14 +788,14 @@ def main() -> int:
           f"(raw {qm.report.raw_bytes} B, {qm.report.compression:.2f}x), "
           f"Table II energy {qm.report.energy_nj:.4g} nJ")
 
-    elp_bsd_matmul.launches = 0
-    fused_decode_matmul.launches = 0
+    _zero_counts()
     logits = qm.forward(batch)
     torch.cuda.synchronize()
-    launches = {"elp_bsd_matmul": elp_bsd_matmul.launches,
-                "fused_decode_matmul": fused_decode_matmul.launches}
+    c = _counts()
+    launches = {"elp_bsd_matmul/wgmma": c[0], "elp_bsd_matmul/f32": c[1],
+                "fused_decode_matmul": c[2]}
     print(f"[main] launches in one forward at batch {BATCH}: {launches}")
-    if launches != {"elp_bsd_matmul": 5, "fused_decode_matmul": 3}:
+    if launches != {"elp_bsd_matmul/wgmma": 0, "elp_bsd_matmul/f32": 5, "fused_decode_matmul": 3}:
         failures.append(f"launch counts {launches}")
     if tuple(logits.shape) != (BATCH, 1000) or not bool(torch.isfinite(logits).all()):
         failures.append(f"logits shape {tuple(logits.shape)} or non-finite values")
@@ -812,7 +838,8 @@ def main() -> int:
     # -- phase 5: the LM path's kernels at its shapes ------------------------------
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
     rows["flash_attention"] = []
-    for r in rows["elp_bsd_matmul"] + rows["fused_decode_matmul"]:
+    rows["elp_bsd_matmul/wgmma"] = []
+    for r in rows["elp_bsd_matmul/f32"] + rows["fused_decode_matmul"]:
         r["weight"] = 1  # each AlexNet shape runs once per forward
     lm_kernel_phase(torch, dev, gen, flush, rows, failures)
     del flush
@@ -829,8 +856,10 @@ def main() -> int:
         return 1
 
     sources = {
-        "elp_bsd_matmul": ("src/repro_torch/csrc/elp_bsd_matmul.cu",
-                           "src/repro/kernels/elp_bsd_matmul.py:69"),
+        "elp_bsd_matmul/f32": ("src/repro_torch/csrc/elp_bsd_matmul.cu",
+                               "src/repro/kernels/elp_bsd_matmul.py:69"),
+        "elp_bsd_matmul/wgmma": ("src/repro_torch/csrc/elp_bsd_matmul_wgmma.cu",
+                                 "src/repro/kernels/elp_bsd_matmul.py:69"),
         "fused_decode_matmul": ("src/repro_torch/csrc/fused_decode.cu",
                                 "src/repro/kernels/fused_decode.py:70"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",

@@ -57,12 +57,13 @@ def main() -> int:
 
     from repro_torch import _build, api
     from repro_torch.configs import get_config
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul
     from repro_torch.models import transformer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"[card] {smi}; torch {torch.__version__}")
-    _build.build(["elp_bsd_matmul", "fused_decode", "flash_attention"])
+    _build.build(list(_build.SOURCES))
     cfg = get_config("qwen3_8b")
     dev = torch.device("cuda")
     params = transformer.init_params(cfg, seed=0)
@@ -84,12 +85,15 @@ def main() -> int:
     torch.cuda.synchronize()
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    routes = dict(elp_bsd_matmul.launches_by_route)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         logits = prefill()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernel_summary(prof, wall, f"prefill b16 s128, {cfg.n_layers} layers")
+    print(f"[prefill] tiled matmul launches by route: "
+          f"{ {r: n - routes[r] for r, n in elp_bsd_matmul.launches_by_route.items()} }")
 
     tok = logits.argmax(-1).to(torch.int32)
     with profile(activities=acts) as prof:

@@ -9,7 +9,7 @@ package is imported: the first launch builds what it needs, and
 started together) and returns each one's ``-Xptxas -v`` report.
 
 Each library is loaded with the ctypes signatures of its C entry points
-(:func:`load`). The two packed matmul kernels share two::
+(:func:`load`). The two float32 packed matmul kernels share two::
 
     long long <name>_workspace(int M, int N, int K)
     int <name>_f32(const float* x, const uint8_t* codes, const float* sf, float* out,
@@ -21,7 +21,17 @@ partial sums on the current device (0 for none, -1 for a shape the kernel
 cannot take): the kernel's source picks the split from its own tiles and
 its occupancy. The second launches on ``stream`` with that workspace and
 returns the launches' ``cudaError_t``, or -1 for a descriptor, shape or
-workspace the kernel cannot take. The attention kernel's entry point is
+workspace the kernel cannot take. The bf16 tensor-core matmul
+(``elp_bsd_matmul_wgmma``) has the same ``_workspace`` and, in place of
+``_f32``::
+
+    int <name>_bf16(const bf16* x, const uint8_t* codes, const float* sf, float* out,
+                    int M, int N, int K, int nibble, float* work, long long work_floats,
+                    const uint32_t* table, long long x_ld, long long codes_ld, void* stream)
+
+with the 256-entry decode table (:func:`repro_torch.kernels.ref.decode_table`)
+in host memory and the row strides of x (elements) and codes (bytes), each
+a multiple of 16 bytes, as TMA asks. The attention kernel's entry point is
 declared by its wrapper (:mod:`repro_torch.kernels.flash_attention`).
 """
 from __future__ import annotations
@@ -43,6 +53,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Every kernel source of the port, by name (csrc/<name>.cu).
+SOURCES = ("elp_bsd_matmul", "elp_bsd_matmul_wgmma", "fused_decode", "flash_attention")
 # Layout of the format descriptor parsed by csrc/elp_decode.cuh.
 MAX_DIGITS = 2
 MAX_LUT = 8
@@ -96,30 +108,37 @@ def build(names: list[str]) -> dict[str, str]:
     return reports
 
 
-def matmul_signatures(name: str) -> dict:
-    """ctypes signatures of a packed matmul library's two entry points."""
+# The launch entry point's arguments between the workspace and the stream,
+# by entry suffix: the format descriptor (float32 kernels), or the decode
+# table and the row strides of x and codes (the bf16 kernel).
+LAUNCH_EXTRA = {"f32": (ctypes.c_void_p,),
+                "bf16": (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong)}
+
+
+def matmul_signatures(name: str, kind: str = "f32") -> dict:
+    """ctypes signatures of a packed matmul library's two entry points,
+    ``<name>_workspace`` and ``<name>_<kind>``."""
     # Every pointer and the stream as c_void_p: left undeclared, ctypes
     # would pass them as 32-bit ints and cut them.
     return {
-        f"{name}_f32": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                        + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p],
-                        ctypes.c_int),
+        f"{name}_{kind}": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p, ctypes.c_longlong, *LAUNCH_EXTRA[kind],
+                              ctypes.c_void_p], ctypes.c_int),
         f"{name}_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
     }
 
 
-def load(name: str, signatures: dict | None = None) -> ctypes.CDLL:
+def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` (built on first use).
 
-    ``signatures`` maps each C entry point to its ``(argtypes, restype)``;
-    the default is the packed matmul kernels' pair (:func:`matmul_signatures`).
+    ``signatures`` maps each C entry point to its ``(argtypes, restype)``
+    (:func:`matmul_signatures` for the packed matmul kernels).
     """
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(lib_path(name)))
-        sigs = signatures if signatures is not None else matmul_signatures(name)
-        for fn_name, (argtypes, restype) in sigs.items():
+        for fn_name, (argtypes, restype) in signatures.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = restype
@@ -150,29 +169,51 @@ def format_descriptor(fmt: ElpBsdFormat) -> ctypes.Array:
     return (ctypes.c_int * len(vals))(*vals)
 
 
+def _launch(name: str, kind: str, x: torch.Tensor, codes: torch.Tensor, sf: torch.Tensor,
+            out: torch.Tensor, k: int, nibble: bool, extra: tuple, what: str) -> None:
+    """Allocate the split-K workspace ``<name>_workspace`` asks for, then call
+    ``<name>_<kind>`` with ``extra`` before the current stream of ``x``'s
+    device; raise if it fails."""
+    m, n = out.shape
+    lib = load(name, matmul_signatures(name, kind))
+    with torch.cuda.device(x.device):
+        need = getattr(lib, f"{name}_workspace")(m, n, k)
+        work = torch.empty(max(need, 0), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = -1 if need < 0 else getattr(lib, f"{name}_{kind}")(
+            x.data_ptr(), codes.data_ptr(), sf.data_ptr(), out.data_ptr(), m, n, k, int(nibble),
+            work.data_ptr() if need > 0 else None, need, *extra, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{name} launch failed with code {err} (M={m}, N={n}, K={k}, nibble={nibble}, "
+            f"workspace {need} floats, {what}); -1 means the kernel refused the "
+            "shape, operands or format"
+        )
+
+
 def launch(name: str, x: torch.Tensor, codes: torch.Tensor, sf: torch.Tensor,
            out: torch.Tensor, nibble: bool, fmt: ElpBsdFormat) -> None:
-    """Launch ``csrc/<name>.cu`` on the current stream of ``x``'s device.
+    """Launch the float32 kernel ``csrc/<name>.cu`` on the current stream of ``x``'s device.
 
     ``x [M, K]`` and ``out [M, N]`` are contiguous float32, ``codes`` is
     contiguous uint8 ``[K, N]`` (``[ceil(K/2), N]`` when ``nibble``),
     ``sf`` is one float32 on the device. The caller has checked all of
     that. The split-K workspace the kernel asks for is allocated here.
     """
-    m, k = x.shape
-    n = out.shape[1]
-    lib = load(name)
     desc = format_descriptor(fmt)  # held here: the C side reads it during the call
-    with torch.cuda.device(x.device):
-        need = getattr(lib, f"{name}_workspace")(m, n, k)
-        work = torch.empty(max(need, 0), dtype=torch.float32, device=x.device)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = -1 if need < 0 else getattr(lib, f"{name}_f32")(
-            x.data_ptr(), codes.data_ptr(), sf.data_ptr(), out.data_ptr(), m, n, k, int(nibble),
-            work.data_ptr() if need > 0 else None, need, ctypes.addressof(desc), stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{name} launch failed with code {err} (M={m}, N={n}, K={k}, nibble={nibble}, "
-            f"workspace {need} floats, fmt={fmt.name}); -1 means the kernel refused the "
-            "shape or format"
-        )
+    _launch(name, "f32", x, codes, sf, out, x.shape[1], nibble,
+            (ctypes.addressof(desc),), f"fmt={fmt.name}")
+
+
+def launch_bf16(name: str, x: torch.Tensor, k: int, codes: torch.Tensor, sf: torch.Tensor,
+                out: torch.Tensor, nibble: bool, table: ctypes.Array) -> None:
+    """Launch the bf16 kernel ``csrc/<name>.cu`` on the current stream of ``x``'s device.
+
+    ``x`` is bf16 with ``k`` logical columns and ``codes`` uint8 with
+    ``out.shape[1]`` logical columns, each with unit column stride, a
+    16-byte aligned base and a row stride of a multiple of 16 bytes; ``out
+    [M, N]`` is contiguous float32, ``sf`` one float32 on the device and
+    ``table`` the 256 decode words. The caller has checked all of that.
+    """
+    _launch(name, "bf16", x, codes, sf, out, k, nibble,
+            (ctypes.addressof(table), x.stride(0), codes.stride(0)), "bf16 x")

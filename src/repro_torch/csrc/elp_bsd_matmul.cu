@@ -25,10 +25,10 @@
 // Bound on an H100 SXM: the f32 CUDA-core rate, 67 TFLOP/s. A conv GEMM of
 // AlexNet at batch 64 does 2*M*K*N operations on (M*K + M*N)*4 bytes, which
 // at these K and N is far above the card's f32 operations-per-byte line.
-// Tensor cores (wgmma, bf16: 989 TFLOP/s dense) are the headroom: a decoded
-// weight is a sum of at most two powers of two with shift <= 7, exact in
-// bf16, but the activations would round; that is a later, separately
-// measured variant.
+// This kernel serves float32 activations, which would round on the bf16
+// tensor cores; bf16 activations take elp_bsd_matmul_wgmma.cu (wgmma),
+// where a decoded weight (at most two powers of two with shift <= 7) is
+// exact and so is every product.
 #include <stdint.h>
 
 #include "elp_decode.cuh"

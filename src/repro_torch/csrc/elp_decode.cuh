@@ -1,5 +1,6 @@
 // ELP_BSD shift-add decode, the split-K choice and the split-K reduction,
-// shared by the two packed-matmul kernels.
+// shared by the packed-matmul kernels (the bf16 wgmma kernel takes only the
+// last two: its decode is a table built on the host).
 //
 // A format reaches a kernel as an ElpFormat passed by value: per digit
 // the (offset, sign_bits, index_bits) field layout and the shift, either
@@ -79,15 +80,16 @@ __device__ __forceinline__ float elp_decode(unsigned code, const ElpFormat& f) {
 // each: the fewest waves of resident blocks per unit of work,
 // ceil(tiles * s / slots) / s, over s <= max_splits with at least 8 K steps
 // per split (the smallest such s on a tie). `slots` is how many blocks of
-// `kernel` the current device holds at once over all its SMs. Returns -1
-// when the device cannot be queried.
+// `kernel` (with `smem` bytes of dynamic shared memory) the current device
+// holds at once over all its SMs. Returns -1 when the device cannot be
+// queried.
 template <typename Kernel>
 static inline int choose_splits(Kernel kernel, int threads, long long tiles, int k_steps,
-                                int max_splits) {
+                                int max_splits, size_t smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0) != cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) != cudaSuccess)
     return -1;
   const long long slots = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   int best = 1;

@@ -1,4 +1,4 @@
-"""Tiled ELP_BSD decode + matmul: the Hopper kernel, its plain version, its wrapper.
+"""Tiled ELP_BSD decode + matmul: the Hopper kernels, their plain version, the wrapper.
 
 Replaces the JAX package's Pallas TPU kernel
 ``repro/kernels/elp_bsd_matmul.py::elp_bsd_matmul`` (body ``_mm_kernel``):
@@ -6,28 +6,54 @@ Replaces the JAX package's Pallas TPU kernel
 ``[K, N]`` or nibble-packed ``[K/2, N]`` (low nibble = even row) and one
 float32 scale factor.
 
-The kernel is ``csrc/elp_bsd_matmul.cu``, CUDA C++ for ``sm_90a``: one
-block per 128 x 128 output tile, a K loop inside the block, x and code
-tiles staged in shared memory, codes decoded there by shift-add, an
-8 x 8 float32 micro-tile per thread, ragged edges masked, and K split over
-several blocks per tile (summed by a deterministic second pass) where the
-tiles alone would leave SMs idle in the last wave; the kernel's source
-picks that split from its own tiles and occupancy. Its float32 arithmetic
-caps it at the H100's CUDA-core rate (67 TFLOP/s); on the LM path's bf16
-activations the work's own bound is the bf16 tensor-core rate, the
-headroom for a later variant. The decoded weight never reaches device
-memory.
+Two CUDA C++ kernels for ``sm_90a`` compute it; :func:`route` picks one
+before any launch, by one rule:
+
+* ``"wgmma"`` (``csrc/elp_bsd_matmul_wgmma.cu``): bf16 x and a format whose
+  decoded values are all exact in bf16 (:func:`repro_torch.kernels.ref.bf16_exact`,
+  true for every preset). x stays bf16 and the product runs on the tensor
+  cores (``wgmma``, float32 sums), operands fed by TMA through a ring of
+  shared-memory stages, codes decoded by a byte-indexed table
+  (:func:`repro_torch.kernels.ref.decode_table`). A bf16 x times an exact
+  bf16 weight is exact in float32, so it forms the reference's products;
+  only the order of the float32 sums differs. The LM prefill runs here.
+  TMA needs 16-byte row strides: an x whose K is not a multiple of 8, or
+  codes whose N is not a multiple of 16, are first copied once into a
+  buffer with padded rows (the main path's shapes never are).
+* ``"f32"`` (``csrc/elp_bsd_matmul.cu``): any other x (float32; float16 or
+  bf16 with a format that is not bf16-exact), cast to float32, on CUDA
+  cores: a 128 x 128 output tile per block, a K loop inside the block, x
+  and code tiles staged and decoded (shift-add) in shared memory, an
+  8 x 8 float32 micro-tile per thread. Its float32 arithmetic caps it at
+  the H100's CUDA-core rate (67 TFLOP/s). The AlexNet convs run here.
+
+Both mask ragged edges and split K over several blocks per tile (summed by
+a deterministic second pass) where the tiles alone would leave SMs idle in
+the last wave; each kernel's source picks that split from its own tiles
+and occupancy. The decoded weight never reaches device memory. A failed
+build or launch raises: nothing retries on the other route.
 
 :func:`elp_bsd_matmul` takes the plain version (:func:`elp_bsd_matmul_plain`)
-only for tensors on the CPU; on a CUDA tensor it launches the kernel or
-raises. ``elp_bsd_matmul.launches`` counts the kernel's launches.
+only for tensors on the CPU; on a CUDA tensor it launches the routed kernel
+or raises. ``elp_bsd_matmul.launches`` counts both kernels' launches and
+``elp_bsd_matmul.launches_by_route[route]`` each one's.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.elp_bsd import ElpBsdFormat
-from repro_torch.kernels.ref import decode_values_shift_add, unpack_nibbles_k
+from repro_torch.kernels.ref import (
+    bf16_exact,
+    decode_table,
+    decode_values_shift_add,
+    unpack_nibbles_k,
+)
+
+ROUTES = ("wgmma", "f32")
 
 
 def elp_bsd_matmul_plain(
@@ -85,10 +111,8 @@ def as_scale(sf, device: torch.device) -> torch.Tensor:
     return s.reshape(1)
 
 
-def launch_checked(name: str, x, codes, sf, fmt, nibble: bool) -> torch.Tensor:
-    """Validate devices and dtypes, then launch ``csrc/<name>.cu``; float32 ``[M, N]`` out."""
-    from repro_torch import _build
-
+def _check_operands(name: str, x, codes, sf) -> None:
+    """One device for all three operands and uint8 codes; raises ValueError/TypeError."""
     if codes.device != x.device or sf.device != x.device:
         raise ValueError(
             f"{name}: x, codes and sf must share a device; got {x.device}, {codes.device}, "
@@ -96,10 +120,59 @@ def launch_checked(name: str, x, codes, sf, fmt, nibble: bool) -> torch.Tensor:
         )
     if codes.dtype != torch.uint8:
         raise TypeError(f"{name}: codes must be uint8, got {codes.dtype}")
+
+
+def launch_checked(name: str, x, codes, sf, fmt, nibble: bool) -> torch.Tensor:
+    """Validate devices and dtypes, then launch the float32 kernel ``csrc/<name>.cu``
+    on x cast to float32; float32 ``[M, N]`` out."""
+    from repro_torch import _build
+
+    _check_operands(name, x, codes, sf)
     xf = x.to(torch.float32).contiguous()
     c = codes.contiguous()
     out = torch.empty((x.shape[0], codes.shape[1]), dtype=torch.float32, device=x.device)
     _build.launch(name, xf, c, sf, out, nibble, fmt)
+    return out
+
+
+def route(x: torch.Tensor, fmt: ElpBsdFormat) -> str:
+    """The kernel :func:`elp_bsd_matmul` launches for a CUDA ``x``: ``"wgmma"`` for
+    bf16 ``x`` with a :func:`~repro_torch.kernels.ref.bf16_exact` format, else ``"f32"``."""
+    return "wgmma" if x.dtype == torch.bfloat16 and bf16_exact(fmt) else "f32"
+
+
+@functools.lru_cache(maxsize=None)
+def _table_words(fmt: ElpBsdFormat, nibble: bool) -> ctypes.Array:
+    """:func:`decode_table` as the 256 unsigned words the wgmma kernel's entry point reads."""
+    return (ctypes.c_uint32 * 256)(*(v & 0xFFFFFFFF for v in decode_table(fmt, nibble).tolist()))
+
+
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (2-D) with a 16-byte aligned base and row stride and unit column
+    stride, as TMA reads it: ``t`` itself when it already has them, else a
+    copy into a zero buffer whose rows are padded to a multiple of 16 bytes."""
+    t = t.contiguous()
+    row = t.shape[1] * t.element_size()
+    if t.data_ptr() % 16 == 0 and row % 16 == 0:
+        return t
+    cols = -(-row // 16) * 16 // t.element_size()
+    padded = t.new_zeros((t.shape[0], cols))
+    padded[:, : t.shape[1]] = t
+    return padded
+
+
+def launch_wgmma(x, codes, sf, fmt, nibble: bool) -> torch.Tensor:
+    """Validate devices and dtypes, then launch ``csrc/elp_bsd_matmul_wgmma.cu`` on
+    bf16 ``x``; float32 ``[M, N]`` out."""
+    from repro_torch import _build
+
+    _check_operands("elp_bsd_matmul", x, codes, sf)
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the wgmma route takes bfloat16 x, got {x.dtype}")
+    table = _table_words(fmt, nibble)
+    out = torch.empty((x.shape[0], codes.shape[1]), dtype=torch.float32, device=x.device)
+    _build.launch_bf16("elp_bsd_matmul_wgmma", _tma_rows(x), x.shape[1], _tma_rows(codes), sf,
+                       out, nibble, table)
     return out
 
 
@@ -114,9 +187,9 @@ def elp_bsd_matmul(
 ) -> torch.Tensor:
     """``x[M, K] @ dequant(codes)[K, N]`` with the decode inside the kernel.
 
-    Any M, K and N: the kernel masks the ragged edges, so K rows past the
+    Any M, K and N: the kernels mask the ragged edges, so K rows past the
     logical K (the nibble pad row) meet zero activations. ``sf`` is one
-    float32 scale factor.
+    float32 scale factor. On the card the kernel is :func:`route`'s.
     """
     check_kernel_args("elp_bsd_matmul", x, codes, nibble)
     out_dtype = out_dtype or x.dtype
@@ -125,9 +198,15 @@ def elp_bsd_matmul(
         return elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=nibble, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"elp_bsd_matmul runs on cuda or cpu tensors, got {x.device}")
-    out = launch_checked("elp_bsd_matmul", x, codes, sf, fmt, nibble)
+    r = route(x, fmt)
+    if r == "wgmma":
+        out = launch_wgmma(x, codes, sf, fmt, nibble)
+    else:
+        out = launch_checked("elp_bsd_matmul", x, codes, sf, fmt, nibble)
     elp_bsd_matmul.launches += 1
+    elp_bsd_matmul.launches_by_route[r] += 1
     return out.to(out_dtype)
 
 
 elp_bsd_matmul.launches = 0
+elp_bsd_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)

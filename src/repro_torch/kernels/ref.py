@@ -4,9 +4,13 @@
 builds each digit's ``±2^shift`` term in one integer construction of the
 float32 sign and exponent fields, ``(shift + 127) << 23 | sign << 31``,
 viewed as float32. Both are bit-identical to each other and to the JAX
-package's ``kernels/ref.py``. The CUDA kernels run the shift-add form.
+package's ``kernels/ref.py``. The float32 CUDA kernels run the shift-add
+form; the bf16 tensor-core kernel looks each code byte up in
+:func:`decode_table`, built from it.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -63,6 +67,46 @@ def decode_values_shift_add(codes: torch.Tensor, fmt: ElpBsdFormat) -> torch.Ten
         term = bits.to(torch.int32).view(torch.float32)
         out = term if out is None else out + term
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_exact(fmt: ElpBsdFormat) -> bool:
+    """Whether every decoded value of ``fmt`` is exact in bfloat16.
+
+    Then a bfloat16 activation times a decoded weight is exact in float32,
+    so a bf16 tensor-core product forms the same products as the float32
+    reference. True for the four presets (at most two terms of shift 0..7:
+    at most 8 significant bits); false where two terms lie more than 7
+    binary places apart, e.g. shifts 0 and 9.
+    """
+    vals = decode_values_shift_add(torch.arange(2**fmt.bits_per_weight), fmt)
+    return bool(torch.equal(vals.to(torch.bfloat16).to(torch.float32), vals))
+
+
+def _bf16_bits(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).view(torch.int16).to(torch.int32) & 0xFFFF
+
+
+def decode_table(fmt: ElpBsdFormat, nibble: bool) -> torch.Tensor:
+    """The bf16 tensor-core kernel's decode table: int32 ``[256]``, indexed by code byte.
+
+    Nibble: the bf16 bit patterns of the low nibble's value (the even K
+    row) in bits 0-15 and the high nibble's (the odd row) in bits 16-31,
+    one bf16 pair per byte. u8: the code's bf16 bit pattern in bits 0-15.
+    The values are :func:`decode_values_shift_add`'s, exact in bf16, so the
+    table is bit-identical to it. Raises ValueError for a format that is
+    not :func:`bf16_exact` or too wide for nibble packing.
+    """
+    if not bf16_exact(fmt):
+        raise ValueError(f"{fmt.name}: decoded values are not all exact in bfloat16")
+    if nibble and fmt.bits_per_weight > 4:
+        raise ValueError(f"{fmt.name} has {fmt.bits_per_weight}-bit codes; nibbles hold 4")
+    byte = torch.arange(256, dtype=torch.int32)
+    if not nibble:
+        return _bf16_bits(decode_values_shift_add(byte, fmt))
+    lo = _bf16_bits(decode_values_shift_add(byte & 0x0F, fmt))
+    hi = _bf16_bits(decode_values_shift_add(byte >> 4, fmt))
+    return lo | (hi << 16)
 
 
 def unpack_nibbles_k(packed: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,9 @@ skips where there is none. Run them on a machine with an H100:
     python -m pytest -m gpu tests/test_torch_*.py
 
 Tolerance: max |kernel - plain| <= 2e-5 * max |plain| (float32 sums in
-another order; split-K adds its partial sums in a fixed order).
+another order; split-K adds its partial sums in a fixed order). The tiled
+kernel's wgmma route takes bf16 x: its products are exact in float32, so
+the same limit holds.
 """
 import math
 
@@ -67,6 +69,54 @@ def test_tiled_kernel_matches_plain(cuda, fmt_name, nibble, m, k, n):
     torch.cuda.synchronize()
     assert elp_bsd_matmul.launches == before + 1
     _close(got, elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=nibble))
+
+
+# (M, K, N) for the bf16 wgmma route: a tile multiple, ragged M and N with
+# even and odd K (x rows and code rows off TMA's 16-byte rule: padded copies),
+# one element, and split-K (qwen3-8b's wk/wv at the prefill's M)
+WGMMA_SHAPES = [(256, 384, 128), (100, 70, 34), (100, 71, 34), (1, 2, 1), (2048, 4096, 1024)]
+
+
+@pytest.mark.parametrize("fmt_name,nibble", LAYOUTS)
+@pytest.mark.parametrize("m,k,n", WGMMA_SHAPES)
+def test_wgmma_route_matches_plain(cuda, fmt_name, nibble, m, k, n):
+    x, codes, sf = _case(cuda, fmt_name, nibble, m, k, n)
+    x = x.to(torch.bfloat16)
+    fmt = PRESET_FORMATS[fmt_name]
+    before = (elp_bsd_matmul.launches, dict(elp_bsd_matmul.launches_by_route))
+    got = elp_bsd_matmul(x, codes, sf, fmt, nibble=nibble, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert elp_bsd_matmul.launches == before[0] + 1
+    assert elp_bsd_matmul.launches_by_route == {**before[1], "wgmma": before[1]["wgmma"] + 1}
+    _close(got, elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=nibble, out_dtype=torch.float32))
+
+
+def test_wgmma_route_is_deterministic(cuda):
+    x, codes, sf = _case(cuda, "elp_bsd_a4", True, 2048, 4096, 1024)
+    x = x.to(torch.bfloat16)
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    first = elp_bsd_matmul(x, codes, sf, fmt, nibble=True, out_dtype=torch.float32)
+    for _ in range(3):
+        assert torch.equal(elp_bsd_matmul(x, codes, sf, fmt, nibble=True,
+                                          out_dtype=torch.float32), first)
+
+
+def test_wgmma_route_raises_on_bad_inputs(cuda):
+    from repro_torch.kernels.elp_bsd_matmul import launch_wgmma
+
+    x, codes, sf = _case(cuda, "elp_bsd_a4", True, 256, 128, 128)
+    xb = x.to(torch.bfloat16)
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    with pytest.raises(TypeError, match="uint8"):
+        elp_bsd_matmul(xb, codes.to(torch.int32), sf, fmt, nibble=True)
+    with pytest.raises(ValueError, match="share a device"):
+        elp_bsd_matmul(xb, codes.cpu(), sf, fmt, nibble=True)
+    with pytest.raises(ValueError, match="two K rows per byte"):
+        elp_bsd_matmul(xb, codes[:10], sf, fmt, nibble=True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        launch_wgmma(x, codes, sf, fmt, True)
+    with pytest.raises(ValueError, match="nibbles hold 4"):
+        elp_bsd_matmul(xb, codes, sf, PRESET_FORMATS["elp_bsd_c6"], nibble=True)
 
 
 @pytest.mark.parametrize("fmt_name,nibble", LAYOUTS)
@@ -257,6 +307,25 @@ def test_stacked_packed_layer_view_through_both_kernels(cuda, impl):
         got = ops.quantized_matmul(x, view, impl=impl)
         assert kernel.launches == before + 1
         want = elp_bsd_matmul_plain(x, view.codes, view.sf, view.fmt, nibble=True)
+        _close(got, want)
+
+
+def test_stacked_packed_layer_view_through_wgmma_route(cuda):
+    """bf16 activations on a stacked leaf's layer views take the wgmma route."""
+    from repro_torch.runtime.quantized_params import quantize_stacked
+
+    rng = np.random.default_rng(12)
+    w = torch.from_numpy((rng.normal(size=(3, 256, 384)) * 0.05).astype(np.float32)).to(cuda)
+    pw = quantize_stacked(w, PRESET_FORMATS["elp_bsd_a4"])
+    x = torch.randn(300, 256, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3)).to(torch.bfloat16)
+    for i in range(3):
+        view = pw.layer(i)
+        before = elp_bsd_matmul.launches_by_route["wgmma"]
+        got = ops.quantized_matmul(x, view, impl="tiled", out_dtype=torch.float32)
+        assert elp_bsd_matmul.launches_by_route["wgmma"] == before + 1
+        want = elp_bsd_matmul_plain(x, view.codes, view.sf, view.fmt, nibble=True,
+                                    out_dtype=torch.float32)
         _close(got, want)
 
 
