@@ -1,31 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the four CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-each, in parallel) and drives the port's two main paths. The tiled matmul
-has two routes, each its own kernel: ``elp_bsd_matmul/f32`` (float32
-activations, CUDA cores) and ``elp_bsd_matmul/wgmma`` (bf16 activations,
-tensor cores).
+Builds the six CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+each, in parallel) and drives the port's two main paths. Each of the three
+TPU kernels has two routes, each its own CUDA kernel: ``<kernel>/f32``
+(float32 on CUDA cores; AlexNet's float32 activations) and
+``<kernel>/wgmma`` (bf16 on the tensor cores; the LM's bf16 activations),
+picked by the wrapper's ``route``.
 
 * the packed CNN path: each matmul kernel held against its plain PyTorch
   version at full-width AlexNet shapes (batch 64) and timed beside its
   plain version and one library call; then ``api.quantize`` (static
   calibration, bias fold, ELP_BSD a4 packing) of seeded full-width AlexNet
   weights and ``QuantizedModel.forward`` on 64 seeded images, checking
-  5 tiled (float32 route) + 3 decode-step launches and the logits against
-  the same packed model run on the CPU;
+  5 tiled + 3 decode-step launches, all on the float32 routes, and the
+  logits against the same packed model run on the CPU;
 * the packed LM serving path at full-width qwen3-8b: the flash-attention
-  kernel held against its plain version (f32 and bf16, causal and not, at
-  the prefill shape [16, 32, 128, 128] and at [1, 32, 4096, 128]) and the
-  matmul kernels at the LM's shapes (M = 2048 prefill on the wgmma route,
-  plus one ragged shape and one c6 u8 shape there; M = 16 decode step),
-  each timed beside its plain version and one library call; then
+  kernels held against their plain version (f32 route on float32 inputs,
+  wgmma route on bf16, causal and not, at the prefill shape
+  [16, 32, 128, 128] and at [1, 32, 4096, 128]) and the matmul kernels at
+  the LM's shapes (M = 2048 prefill on the tiled wgmma route, plus one
+  ragged shape and one c6 u8 shape there; M = 16 decode step on the
+  decode-step wgmma route), each timed beside its plain version, one
+  library call and, for the wgmma routes, the f32 route on the same
+  inputs (the kernel the route replaced on the LM path); then
   ``api.quantize`` (calibration on [2, 4, 128] seeded token ids, per-slice
   a4 packing of every block matmul) of seeded bf16 qwen3-8b weights and
   ``QuantizedModel.generate`` of 16 new tokens for 16 seeded 128-token
-  prompts, checking 252 tiled launches on the wgmma route (0 on the float32
-  route) + 36 flash launches in the prefill and 252
-  decode-step launches per decode step; the generated tokens teacher-forced
+  prompts, checking 252 tiled + 36 flash launches in the prefill and 252
+  decode-step launches per decode step, all on the wgmma routes (0 on the
+  float32 routes); the generated tokens teacher-forced
   through the same packed model with every kernel swapped for its plain
   version, logits compared, beside controls of that comparison (correct
   changes of rounding and planted faults) and the same reading with float
@@ -36,10 +40,14 @@ tensor cores).
 Exits non-zero on any failure, and without a result when there is no
 CUDA device. The last line is the JSON device record; the line before it
 holds the card's name and power limit, and before that one JSON object
-with each kernel's numbers: ``launches`` counts the kernel's launches on
-both main paths (one AlexNet forward, one generate), and ``ms``,
-``plain_ms``, ``bound_ms`` and ``library_ms`` are the per-shape times of
-those launches, each shape weighted by its launches.
+with each kernel route's numbers: ``launches`` counts its launches on both
+main paths (one AlexNet forward, one generate), and ``ms``, ``plain_ms``,
+``bound_ms`` and ``library_ms`` are the per-shape times of those launches,
+each shape weighted by its launches. ``flash_attention/f32`` has no launch
+on either path (the LM's attention is bf16); its times are those of the
+prefill's attention shape in float32, weighted as one generate's 36
+launches. Every time is the device's: a launch is queued behind a device
+sleep, so the host's own time to issue it is not counted.
 """
 from __future__ import annotations
 
@@ -72,6 +80,7 @@ REL_TOL = 2e-5  # kernel vs plain: float32 sums over K <= 12544 in another order
 FLOAT_LOGIT_REL_TOL = 1e-4
 STATIC_LOGIT_REL_TOL = 5e-2
 L2_FLUSH_BYTES = 128 << 20  # twice the 50 MB L2: every timed launch starts cold
+SLEEP_CYCLES = 2_000_000  # about 1 ms: longer than the host takes to issue any timed call
 # Flash attention, kernel vs plain, elementwise: |got - want| <= rel * |want|
 # + abs_rel * max |want|. float32: sums in another order (2e-5 of max |out|).
 # bfloat16: each rounds its float32 result once, so one bf16 step may
@@ -94,12 +103,17 @@ LM_BATCH, LM_PROMPT, LM_NEW = 16, 128, 16
 
 
 def timed_ms(fn, torch, flush, iters: int = 7) -> float:
-    """Median device time of ``fn`` over ``iters`` launches, L2 flushed before each."""
+    """Median device time of ``fn`` over ``iters`` launches, L2 flushed before each.
+
+    A device sleep ahead of the start event keeps the device busy while the
+    host issues ``fn``, so the time is the device's work alone.
+    """
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -144,7 +158,14 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
     from repro_torch.core.elp_bsd import resolve_format
     from repro_torch.device import full_f32
     from repro_torch.kernels import ops
-    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul, elp_bsd_matmul_plain, route
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import fused_decode as fd
+    from repro_torch.kernels.elp_bsd_matmul import (
+        elp_bsd_matmul,
+        elp_bsd_matmul_plain,
+        launch_checked,
+        route,
+    )
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.fused_decode import fused_decode_matmul, fused_decode_matmul_plain
     from repro_torch.runtime.quantized_params import quantize_stacked
@@ -163,15 +184,18 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
         row["max_abs_err"] = err
 
     # Flash attention: the issue's two shapes with H = KVH (the JAX kernel's
-    # contract), then the main path's own call (strided q, GQA k/v).
+    # contract), float32 on the f32 route and bf16 on the wgmma route, then
+    # the main path's own call (strided q, GQA k/v). The f32 route's prefill
+    # shape stands for the 36 launches a generate would make in float32.
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for b, s in ((LM_BATCH, LM_PROMPT), (1, 4096)):
             q, k, v = (torch.randn(b, 32, s, 128, device=dev, generator=gen).to(dtype)
                        for _ in range(3))
             for causal in (True, False):
+                stand_in = dtype == torch.float32 and s == LM_PROMPT and causal
                 cases.append((f"{str(dtype)[6:]} [{b}, 32, {s}, 128] causal={causal}",
-                              q, k, v, causal, 0))
+                              q, k, v, causal, n_layers if stand_in else 0))
     qm = torch.randn(LM_BATCH, LM_PROMPT, 32, 128, device=dev, generator=gen).to(torch.bfloat16)
     km, vm = (torch.randn(LM_BATCH, LM_PROMPT, 8, 128, device=dev, generator=gen)
               .to(torch.bfloat16) for _ in range(2))
@@ -179,29 +203,45 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
                   "causal", qm.transpose(1, 2), km.transpose(1, 2), vm.transpose(1, 2), True,
                   n_layers))
     for label, q, k, v, causal, weight in cases:
+        name = f"flash_attention/{fa.route(q, k, v)}"
         run = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
         ref = lambda: flash_attention_plain(q, k, v, causal=causal)  # noqa: E731
         gqa = k.shape[1] != q.shape[1]
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q, k, v, is_causal=causal, enable_gqa=gqa)
         row = {"shape": label, "weight": weight, "lm": True}
-        record("flash_attention", row, run(), ref(), FLASH_TOL[str(q.dtype)[6:]])
+        before = dict(flash_attention.launches_by_route)
+        record(name, row, run(), ref(), FLASH_TOL[str(q.dtype)[6:]])
+        if flash_attention.launches_by_route[name[16:]] != before[name[16:]] + 1:
+            failures.append(f"{name} {label}: not launched on its route")
         with full_f32():
             row["library_ms"] = timed_ms(library, torch, flush)
         row["ms"] = timed_ms(run, torch, flush)
         row["plain_ms"] = timed_ms(ref, torch, flush)
+        if name.endswith("wgmma"):
+            # the kernel this route replaced, on the same bf16 inputs
+            out = torch.empty_like(q)
+            row["f32_route_ms"] = timed_ms(
+                lambda: fa._launch("f32", q, k, v, out, q.shape[1] // k.shape[1], causal, 0),
+                torch, flush)
         row.update(_flash_bound(q, k, causal))
         row["tflops"] = row["flops"] / row["ms"] / 1e9
-        rows["flash_attention"].append(row)
+        rows[name].append(row)
     # The elementwise limit must see a subtle fault that the logits cannot:
-    # P.V accumulated in bf16, at the main path's call.
+    # P.V accumulated in bf16, at the main path's call. Beside it, what the
+    # wgmma kernel would read with P rounded once to bf16 (it adds P_hi.V and
+    # P_lo.V instead): a control that is reported, not gated.
     _, q, k, v, causal, _ = cases[-1]
-    worst = _worst(_flash_bf16_acc(q, k, v, causal=causal),
-                   flash_attention_plain(q, k, v, causal=causal), FLASH_TOL["bfloat16"])
+    want = flash_attention_plain(q, k, v, causal=causal)
+    worst = _worst(_flash_bf16_acc(q, k, v, causal=causal), want, FLASH_TOL["bfloat16"])
     print(f"[lm-kernels] control: flash with P.V accumulated in bf16 against the plain "
           f"version, main path call: worst |err| / limit {worst:.3f} (must exceed 1)")
     if worst <= 1.0:
         failures.append("the elementwise flash limit does not see P.V accumulated in bf16")
+    single = _worst(_flash_bf16_p(q, k, v, causal=causal), want, FLASH_TOL["bfloat16"])
+    print(f"[lm-kernels] control: flash with a single bf16 P (P.V from bf16(P), float32 sums) "
+          f"against the plain version, main path call: worst |err| / limit {single:.3f} "
+          f"(reported; the wgmma kernel splits P into two bf16 halves)")
 
     # The packed matmuls: each block matmul shape of qwen3-8b, a4 nibble codes
     # of one per-slice layer view, bf16 activations as the main path gives
@@ -225,8 +265,8 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
         cases = [("elp_bsd_matmul/wgmma", elp_bsd_matmul, elp_bsd_matmul_plain,
                   1999 if label == "ragged" else LM_BATCH * LM_PROMPT, n_layers * per_layer)]
         if f is fmt and per_layer:
-            cases.append(("fused_decode_matmul", fused_decode_matmul, fused_decode_matmul_plain,
-                          LM_BATCH, steps * n_layers * per_layer))
+            cases.append(("fused_decode_matmul/wgmma", fused_decode_matmul,
+                          fused_decode_matmul_plain, LM_BATCH, steps * n_layers * per_layer))
         for name, kernel, plain, m, weight in cases:
             x = torch.randn(m, kdim, device=dev, generator=gen).to(torch.bfloat16)
             # float32 out, as quantized_matmul asks of the kernels
@@ -236,8 +276,8 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
                                 out_dtype=torch.float32)
             library = lambda: torch.matmul(x, wq)  # noqa: E731
             row = {"shape": f"{label} M={m} K={kdim} N={n}", "weight": weight, "lm": True}
-            if kernel is elp_bsd_matmul and route(x, f) != "wgmma":
-                failures.append(f"{row['shape']} routed to {route(x, f)}")
+            if route(x, f) != "wgmma":
+                failures.append(f"{name} {row['shape']} routed to {route(x, f)}")
             got = run()
             record(name, row, got, ref(), (0.0, REL_TOL))
             if kernel is elp_bsd_matmul:
@@ -249,38 +289,57 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
             row["library_ms"] = timed_ms(library, torch, flush)
             row["ms"] = timed_ms(run, torch, flush)
             row["plain_ms"] = timed_ms(ref, torch, flush)
+            if kernel is fused_decode_matmul:
+                # the kernel this route replaced, on the same bf16 x (cast to float32)
+                row["f32_route_ms"] = timed_ms(
+                    lambda: launch_checked("fused_decode", x, pw.codes, pw.sf, f, pw.nibble),
+                    torch, flush)
             row.update(bound(2.0 * m * kdim * n, x.numel() * 2 + pw.codes.numel() + 4 + m * n * 4,
                              x.dtype))
             row["tflops"] = row["flops"] / row["ms"] / 1e9
             rows[name].append(row)
-    for name in ("flash_attention", "elp_bsd_matmul/wgmma", "fused_decode_matmul"):
+    for name in ("flash_attention/f32", "flash_attention/wgmma", "elp_bsd_matmul/wgmma",
+                 "fused_decode_matmul/wgmma"):
         for r in rows[name]:
             if r.get("lm"):
+                f32 = f", f32 route {r['f32_route_ms']:.4f} ms" if "f32_route_ms" in r else ""
                 print(f"[lm-kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms "
-                      f"({r['tflops']:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, library "
-                      f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-                      f"{r['weight']} launches per generate")
+                      f"({r['tflops']:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.3f} of bound), "
+                      f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_by']}){f32}; {r['weight']} launches "
+                      "per generate")
+    for name in ("flash_attention/wgmma", "fused_decode_matmul/wgmma"):
+        rs = [r for r in rows[name] if r.get("weight") and "f32_route_ms" in r]
+        new, old = (sum(r["weight"] * r[k] for r in rs) for k in ("ms", "f32_route_ms"))
+        print(f"[lm-kernels] {name} per generate: {new:.3f} ms; the f32 route it replaced on the "
+              f"same inputs {old:.3f} ms ({old / new:.2f}x)")
 
 
-def _counts():
-    """Launches so far: (tiled wgmma route, tiled f32 route, decode-step, flash)."""
+# The six kernel routes, in the order of _counts().
+KERNEL_ROUTES = ("elp_bsd_matmul/wgmma", "elp_bsd_matmul/f32", "fused_decode_matmul/wgmma",
+                 "fused_decode_matmul/f32", "flash_attention/wgmma", "flash_attention/f32")
+
+
+def _wrappers():
     from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.fused_decode import fused_decode_matmul
 
-    return (elp_bsd_matmul.launches_by_route["wgmma"], elp_bsd_matmul.launches_by_route["f32"],
-            fused_decode_matmul.launches, flash_attention.launches)
+    return {"elp_bsd_matmul": elp_bsd_matmul, "fused_decode_matmul": fused_decode_matmul,
+            "flash_attention": flash_attention}
+
+
+def _counts() -> tuple:
+    """Launches so far, per route of KERNEL_ROUTES."""
+    w = _wrappers()
+    return tuple(w[k.split("/")[0]].launches_by_route[k.split("/")[1]] for k in KERNEL_ROUTES)
 
 
 def _zero_counts() -> None:
-    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.fused_decode import fused_decode_matmul
-
-    for k in (elp_bsd_matmul, fused_decode_matmul, flash_attention):
+    for k in _wrappers().values():
         k.launches = 0
-    for r in elp_bsd_matmul.launches_by_route:
-        elp_bsd_matmul.launches_by_route[r] = 0
+        for r in k.launches_by_route:
+            k.launches_by_route[r] = 0
 
 
 def _teacher_forced(torch, transformer, params, cfg, prompts, tokens, cache) -> list:
@@ -330,6 +389,15 @@ def _flash_f64(q, k, v, *, causal=True, block_q=128, block_k=128, q_offset=0):
     p = _flash_probs(q, k, q_offset, causal, torch.float64)
     vd = v.double().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     return ((p @ vd) / p.sum(-1, keepdim=True)).to(q.dtype)
+
+
+def _flash_bf16_p(q, k, v, *, causal=True, block_q=128, block_k=128, q_offset=0):
+    """A control: P rounded once to bfloat16 before P.V (float32 sums, float32 l)."""
+    import torch
+
+    p = _flash_probs(q, k, q_offset, causal, torch.float32)
+    vf = v.float().repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    return ((p.to(torch.bfloat16).float() @ vf) / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
 def _flash_bf16_acc(q, k, v, *, causal=True, block_q=128, block_k=128, q_offset=0):
@@ -448,17 +516,16 @@ def lm_main_path(torch, dev, failures) -> dict:
     finally:
         engine_mod.get_model = real_get_model
     c = _counts()
-    want_phases = ([("prefill", (n_layers * per_layer, 0, 0, n_layers))]
-                   + [("decode", (0, 0, n_layers * per_layer, 0))] * (LM_NEW - 1))
-    print(f"[lm] launches (tiled wgmma route, tiled f32 route, decode-step, flash) by phase of "
-          f"the generate: prefill "
+    prefill_counts = (n_layers * per_layer, 0, 0, 0, n_layers, 0)
+    step_counts = (0, 0, n_layers * per_layer, 0, 0, 0)
+    want_phases = [("prefill", prefill_counts)] + [("decode", step_counts)] * (LM_NEW - 1)
+    print(f"[lm] launches {KERNEL_ROUTES} by phase of the generate: prefill "
           f"{phases[0][1] if phases else None}, decode steps "
           f"{sorted(set(p_[1] for p_ in phases[1:]))} over {len(phases) - 1} steps")
     if phases != want_phases:
         failures.append(f"LM launch counts by phase {phases}")
-    launches = {"elp_bsd_matmul/wgmma": c[0], "elp_bsd_matmul/f32": c[1],
-                "fused_decode_matmul": c[2], "flash_attention": c[3]}
-    want = (n_layers * per_layer, 0, (LM_NEW - 1) * n_layers * per_layer, n_layers)
+    launches = dict(zip(KERNEL_ROUTES, c))
+    want = tuple(a + (LM_NEW - 1) * b for a, b in zip(prefill_counts, step_counts))
     print(f"[lm] launches in one generate ({LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_NEW} new "
           f"tokens): {launches} (expected {want})")
     if c != want:
@@ -488,7 +555,7 @@ def lm_main_path(torch, dev, failures) -> dict:
         logits, cache = transformer.prefill(p, cfg, prompts, cache)
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t0) * 1e3)
-        if _counts() != (n_layers * per_layer, 0, 0, n_layers):
+        if _counts() != prefill_counts:
             failures.append(f"prefill launch counts {_counts()}")
         outs, toks, times = [logits], [logits.argmax(-1).to(torch.int32)], []
         for i in range(LM_NEW - 1):
@@ -497,7 +564,7 @@ def lm_main_path(torch, dev, failures) -> dict:
             logits, cache = transformer.decode_step(p, cfg, toks[-1], cache, LM_PROMPT + i)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            if _counts() != (0, 0, n_layers * per_layer, 0):
+            if _counts() != step_counts:
                 failures.append(f"decode step {i} launch counts {_counts()}")
             outs.append(logits)
             toks.append(logits.argmax(-1).to(torch.int32))
@@ -530,7 +597,7 @@ def lm_main_path(torch, dev, failures) -> dict:
     plain_logits = forced(p, plain_mm, _plain_flash())
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    if _counts() != (0, 0, 0, 0):
+    if any(_counts()):
         failures.append(f"the plain run launched kernels {_counts()}")
     rels, checked, agree = [], 0, 0
     for j, (kl, pl) in enumerate(zip(kernel_logits, plain_logits)):
@@ -671,7 +738,8 @@ def main() -> int:
           "(in parallel)")
     for name, rep in reports.items():
         for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "Performance Loss" in line:
+            if ("registers" in line or "spill" in line or "Performance Loss" in line
+                    or "arning" in line):
                 print(f"[build] {name}: {line.strip()}")
 
     # -- phase 3: kernels against their plain versions ---------------------------
@@ -682,7 +750,7 @@ def main() -> int:
           f"{REL_TOL:g} * max|plain|")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    rows = {"elp_bsd_matmul/f32": [], "fused_decode_matmul": []}
+    rows = {k: [] for k in KERNEL_ROUTES}
     failures = []
 
     def check(kernel, label, got, want):
@@ -696,7 +764,8 @@ def main() -> int:
         return err
 
     under_test = {"elp_bsd_matmul/f32": (elp_bsd_matmul, elp_bsd_matmul_plain, "tiled"),
-               "fused_decode_matmul": (fused_decode_matmul, fused_decode_matmul_plain, "fused")}
+                  "fused_decode_matmul/f32": (fused_decode_matmul, fused_decode_matmul_plain,
+                                              "fused")}
 
     def case(name, lhs, pw, label, library=None):
         """``lhs @ pw`` on kernel ``name`` against its plain version, at the
@@ -757,12 +826,13 @@ def main() -> int:
         pw, _ = ops.pack_weight(w, "elp_bsd_a4")
         wq = ops.dequantize(pw)
         library = lambda: torch.matmul(xa, wq)  # noqa: E731
-        case("fused_decode_matmul", xa, pw, f"fc{i} a4/nibble", library)
+        case("fused_decode_matmul/f32", xa, pw, f"fc{i} a4/nibble", library)
         if i == 1:
-            case("fused_decode_matmul", xa, ops.pack_weight(w, "elp_bsd_c6")[0], f"fc{i} c6/u8")
+            case("fused_decode_matmul/f32", xa, ops.pack_weight(w, "elp_bsd_c6")[0],
+                 f"fc{i} c6/u8")
         if i == 2:
             pw, _ = ops.pack_weight(w, "elp_bsd_a4", granularity="per_channel")
-            case("fused_decode_matmul", xa, pw, f"fc{i} a4/nibble per-channel sf")
+            case("fused_decode_matmul/f32", xa, pw, f"fc{i} a4/nibble per-channel sf")
     for name, rs in rows.items():
         for r in rs:
             print(f"[kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms "
@@ -791,11 +861,10 @@ def main() -> int:
     _zero_counts()
     logits = qm.forward(batch)
     torch.cuda.synchronize()
-    c = _counts()
-    launches = {"elp_bsd_matmul/wgmma": c[0], "elp_bsd_matmul/f32": c[1],
-                "fused_decode_matmul": c[2]}
+    launches = dict(zip(KERNEL_ROUTES, _counts()))
     print(f"[main] launches in one forward at batch {BATCH}: {launches}")
-    if launches != {"elp_bsd_matmul/wgmma": 0, "elp_bsd_matmul/f32": 5, "fused_decode_matmul": 3}:
+    if launches != {**dict.fromkeys(KERNEL_ROUTES, 0), "elp_bsd_matmul/f32": 5,
+                    "fused_decode_matmul/f32": 3}:
         failures.append(f"launch counts {launches}")
     if tuple(logits.shape) != (BATCH, 1000) or not bool(torch.isfinite(logits).all()):
         failures.append(f"logits shape {tuple(logits.shape)} or non-finite values")
@@ -837,9 +906,7 @@ def main() -> int:
 
     # -- phase 5: the LM path's kernels at its shapes ------------------------------
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    rows["flash_attention"] = []
-    rows["elp_bsd_matmul/wgmma"] = []
-    for r in rows["elp_bsd_matmul/f32"] + rows["fused_decode_matmul"]:
+    for r in rows["elp_bsd_matmul/f32"] + rows["fused_decode_matmul/f32"]:
         r["weight"] = 1  # each AlexNet shape runs once per forward
     lm_kernel_phase(torch, dev, gen, flush, rows, failures)
     del flush
@@ -860,10 +927,14 @@ def main() -> int:
                                "src/repro/kernels/elp_bsd_matmul.py:69"),
         "elp_bsd_matmul/wgmma": ("src/repro_torch/csrc/elp_bsd_matmul_wgmma.cu",
                                  "src/repro/kernels/elp_bsd_matmul.py:69"),
-        "fused_decode_matmul": ("src/repro_torch/csrc/fused_decode.cu",
-                                "src/repro/kernels/fused_decode.py:70"),
-        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                            "src/repro/kernels/flash_attention.py:71"),
+        "fused_decode_matmul/f32": ("src/repro_torch/csrc/fused_decode.cu",
+                                    "src/repro/kernels/fused_decode.py:70"),
+        "fused_decode_matmul/wgmma": ("src/repro_torch/csrc/fused_decode_wgmma.cu",
+                                      "src/repro/kernels/fused_decode.py:70"),
+        "flash_attention/f32": ("src/repro_torch/csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:71"),
+        "flash_attention/wgmma": ("src/repro_torch/csrc/flash_attention_wgmma.cu",
+                                  "src/repro/kernels/flash_attention.py:71"),
     }
     kernels = []
     for name, rs in rows.items():

@@ -7,8 +7,9 @@ calibration on [2, 4, 128] seeded token ids), then traces one prefill of
 16 prompts x 128 tokens and three lockstep decode steps of the full
 36-layer model with ``torch.profiler`` and prints, per phase: the
 host-clock time, the summed device time of the kernels the trace
-recorded, the device's idle share, and the device kernels that took the
-most time.
+recorded, the device's idle share, the device kernels that took the most
+time, the launches of each kernel route, and (decode) the host-side
+operations that took the most host time.
 
     python3 scripts/profile_lm_torch.py
 
@@ -58,6 +59,8 @@ def main() -> int:
     from repro_torch import _build, api
     from repro_torch.configs import get_config
     from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_decode import fused_decode_matmul
     from repro_torch.models import transformer
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -84,18 +87,27 @@ def main() -> int:
     transformer.decode_step(p, cfg, tok, cache, 128)
     torch.cuda.synchronize()
 
+    wrappers = {"elp_bsd_matmul": elp_bsd_matmul, "fused_decode_matmul": fused_decode_matmul,
+                "flash_attention": flash_attention}
+
+    def routes() -> dict:
+        return {f"{k}/{r}": n for k, w in wrappers.items() for r, n in w.launches_by_route.items()}
+
+    def launched(before: dict) -> dict:
+        return {k: n - before[k] for k, n in routes().items() if n != before[k]}
+
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    routes = dict(elp_bsd_matmul.launches_by_route)
+    before = routes()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         logits = prefill()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernel_summary(prof, wall, f"prefill b16 s128, {cfg.n_layers} layers")
-    print(f"[prefill] tiled matmul launches by route: "
-          f"{ {r: n - routes[r] for r, n in elp_bsd_matmul.launches_by_route.items()} }")
+    print(f"[prefill] kernel launches by route: {launched(before)}")
 
     tok = logits.argmax(-1).to(torch.int32)
+    before = routes()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(STEPS):
@@ -104,6 +116,11 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernel_summary(prof, wall, f"decode x{STEPS} b16, {cfg.n_layers} layers")
+    print(f"[decode] kernel launches by route over {STEPS} steps: {launched(before)}")
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:12]
+    for e in host:
+        print(f"[decode host]   {e.self_cpu_time_total / 1e3:9.3f} ms self  x{e.count:<6d} "
+              f"{e.key[:90]}")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     prof.export_chrome_trace(os.path.join(ROOT, "build", "profile_lm_decode.json"))
     return 0

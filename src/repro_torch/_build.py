@@ -21,9 +21,9 @@ partial sums on the current device (0 for none, -1 for a shape the kernel
 cannot take): the kernel's source picks the split from its own tiles and
 its occupancy. The second launches on ``stream`` with that workspace and
 returns the launches' ``cudaError_t``, or -1 for a descriptor, shape or
-workspace the kernel cannot take. The bf16 tensor-core matmul
-(``elp_bsd_matmul_wgmma``) has the same ``_workspace`` and, in place of
-``_f32``::
+workspace the kernel cannot take. The two bf16 tensor-core matmuls
+(``elp_bsd_matmul_wgmma``, ``fused_decode_wgmma``) have the same
+``_workspace`` and, in place of ``_f32``::
 
     int <name>_bf16(const bf16* x, const uint8_t* codes, const float* sf, float* out,
                     int M, int N, int K, int nibble, float* work, long long work_floats,
@@ -31,8 +31,8 @@ workspace the kernel cannot take. The bf16 tensor-core matmul
 
 with the 256-entry decode table (:func:`repro_torch.kernels.ref.decode_table`)
 in host memory and the row strides of x (elements) and codes (bytes), each
-a multiple of 16 bytes, as TMA asks. The attention kernel's entry point is
-declared by its wrapper (:mod:`repro_torch.kernels.flash_attention`).
+a multiple of 16 bytes, as TMA asks. The attention kernels' entry points
+are declared by their wrapper (:mod:`repro_torch.kernels.flash_attention`).
 """
 from __future__ import annotations
 
@@ -54,7 +54,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # Every kernel source of the port, by name (csrc/<name>.cu).
-SOURCES = ("elp_bsd_matmul", "elp_bsd_matmul_wgmma", "fused_decode", "flash_attention")
+SOURCES = ("elp_bsd_matmul", "elp_bsd_matmul_wgmma", "fused_decode", "fused_decode_wgmma",
+           "flash_attention", "flash_attention_wgmma")
 # Layout of the format descriptor parsed by csrc/elp_decode.cuh.
 MAX_DIGITS = 2
 MAX_LUT = 8

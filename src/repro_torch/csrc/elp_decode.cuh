@@ -1,6 +1,7 @@
 // ELP_BSD shift-add decode, the split-K choice and the split-K reduction,
-// shared by the packed-matmul kernels (the bf16 wgmma kernel takes only the
-// last two: its decode is a table built on the host).
+// shared by the float32 packed-matmul kernels (the tiled bf16 kernel takes
+// only the last two; the bf16 kernels decode by a table built on the host,
+// hopper.cuh).
 //
 // A format reaches a kernel as an ElpFormat passed by value: per digit
 // the (offset, sign_bits, index_bits) field layout and the shift, either

@@ -37,8 +37,9 @@
 // unmasked (query, key) pair, 4*128 * 16*32*(128*129/2) = 2.2 GFLOP (2.2 us
 // at the 989 TFLOP/s dense rate of its bf16 inputs): bytes-bound. This kernel
 // does its arithmetic in float32 on CUDA cores, whose 67 TFLOP/s (32 us for
-// that work) caps it well above the bound; a bf16 tensor-core variant (wgmma)
-// is later, separately measured work.
+// that work) caps it well above the bound. bf16 inputs take the tensor-core
+// kernel, flash_attention_wgmma.cu; this one keeps float32 (and takes bf16
+// when called directly, as chip_smoke.py does to compare the two).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -22,7 +22,8 @@
 // 67 TFLOP/s, against 25.7 MB of nibble codes, about 7.7 us at 3.35 TB/s.
 // The headroom is the bf16 tensor-core rate (989 TFLOP/s dense, about
 // 6.6 us for fc0), at which the code stream, not the arithmetic, would
-// bound it; that is work for a later, separately measured variant.
+// bound it. bf16 activations take the tensor-core kernel,
+// fused_decode_wgmma.cu; this one keeps float32 activations.
 #include <stdint.h>
 
 #include "elp_decode.cuh"

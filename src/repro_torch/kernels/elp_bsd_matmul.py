@@ -161,18 +161,19 @@ def _tma_rows(t: torch.Tensor) -> torch.Tensor:
     return padded
 
 
-def launch_wgmma(x, codes, sf, fmt, nibble: bool) -> torch.Tensor:
-    """Validate devices and dtypes, then launch ``csrc/elp_bsd_matmul_wgmma.cu`` on
-    bf16 ``x``; float32 ``[M, N]`` out."""
+def launch_wgmma(x, codes, sf, fmt, nibble: bool,
+                 name: str = "elp_bsd_matmul_wgmma") -> torch.Tensor:
+    """Validate devices and dtypes, then launch the bf16 kernel ``csrc/<name>.cu``
+    (this module's wgmma route, or the decode-step kernel's) on bf16 ``x``,
+    uncast; float32 ``[M, N]`` out."""
     from repro_torch import _build
 
-    _check_operands("elp_bsd_matmul", x, codes, sf)
+    _check_operands(name, x, codes, sf)
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the wgmma route takes bfloat16 x, got {x.dtype}")
     table = _table_words(fmt, nibble)
     out = torch.empty((x.shape[0], codes.shape[1]), dtype=torch.float32, device=x.device)
-    _build.launch_bf16("elp_bsd_matmul_wgmma", _tma_rows(x), x.shape[1], _tma_rows(codes), sf,
-                       out, nibble, table)
+    _build.launch_bf16(name, _tma_rows(x), x.shape[1], _tma_rows(codes), sf, out, nibble, table)
     return out
 
 

@@ -8,16 +8,24 @@ softmax whose running max, running sum and accumulator are float32, scale
 logits ``-1e30``, the running sum clamped at ``1e-30`` and the output in
 ``q.dtype``.
 
-The kernel is ``csrc/flash_attention.cu``, CUDA C++ for ``sm_90a``: one
-block per (batch*head, 64-query tile) loops over 64-key tiles itself, the
-query tile resident in shared memory, K and V staged there per step, the
-logits and probabilities of one step in registers and shared memory, m, l
-and the accumulator in float32 registers; a causal block stops at its
-diagonal tile. At qwen3-8b's prefill shape (q ``[16, 32, 128, 128]``,
-k and v with 8 heads) the causal work is 2.2 GFLOP against 42 MB of bf16
-q, k, v and out: bytes-bound on an H100 (12.5 us at 3.35 TB/s). The
-kernel's float32 arithmetic on CUDA cores (67 TFLOP/s) caps it well above
-that; the bf16 tensor-core rate is the headroom for a later variant.
+Two CUDA C++ kernels for ``sm_90a`` compute it, one block per
+(batch*head, 64-query tile) looping over 64-key tiles with m, l and the
+accumulator in float32 registers and causal blocks stopping at their
+diagonal tile; :func:`route` picks one before any launch, by one rule:
+
+* ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``): bf16 q, k and v. The
+  products run on the tensor cores (``wgmma``), q, k and v fed by TMA
+  through a 2-stage ring; P·V adds ``bf16(P)·V`` and
+  ``bf16(P - bf16(P))·V``, which keeps P to about 2^-16 as the
+  reference's float32 P·V does. The LM prefill runs here. At qwen3-8b's
+  prefill shape (q ``[16, 32, 128, 128]``, k and v with 8 heads) the
+  causal work is 2.2 GFLOP against 42 MB of q, k, v and out: bytes-bound
+  on an H100 (12.5 us at 3.35 TB/s).
+* ``"f32"`` (``csrc/flash_attention.cu``): anything else (float32), in
+  float32 on CUDA cores with the query tile and K and V staged in shared
+  memory.
+
+A failed build or launch raises: nothing retries on the other route.
 
 Beyond the JAX signature the wrapper takes k and v with fewer heads than q
 (grouped-query attention: head ``h`` reads key head ``h // (H // KVH)``,
@@ -29,8 +37,9 @@ the queries at absolute positions ``q_offset ..`` for the causal mask
 
 :func:`flash_attention` takes the plain version
 (:func:`flash_attention_plain`) only for tensors on the CPU; on a CUDA
-tensor it launches the kernel or raises. ``flash_attention.launches``
-counts the kernel's launches.
+tensor it launches the routed kernel or raises. ``flash_attention.launches``
+counts both kernels' launches and ``flash_attention.launches_by_route[route]``
+each one's.
 """
 from __future__ import annotations
 
@@ -43,7 +52,8 @@ from repro_torch.models.layers import NEG_INF
 
 F32 = torch.float32
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HD = 128  # the CUDA kernel's widest head
+MAX_HD = 128  # the CUDA kernels' widest head
+ROUTES = ("wgmma", "f32")
 
 
 def _check(q, k, v, block_q: int, block_k: int) -> tuple[int, int]:
@@ -90,34 +100,60 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0) ->
     return out.to(q.dtype)
 
 
-def _signatures() -> dict:
-    # every pointer and the stream as c_void_p (undeclared, ctypes would cut them to 32 bits)
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel :func:`flash_attention` launches for CUDA tensors: ``"wgmma"`` when
+    q, k and v are all bf16, else ``"f32"``."""
+    return "wgmma" if q.dtype == k.dtype == v.dtype == torch.bfloat16 else "f32"
+
+
+def _signatures(name: str) -> dict:
+    # every pointer and the stream as c_void_p (undeclared, ctypes would cut them to 32 bits);
+    # the float32 kernel's entry point also takes the dtype code
+    ints = 7 if name == "flash_attention" else 6
     return {
-        "flash_attention_launch": (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        f"{name}_launch": (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
             ctypes.c_int,
         ),
     }
 
 
-def _launch(q, k, v, out, group: int, causal: bool, q_offset: int) -> None:
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (unit stride along hd) as TMA reads it: ``t`` itself when its base
+    is 16-byte aligned and its (batch, head, seq) strides are nonzero
+    multiples of 16 bytes, else a view of a zero buffer with hd padded to a
+    multiple of 8 elements that holds a copy."""
+    if t.data_ptr() % 16 == 0 and all(s > 0 and s * t.element_size() % 16 == 0
+                                      for s in t.stride()[:3]):
+        return t
+    hd = t.shape[3]
+    buf = t.new_zeros((*t.shape[:3], -(-hd // 8) * 8))
+    buf[..., :hd] = t
+    return buf[..., :hd]
+
+
+def _launch(r: str, q, k, v, out, group: int, causal: bool, q_offset: int) -> None:
     from repro_torch import _build
 
+    name = "flash_attention_wgmma" if r == "wgmma" else "flash_attention"
+    if r == "wgmma":
+        q, k, v = (_tma_ready(t) for t in (q, k, v))
     b, h, sq, hd = q.shape
     sk = k.shape[2]
-    lib = _build.load("flash_attention", _signatures())
+    lib = _build.load(name, _signatures(name))
     strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, out) for i in range(3)])
+    dtype = () if r == "wgmma" else (DTYPE_CODES[q.dtype],)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
+        err = getattr(lib, f"{name}_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dtype,
             b, h, group, sq, sk, hd, strides, int(causal), int(q_offset),
             1.0 / math.sqrt(hd), stream,
         )
     if err != 0:
         raise RuntimeError(
-            f"flash_attention launch failed with code {err} (q{tuple(q.shape)}, "
+            f"{name} launch failed with code {err} (q{tuple(q.shape)}, "
             f"k{tuple(k.shape)}, {q.dtype}, causal={causal}, q_offset={q_offset}); "
             "-1 means the kernel refused the shape"
         )
@@ -134,6 +170,8 @@ def flash_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Fused attention. ``q [B, H, S, hd]``, ``k/v [B, KVH, Sk, hd]`` (``H % KVH == 0``).
+
+    On the card the kernel is :func:`route`'s.
 
     S and Sk must tile by the block sizes (callers pad), as in the JAX
     package; returns ``[B, H, S, hd]`` in ``q.dtype`` with q's strides.
@@ -158,9 +196,12 @@ def flash_attention(
         raise ValueError(f"the CUDA kernel takes head_dim <= {MAX_HD}, got {q.shape[3]}")
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     out = torch.empty_like(q)
-    _launch(q, k, v, out, group, causal, q_offset)
+    r = route(q, k, v)
+    _launch(r, q, k, v, out, group, causal, q_offset)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[r] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

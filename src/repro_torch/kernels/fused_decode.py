@@ -1,38 +1,56 @@
-"""Decode-step ELP_BSD decode + matmul (M <= 256): kernel, plain version, wrapper.
+"""Decode-step ELP_BSD decode + matmul (M <= 256): the kernels, the plain version, the wrapper.
 
 Replaces the JAX package's Pallas TPU kernel
 ``repro/kernels/fused_decode.py::fused_decode_matmul`` (body
 ``_fused_kernel``): the same product as the tiled kernel for the small M
-of an fc layer at decode-size batch, a weight-streaming GEMV-like op.
+of an fc layer or an LM decode step, a weight-streaming GEMV-like op.
 
-The kernel is ``csrc/fused_decode.cu``, CUDA C++ for ``sm_90a``: one
-block per 32-column output strip holding all M rows, so N spreads over
-the SMs; the block loops over K, stages the x strip and the code tile in
-shared memory, decodes there, and sums each output in K order in float32
-registers; K is split over several blocks per strip, summed in split
-order by a second pass (deterministic, no atomics), so enough blocks are
-resident to hide the load latency (the kernel's source picks that split
-from its own strips and occupancy). At AlexNet's fc shapes with
-M = 64 it is bound by the float32 CUDA-core rate (fc0: 6.6 GFLOP, about
-98 us at 67 TFLOP/s, against 25.7 MB of nibble codes, about 7.7 us at
-3.35 TB/s); at the bf16 tensor-core rate the code stream would bound it.
+Two CUDA C++ kernels for ``sm_90a`` compute it; :func:`route` (the tiled
+kernel's rule, :func:`repro_torch.kernels.elp_bsd_matmul.route`) picks one
+before any launch:
+
+* ``"wgmma"`` (``csrc/fused_decode_wgmma.cu``): bf16 x and a bf16-exact
+  format. x goes to the kernel as it is; the product runs transposed on
+  the tensor cores (``wgmma`` with the table-decoded weight as the register
+  operand and x, fed by TMA, as the shared-memory operand at N = M rounded
+  up to 16, 32, 64, 128 or 256), persistent blocks walk (column strip, K
+  split) items through a deep TMA ring, and the last split of a strip to
+  finish adds the partial sums in split order, in the same launch. The LM
+  decode step runs here, bound by its code stream.
+* ``"f32"`` (``csrc/fused_decode.cu``): any other x, cast to float32, on
+  CUDA cores: one block per 32-column output strip holding all M rows, a K
+  loop that stages the x strip and the code tile in shared memory and
+  decodes there, K split over blocks and summed in split order by a
+  second pass. AlexNet's fc layers run here (bound by the float32
+  CUDA-core rate at M = 64).
+
+Both are deterministic: no atomics touch the sums. A failed build or
+launch raises: nothing retries on the other route.
 
 :func:`fused_decode_matmul` takes the plain version
 (:func:`fused_decode_matmul_plain`, the tiled kernel's plain version under
 a second name: the product is the same) only for tensors on the CPU; on a
-CUDA tensor it launches the kernel or raises.
-``fused_decode_matmul.launches`` counts the kernel's launches.
+CUDA tensor it launches the routed kernel or raises.
+``fused_decode_matmul.launches`` counts both kernels' launches and
+``fused_decode_matmul.launches_by_route[route]`` each one's.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.elp_bsd import ElpBsdFormat
-from repro_torch.kernels.elp_bsd_matmul import as_scale, check_kernel_args, launch_checked
+from repro_torch.kernels.elp_bsd_matmul import (
+    ROUTES,
+    as_scale,
+    check_kernel_args,
+    launch_checked,
+    launch_wgmma,
+    route,
+)
 from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul_plain as fused_decode_matmul_plain
 
-# The whole M strip of one block sits in shared memory; past this, the
-# tiled kernel's M tiling applies.
+# The whole M strip of one block sits on chip; past this, the tiled
+# kernel's M tiling applies.
 MAX_FUSED_M = 256
 
 
@@ -47,8 +65,9 @@ def fused_decode_matmul(
 ) -> torch.Tensor:
     """``x[M, K] @ dequant(codes)[K, N]`` for decode-step M (<= MAX_FUSED_M).
 
-    Any K and N: the kernel masks the ragged edges (the nibble pad row
+    Any K and N: the kernels mask the ragged edges (the nibble pad row
     meets zero activations); M rides whole. ``sf`` is one float32 scale.
+    On the card the kernel is :func:`route`'s.
     """
     check_kernel_args("fused_decode_matmul", x, codes, nibble)
     m = x.shape[0]
@@ -63,9 +82,15 @@ def fused_decode_matmul(
         return fused_decode_matmul_plain(x, codes, sf, fmt, nibble=nibble, out_dtype=out_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"fused_decode_matmul runs on cuda or cpu tensors, got {x.device}")
-    out = launch_checked("fused_decode", x, codes, sf, fmt, nibble)
+    r = route(x, fmt)
+    if r == "wgmma":
+        out = launch_wgmma(x, codes, sf, fmt, nibble, name="fused_decode_wgmma")
+    else:
+        out = launch_checked("fused_decode", x, codes, sf, fmt, nibble)
     fused_decode_matmul.launches += 1
+    fused_decode_matmul.launches_by_route[r] += 1
     return out.to(out_dtype)
 
 
 fused_decode_matmul.launches = 0
+fused_decode_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)

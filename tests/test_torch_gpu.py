@@ -367,3 +367,125 @@ def test_lm_prefill_and_decode_on_card_match_cpu(cuda, act):
             == (0, 14)
         assert (got.cpu() - want).abs().max().item() <= rel * want.abs().max().item(), i
         tok = want.argmax(-1)
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core routes of the decode-step matmul and of flash attention
+# ---------------------------------------------------------------------------
+# (M, K, N) for the decode-step kernel's wgmma route: qwen3-8b's four block
+# matmul shapes at the decode step's M = 16 (split-K, last-split sums), then
+# ragged M over its three wgmma widths (N = 16: M 1, 7; 64: 17, 33; 256:
+# 100, 256), K and N (x rows and code rows off TMA's 16-byte rule: padded
+# copies), and one element.
+DECODE_LM_SHAPES = [(16, 4096, 4096), (16, 4096, 1024), (16, 4096, 12288), (16, 12288, 4096)]
+DECODE_RAGGED_SHAPES = [(1, 4001, 1000), (7, 130, 34), (17, 4096, 1000), (33, 640, 384),
+                        (100, 71, 34), (256, 4096, 512), (1, 2, 1)]
+
+
+def _decode_wgmma_case(cuda, fmt_name, nibble, m, k, n):
+    x, codes, sf = _case(cuda, fmt_name, nibble, m, k, n)
+    x = x.to(torch.bfloat16)
+    fmt = PRESET_FORMATS[fmt_name]
+    before = (fused_decode_matmul.launches, dict(fused_decode_matmul.launches_by_route))
+    got = fused_decode_matmul(x, codes, sf, fmt, nibble=nibble, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert fused_decode_matmul.launches == before[0] + 1
+    assert fused_decode_matmul.launches_by_route == {**before[1],
+                                                     "wgmma": before[1]["wgmma"] + 1}
+    _close(got, fused_decode_matmul_plain(x, codes, sf, fmt, nibble=nibble,
+                                          out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("m,k,n", DECODE_LM_SHAPES)
+def test_decode_wgmma_route_matches_plain_at_lm_shapes(cuda, m, k, n):
+    _decode_wgmma_case(cuda, "elp_bsd_a4", True, m, k, n)
+
+
+@pytest.mark.parametrize("fmt_name,nibble", [("elp_bsd_a4", True), ("elp_bsd_a4", False),
+                                             ("elp_bsd_c6", False)])
+@pytest.mark.parametrize("m,k,n", DECODE_RAGGED_SHAPES)
+def test_decode_wgmma_route_matches_plain_ragged(cuda, fmt_name, nibble, m, k, n):
+    _decode_wgmma_case(cuda, fmt_name, nibble, m, k, n)
+
+
+@pytest.mark.parametrize("m,k,n", [(16, 4096, 1024), (16, 12288, 4096), (7, 4001, 1000)])
+def test_decode_wgmma_route_is_deterministic(cuda, m, k, n):
+    """Two runs bit-identical, the last-split sums of split-K included."""
+    x, codes, sf = _case(cuda, "elp_bsd_a4", True, m, k, n)
+    x = x.to(torch.bfloat16)
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    first = fused_decode_matmul(x, codes, sf, fmt, nibble=True, out_dtype=torch.float32)
+    for _ in range(3):
+        assert torch.equal(fused_decode_matmul(x, codes, sf, fmt, nibble=True,
+                                               out_dtype=torch.float32), first)
+
+
+def test_decode_wgmma_route_raises_on_bad_inputs(cuda):
+    from repro_torch.kernels.elp_bsd_matmul import launch_wgmma
+
+    x, codes, sf = _case(cuda, "elp_bsd_a4", True, 16, 128, 128)
+    xb = x.to(torch.bfloat16)
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    with pytest.raises(TypeError, match="uint8"):
+        fused_decode_matmul(xb, codes.to(torch.int32), sf, fmt, nibble=True)
+    with pytest.raises(ValueError, match="share a device"):
+        fused_decode_matmul(xb, codes.cpu(), sf, fmt, nibble=True)
+    with pytest.raises(ValueError, match="two K rows per byte"):
+        fused_decode_matmul(xb, codes[:10], sf, fmt, nibble=True)
+    with pytest.raises(ValueError, match="exceeds"):
+        fused_decode_matmul(torch.cat([xb] * 17), codes, sf, fmt, nibble=True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        launch_wgmma(x, codes, sf, fmt, True, name="fused_decode_wgmma")
+    with pytest.raises(ValueError, match="nibbles hold 4"):
+        fused_decode_matmul(xb, codes, sf, PRESET_FORMATS["elp_bsd_c6"], nibble=True)
+
+
+FLASH_WGMMA_CASES = [
+    # (B, H, KVH, Sq, Sk, hd, q_offset, block, causal, bshd): qwen3-8b's prefill
+    # call ([B, S, H, hd] views, GQA 4) causal and not; a prefill after a
+    # cached prefix; ragged Sq and Sk against the kernel's 64-row tiles; a head
+    # narrower than 64 and one between 64 and 128; hd 20, whose rows are off
+    # TMA's 16-byte rule (a padded copy)
+    (16, 32, 8, 128, 128, 128, 0, 128, True, True),
+    (16, 32, 8, 128, 128, 128, 0, 128, False, True),
+    (1, 4, 2, 128, 256, 128, 128, 128, True, False),
+    (2, 4, 4, 48, 80, 64, 32, 16, True, False),
+    (2, 4, 4, 48, 80, 64, 0, 16, False, False),
+    (1, 2, 1, 96, 96, 96, 0, 32, True, True),
+    (1, 2, 2, 64, 64, 20, 0, 64, True, False),
+]
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,hd,q_offset,block,causal,bshd", FLASH_WGMMA_CASES)
+def test_flash_wgmma_route_matches_plain(cuda, b, h, kvh, sq, sk, hd, q_offset, block, causal,
+                                         bshd):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    g = torch.Generator(device=cuda).manual_seed(sq + hd + h)
+    if bshd:  # [B, S, H, hd] activations viewed as [B, H, S, hd]
+        q = torch.randn(b, sq, h, hd, device=cuda, generator=g).to(torch.bfloat16).transpose(1, 2)
+        k, v = (torch.randn(b, sk, kvh, hd, device=cuda, generator=g).to(torch.bfloat16)
+                .transpose(1, 2) for _ in range(2))
+    else:
+        q = torch.randn(b, h, sq, hd, device=cuda, generator=g).to(torch.bfloat16)
+        k, v = (torch.randn(b, kvh, sk, hd, device=cuda, generator=g).to(torch.bfloat16)
+                for _ in range(2))
+    before = dict(flash_attention.launches_by_route)
+    got = flash_attention(q, k, v, causal=causal, block_q=block, block_k=block,
+                          q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route == {**before, "wgmma": before["wgmma"] + 1}
+    assert got.dtype == torch.bfloat16 and got.stride() == q.stride()
+    _assert_flash_close(got, flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset))
+
+
+def test_flash_routes_by_dtype(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.randn(1, 2, 64, 64, device=cuda)
+    before = dict(flash_attention.launches_by_route)
+    flash_attention(q, q, q, block_q=64, block_k=64)
+    flash_attention(*(q.to(torch.bfloat16),) * 3, block_q=64, block_k=64)
+    torch.cuda.synchronize()
+    assert flash_attention.launches_by_route == {"wgmma": before["wgmma"] + 1,
+                                                 "f32": before["f32"] + 1}
