@@ -1,20 +1,25 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Builds the six CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-each, in parallel) and drives the port's two main paths. Each of the three
-TPU kernels has two routes, each its own CUDA kernel: ``<kernel>/f32``
-(float32 on CUDA cores; AlexNet's float32 activations) and
-``<kernel>/wgmma`` (bf16 on the tensor cores; the LM's bf16 activations),
-picked by the wrapper's ``route``.
+Builds the six CUDA kernel sources from ``src/repro_torch/csrc`` (one
+``nvcc`` each, in parallel) and drives the port's two main paths. The two
+packed matmuls have three routes each, flash attention two, picked by the
+wrapper's ``route``: ``<kernel>/wgmma`` (bf16 on the tensor cores; the LM's
+bf16 activations), ``<matmul>/bf16x3`` (float32 activations split exactly
+into three bf16 terms on the tensor cores; AlexNet) and ``<kernel>/f32``
+(float32 on CUDA cores; on no main path now, launched directly here so it
+stays held and timed).
 
-* the packed CNN path: each matmul kernel held against its plain PyTorch
-  version at full-width AlexNet shapes (batch 64) and timed beside its
-  plain version and one library call; then ``api.quantize`` (static
-  calibration, bias fold, ELP_BSD a4 packing) of seeded full-width AlexNet
-  weights and ``QuantizedModel.forward`` on 64 seeded images, checking
-  5 tiled + 3 decode-step launches, all on the float32 routes, and the
-  logits against the same packed model run on the CPU;
+* the packed CNN path: each matmul's bf16x3 route held against its plain
+  PyTorch version at full-width AlexNet shapes (batch 64), and the float32
+  CUDA-core kernel it replaced launched directly on the same inputs, both
+  timed beside the plain version and one library call; controls that the
+  limit sees a product of one bf16 term of x (and a report of two); then
+  ``api.quantize`` (static calibration, bias fold, ELP_BSD a4 packing) of
+  seeded full-width AlexNet weights and ``QuantizedModel.forward`` on 64
+  seeded images, checking 5 tiled + 3 decode-step launches, all on the
+  bf16x3 routes, and the logits against the same packed model run on the
+  CPU;
 * the packed LM serving path at full-width qwen3-8b: the flash-attention
   kernels held against their plain version (f32 route on float32 inputs,
   wgmma route on bf16, causal and not, at the prefill shape
@@ -43,8 +48,9 @@ holds the card's name and power limit, and before that one JSON object
 with each kernel route's numbers: ``launches`` counts its launches on both
 main paths (one AlexNet forward, one generate), and ``ms``, ``plain_ms``,
 ``bound_ms`` and ``library_ms`` are the per-shape times of those launches,
-each shape weighted by its launches. ``flash_attention/f32`` has no launch
-on either path (the LM's attention is bf16); its times are those of the
+each shape weighted by its launches. The three ``/f32`` routes have no
+launch on either path: the matmuls' times are those of AlexNet's shapes
+(one forward's worth, the kernel launched directly), flash's those of the
 prefill's attention shape in float32, weighted as one generate's 36
 launches. Every time is the device's: a launch is queued behind a device
 sleep, so the host's own time to issue it is not counted.
@@ -65,8 +71,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): operations by operand
 # type (float32 outside the tensor cores, bfloat16 on them) and device memory
-# bandwidth. A kernel's bound takes the rate of its inputs' type.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# bandwidth. A kernel's bound takes the rate of its arithmetic: its inputs'
+# type, or for the bf16x3 routes three bf16 passes over the product.
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "bf16x3": 989e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 BATCH = 64
 REL_TOL = 2e-5  # kernel vs plain: float32 sums over K <= 12544 in another order
@@ -125,8 +132,10 @@ def timed_ms(fn, torch, flush, iters: int = 7) -> float:
 
 
 def bound(flops: float, nbytes: float, dtype) -> dict:
-    """The least time for the work: operations at the peak of ``dtype`` inputs, bytes at HBM."""
-    ops_ms = flops / PEAK_FLOPS[str(dtype)[6:]] * 1e3
+    """The least time for the work: operations at the peak of ``dtype`` inputs (a
+    torch dtype, or ``"bf16x3"``), bytes at HBM."""
+    rate = PEAK_FLOPS[dtype if isinstance(dtype, str) else str(dtype)[6:]]
+    ops_ms = flops / rate * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"flops": flops, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
@@ -315,8 +324,9 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
               f"same inputs {old:.3f} ms ({old / new:.2f}x)")
 
 
-# The six kernel routes, in the order of _counts().
-KERNEL_ROUTES = ("elp_bsd_matmul/wgmma", "elp_bsd_matmul/f32", "fused_decode_matmul/wgmma",
+# The eight kernel routes, in the order of _counts().
+KERNEL_ROUTES = ("elp_bsd_matmul/wgmma", "elp_bsd_matmul/bf16x3", "elp_bsd_matmul/f32",
+                 "fused_decode_matmul/wgmma", "fused_decode_matmul/bf16x3",
                  "fused_decode_matmul/f32", "flash_attention/wgmma", "flash_attention/f32")
 
 
@@ -333,6 +343,12 @@ def _counts() -> tuple:
     """Launches so far, per route of KERNEL_ROUTES."""
     w = _wrappers()
     return tuple(w[k.split("/")[0]].launches_by_route[k.split("/")[1]] for k in KERNEL_ROUTES)
+
+
+def _expected(launches: dict) -> tuple:
+    """A _counts() tuple: ``launches`` by route, 0 on every other route."""
+    assert set(launches) <= set(KERNEL_ROUTES), launches
+    return tuple(launches.get(k, 0) for k in KERNEL_ROUTES)
 
 
 def _zero_counts() -> None:
@@ -516,8 +532,9 @@ def lm_main_path(torch, dev, failures) -> dict:
     finally:
         engine_mod.get_model = real_get_model
     c = _counts()
-    prefill_counts = (n_layers * per_layer, 0, 0, 0, n_layers, 0)
-    step_counts = (0, 0, n_layers * per_layer, 0, 0, 0)
+    prefill_counts = _expected({"elp_bsd_matmul/wgmma": n_layers * per_layer,
+                                "flash_attention/wgmma": n_layers})
+    step_counts = _expected({"fused_decode_matmul/wgmma": n_layers * per_layer})
     want_phases = [("prefill", prefill_counts)] + [("decode", step_counts)] * (LM_NEW - 1)
     print(f"[lm] launches {KERNEL_ROUTES} by phase of the generate: prefill "
           f"{phases[0][1] if phases else None}, decode steps "
@@ -713,8 +730,14 @@ def main() -> int:
     from repro_torch.device import full_f32
     from repro_torch.kernels import ops
     from repro_torch.kernels.conv import extract_patches, pad_nhwc
-    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul, elp_bsd_matmul_plain
+    from repro_torch.kernels.elp_bsd_matmul import (
+        elp_bsd_matmul,
+        elp_bsd_matmul_plain,
+        launch_checked,
+        route,
+    )
     from repro_torch.kernels.fused_decode import fused_decode_matmul, fused_decode_matmul_plain
+    from repro_torch.kernels.ref import elp_bsd_matmul_bf16x3 as bf16x3_product
     from repro_torch.models import cnn
 
     dev = torch.device("cuda")
@@ -763,39 +786,74 @@ def main() -> int:
             failures.append(f"{kernel} {label}")
         return err
 
-    under_test = {"elp_bsd_matmul/f32": (elp_bsd_matmul, elp_bsd_matmul_plain, "tiled"),
-                  "fused_decode_matmul/f32": (fused_decode_matmul, fused_decode_matmul_plain,
-                                              "fused")}
+    # The main path's route of each matmul, its wrapper, plain version and
+    # impl, and the float32 CUDA-core kernel it replaced (launched directly).
+    under_test = {"elp_bsd_matmul/bf16x3": (elp_bsd_matmul, elp_bsd_matmul_plain, "tiled",
+                                            "elp_bsd_matmul"),
+                  "fused_decode_matmul/bf16x3": (fused_decode_matmul, fused_decode_matmul_plain,
+                                                 "fused", "fused_decode")}
+    controls = []
 
     def case(name, lhs, pw, label, library=None):
-        """``lhs @ pw`` on kernel ``name`` against its plain version, at the
-        inputs the main path gives it; with a ``library`` call, also time
-        kernel, plain and library, and bound the work at these shapes."""
-        kernel, plain, impl = under_test[name]
+        """``lhs @ pw`` on route ``name`` and on the float32 kernel it replaced,
+        each against the plain version, at the inputs the main path gives it;
+        with a ``library`` call, also time both, plain and library, and bound
+        the work at these shapes at each route's arithmetic."""
+        kernel, plain, impl, f32_source = under_test[name]
+        f32_name = name.replace("bf16x3", "f32")
+        wrapper, route_name = name.split("/")
         m, kdim, n = lhs.shape[0], lhs.shape[1], pw.shape[1]
+        if route(lhs, pw.fmt) != route_name:
+            failures.append(f"{name} {label}: routed to {route(lhs, pw.fmt)}")
+        before = dict(kernel.launches_by_route)
         if pw.sf.numel() > 1:  # per-channel sf: applied by the wrapper after the kernel
             one = torch.ones(1, device=dev)
             want = plain(lhs, pw.codes, one, pw.fmt, nibble=pw.nibble) * pw.sf
             check(name, label, ops.quantized_matmul(lhs, pw, impl=impl), want)
+            got_f32 = launch_checked(f32_source, lhs, pw.codes, one, pw.fmt, pw.nibble) * pw.sf
+            check(f32_name, label + " (launched directly)", got_f32, want)
+            if kernel.launches_by_route != {**before, route_name: before[route_name] + 1}:
+                failures.append(f"{name} {label}: launches by route {kernel.launches_by_route}")
             return
         run = lambda: kernel(lhs, pw.codes, pw.sf, pw.fmt, nibble=pw.nibble)  # noqa: E731
         ref = lambda: plain(lhs, pw.codes, pw.sf, pw.fmt, nibble=pw.nibble)  # noqa: E731
+        f32 = lambda: launch_checked(f32_source, lhs, pw.codes, pw.sf, pw.fmt,  # noqa: E731
+                                     pw.nibble)
         row = {"shape": f"{label} M={m} K={kdim} N={n}"}
-        row["max_abs_err"] = check(name, row["shape"], run(), ref())
+        want = ref()
+        row["max_abs_err"] = check(name, row["shape"], run(), want)
+        if kernel.launches_by_route != {**before, route_name: before[route_name] + 1}:
+            failures.append(f"{name} {label}: launches by route {kernel.launches_by_route}")
+        f32_row = {"shape": row["shape"],
+                   "max_abs_err": check(f32_name, row["shape"] + " (launched directly)", f32(),
+                                        want)}
+        # Controls: the same product from fewer bf16 terms of x.
+        limit = REL_TOL * want.abs().max().item()
+        ratios = [(bf16x3_product(lhs, pw.codes, pw.sf, pw.fmt, nibble=pw.nibble, terms=t)
+                   - want).abs().max().item() / limit for t in (1, 2)]
+        controls.append((f"{name} {row['shape']}", *ratios))
+        del want
         if library is None:
             return
         with full_f32():
             lib_out = library()
             print(f"[kernels] {label} library vs kernel: max_abs_diff "
                   f"{(lib_out.reshape(m, n) - run()).abs().max().item():.3e}")
+            del lib_out
             row["library_ms"] = timed_ms(library, torch, flush)
         row["ms"] = timed_ms(run, torch, flush)
         row["plain_ms"] = timed_ms(ref, torch, flush)
+        row["f32_route_ms"] = f32_row["ms"] = timed_ms(f32, torch, flush)
         # The function's own work: x, codes and sf read once, out written once.
         nbytes = lhs.numel() * 4 + pw.codes.numel() + 4 + m * n * 4
-        row.update(bound(2.0 * m * kdim * n, nbytes, lhs.dtype))
-        row["tflops"] = row["flops"] / row["ms"] / 1e9
+        row.update(bound(2.0 * m * kdim * n, nbytes, "bf16x3"))
+        f32_row.update(bound(2.0 * m * kdim * n, nbytes, lhs.dtype))
+        row["f32_bound_ms"] = f32_row["bound_ms"]
+        f32_row["plain_ms"], f32_row["library_ms"] = row["plain_ms"], row["library_ms"]
+        for r in (row, f32_row):
+            r["tflops"] = r["flops"] / r["ms"] / 1e9
         rows[name].append(row)
+        rows[f32_name].append(f32_row)
 
     # The five AlexNet convs at batch 64: (input H = W, Cin, k, stride, Cout).
     # Library: cuDNN F.conv2d on the conv input with the dequantized weight.
@@ -804,18 +862,20 @@ def main() -> int:
     for i, (hw, cin, k, stride, cout) in enumerate(convs):
         img = torch.randn(BATCH, hw, hw, cin, device=dev, generator=gen)
         w = torch.randn(k, k, cin, cout, device=dev, generator=gen) * (1.0 / k / math.sqrt(k))
+        # as quantized_conv2d gives them: rows 16-byte aligned (conv0: a view, K = 363)
         patches = extract_patches(img, k, k, stride=stride).reshape(-1, k * k * cin)
         pw, _ = ops.pack_conv_weight(w, "elp_bsd_a4")
         wq = ops.dequantize_nd(pw).permute(3, 2, 0, 1).contiguous()
         xi = pad_nhwc(img, k, k, stride, "SAME").permute(0, 3, 1, 2).contiguous()
         library = lambda: F.conv2d(xi, wq, stride=stride).permute(0, 2, 3, 1)  # noqa: E731
-        case("elp_bsd_matmul/f32", patches, pw, f"conv{i} a4/nibble", library)
+        case("elp_bsd_matmul/bf16x3", patches, pw, f"conv{i} a4/nibble", library)
         if i == 1:
             pw, _ = ops.pack_conv_weight(w, "elp_bsd_a4", granularity="per_channel")
-            case("elp_bsd_matmul/f32", patches, pw, f"conv{i} a4/nibble per-channel sf")
+            case("elp_bsd_matmul/bf16x3", patches, pw, f"conv{i} a4/nibble per-channel sf")
         if i == 2:
-            case("elp_bsd_matmul/f32", patches, ops.pack_conv_weight(w, "elp_bsd_c6")[0],
+            case("elp_bsd_matmul/bf16x3", patches, ops.pack_conv_weight(w, "elp_bsd_c6")[0],
                  f"conv{i} c6/u8")
+        del img, patches, xi
 
     # The three AlexNet fc layers at M = 64: (K, N). Library: torch.matmul
     # on the dequantized weight.
@@ -826,18 +886,35 @@ def main() -> int:
         pw, _ = ops.pack_weight(w, "elp_bsd_a4")
         wq = ops.dequantize(pw)
         library = lambda: torch.matmul(xa, wq)  # noqa: E731
-        case("fused_decode_matmul/f32", xa, pw, f"fc{i} a4/nibble", library)
+        case("fused_decode_matmul/bf16x3", xa, pw, f"fc{i} a4/nibble", library)
         if i == 1:
-            case("fused_decode_matmul/f32", xa, ops.pack_weight(w, "elp_bsd_c6")[0],
+            case("fused_decode_matmul/bf16x3", xa, ops.pack_weight(w, "elp_bsd_c6")[0],
                  f"fc{i} c6/u8")
         if i == 2:
             pw, _ = ops.pack_weight(w, "elp_bsd_a4", granularity="per_channel")
-            case("fused_decode_matmul/f32", xa, pw, f"fc{i} a4/nibble per-channel sf")
-    for name, rs in rows.items():
-        for r in rs:
+            case("fused_decode_matmul/bf16x3", xa, pw, f"fc{i} a4/nibble per-channel sf")
+    for label, one, two in controls:
+        print(f"[kernels] control {label}: one bf16 term of x reads {one:.2f} of the limit "
+              f"(must exceed 1), two terms {two:.3f} (reported)")
+        if one <= 1.0:
+            failures.append(f"the limit does not see a one-term product: {label}")
+    for name in under_test:
+        for r in rows[name]:
             print(f"[kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms "
-                  f"({r['tflops']:.1f} TFLOP/s), plain {r['plain_ms']:.4f} ms, library "
-                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                  f"({r['tflops']:.1f} TFLOP/s; {r['bound_ms'] / r['ms']:.3f} of its bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {r['f32_bound_ms'] / r['ms']:.3f} "
+                  f"of the float32 bound {r['f32_bound_ms']:.4f} ms), f32 kernel "
+                  f"{r['f32_route_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                  f"{r['library_ms']:.4f} ms")
+        tot = {k: sum(r[k] for r in rows[name])
+               for k in ("ms", "f32_route_ms", "plain_ms", "library_ms", "bound_ms",
+                         "f32_bound_ms")}
+        print(f"[kernels] {name} per AlexNet forward: {tot['ms']:.4f} ms; the f32 kernel it "
+              f"replaced {tot['f32_route_ms']:.4f} ms ({tot['f32_route_ms'] / tot['ms']:.2f}x); "
+              f"library {tot['library_ms']:.4f} ms; bound {tot['bound_ms']:.4f} ms (three bf16 "
+              f"passes, {tot['bound_ms'] / tot['ms']:.3f} of it), {tot['f32_bound_ms']:.4f} ms "
+              f"at the float32 rate ({tot['f32_bound_ms'] / tot['ms']:.3f}); plain "
+              f"{tot['plain_ms']:.4f} ms")
     del flush
 
     # -- phase 4: the main path ----------------------------------------------------
@@ -863,8 +940,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(zip(KERNEL_ROUTES, _counts()))
     print(f"[main] launches in one forward at batch {BATCH}: {launches}")
-    if launches != {**dict.fromkeys(KERNEL_ROUTES, 0), "elp_bsd_matmul/f32": 5,
-                    "fused_decode_matmul/f32": 3}:
+    if launches != dict(zip(KERNEL_ROUTES, _expected({"elp_bsd_matmul/bf16x3": 5,
+                                                      "fused_decode_matmul/bf16x3": 3}))):
         failures.append(f"launch counts {launches}")
     if tuple(logits.shape) != (BATCH, 1000) or not bool(torch.isfinite(logits).all()):
         failures.append(f"logits shape {tuple(logits.shape)} or non-finite values")
@@ -906,8 +983,10 @@ def main() -> int:
 
     # -- phase 5: the LM path's kernels at its shapes ------------------------------
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    for r in rows["elp_bsd_matmul/f32"] + rows["fused_decode_matmul/f32"]:
-        r["weight"] = 1  # each AlexNet shape runs once per forward
+    for name in ("elp_bsd_matmul/bf16x3", "elp_bsd_matmul/f32", "fused_decode_matmul/bf16x3",
+                 "fused_decode_matmul/f32"):
+        for r in rows[name]:
+            r["weight"] = 1  # each AlexNet shape runs once per forward
     lm_kernel_phase(torch, dev, gen, flush, rows, failures)
     del flush
     torch.cuda.empty_cache()
@@ -927,10 +1006,14 @@ def main() -> int:
                                "src/repro/kernels/elp_bsd_matmul.py:69"),
         "elp_bsd_matmul/wgmma": ("src/repro_torch/csrc/elp_bsd_matmul_wgmma.cu",
                                  "src/repro/kernels/elp_bsd_matmul.py:69"),
+        "elp_bsd_matmul/bf16x3": ("src/repro_torch/csrc/elp_bsd_matmul_wgmma.cu",
+                                  "src/repro/kernels/elp_bsd_matmul.py:69"),
         "fused_decode_matmul/f32": ("src/repro_torch/csrc/fused_decode.cu",
                                     "src/repro/kernels/fused_decode.py:70"),
         "fused_decode_matmul/wgmma": ("src/repro_torch/csrc/fused_decode_wgmma.cu",
                                       "src/repro/kernels/fused_decode.py:70"),
+        "fused_decode_matmul/bf16x3": ("src/repro_torch/csrc/fused_decode_wgmma.cu",
+                                       "src/repro/kernels/fused_decode.py:70"),
         "flash_attention/f32": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:71"),
         "flash_attention/wgmma": ("src/repro_torch/csrc/flash_attention_wgmma.cu",

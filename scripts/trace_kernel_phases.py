@@ -7,8 +7,12 @@ stamps added at the phase boundaries of the first consumer thread of each
 block (the kernels' arithmetic is untouched), runs each warm and then
 cold (L2 flushed; the stamps are the cold run's) at
 qwen3-8b's shapes (the decode step's w1/w3 and wq/wo products at M = 16;
-the prefill's attention), and prints the median cycle at which each phase
-ends, counted from the block's entry.
+the prefill's attention) and, for the float32 (bf16x3) routes, the
+decode-step kernel at AlexNet's fc0 and fc2 at M = 64 (a K block is three
+stages there, one per bf16 term of x) and the tiled kernel
+(``csrc/elp_bsd_matmul_wgmma.cu``'s second kernel) at AlexNet's conv1 and
+conv3, and prints the median cycle at which each phase ends, counted from
+the block's entry.
 
     python3 scripts/trace_kernel_phases.py
 
@@ -60,9 +64,10 @@ DECODE_STAMPS = [
     ("    decode_stage<NIBBLE>(f, cs + st * S::C_STAGE, tab_lane, col >> 4, col & 15, q);\n",
      "    if (i < 19) STAMP(2 + 3 * i);\n"),
     ("  auto release = [&](int i) {\n", "    if (i < 19) STAMP(3 + 3 * i);\n"),
-    ("    i += n_st;\n", "    STAMP(61);\n"),
+    ("    i += TERMS * n_st;\n", "    STAMP(61);\n"),
     ("    if (!*last_flag || n >= N) continue;\n", None),
-    ("          out[at] = v * scale;\n        }\n      }\n  }\n", "  STAMP(63);\n"),
+    ("        if (m < M && n + c < N) out[static_cast<size_t>(m) * N + n + c] = v[e] * scale;\n"
+     "      }\n    }\n  }\n", "  STAMP(63);\n"),
 ]
 # Flash: 0 = Q arrived; per key tile t < 3: 1 + 4t arrived, 2 + 4t S done,
 # 3 + 4t softmax done, 4 + 4t P.V done; 63 = end.
@@ -75,6 +80,45 @@ FLASH_STAMPS = [
     ("    wgmma_fence();\n#pragma unroll\n    for (int kk = 0; kk < 4; ++kk)\n", None),
     ("    __syncwarp();\n    if (lane == 0) mbar_arrive(&empty[st]);\n  }\n", None),
 ]
+
+
+# The tiled bf16x3 kernel: the first consumer thread stamps slots 0-20 and
+# 62-63, the first splitter thread 32-50, for stages 0, 1, 2, 12 and 24
+# (TSLOT 0-4). Consumer: 0 = barriers ready, 1 + 3t = codes arrived,
+# 2 + 3t = decoded, 16 + t = split written, 3 + 3t = freed, 62 = main loop
+# done, 63 = epilogue. Splitter: 32 + 4t = float32 tile arrived, 33 + 4t =
+# bf16 slot free, 34 + 4t = split written.
+TILED_ENTRY = (
+    "  const long long stamp_t0 = clock64();\n"
+    "  const int stamp_block = blockIdx.y * gridDim.x + blockIdx.x;\n"
+    f"  const bool stamp_on = stamp_block < {BLOCKS} && blockIdx.z == 0 && "
+    "(threadIdx.x == 0 || threadIdx.x == 256);\n"
+    f"  long long* stamp_at = g_stamp + stamp_block * {SLOTS};\n"
+)
+TSLOT = "{ const int ts = (i) < 3 ? (i) : (i) == 12 ? 3 : (i) == 24 ? 4 : -1; if (ts >= 0) "
+TILED_STAMPS = [
+    ("  constexpr int c_bytes = NIBBLE ? x3::BK / 2 * x3::BN : x3::BK * x3::BN;\n", TILED_ENTRY),
+    ("      mbar_wait(&ffull[fst], (i / x3::F_STAGES) & 1);\n",
+     "      " + TSLOT + "STAMP(32 + 4 * ts); }\n"),
+    ("      if (i >= x3::B_STAGES) mbar_wait(&bempty[bst], (i / x3::B_STAGES - 1) & 1);\n",
+     "      " + TSLOT + "STAMP(33 + 4 * ts); }\n"),
+    ("      fence_proxy_async();\n", "      " + TSLOT + "STAMP(34 + 4 * ts); }\n"),
+    ("    const int fst = i % x3::F_STAGES;\n    mbar_wait(&ffull[fst], (i / x3::F_STAGES) & 1);\n",
+     "    " + TSLOT + "STAMP(1 + 3 * ts); }\n"),
+    ("col >> 4, col & 15,\n                         q);\n", "    " + TSLOT + "STAMP(2 + 3 * ts); }\n"),
+    ("    mbar_wait(&bfull[i % x3::B_STAGES], (i / x3::B_STAGES) & 1);\n",
+     "    " + TSLOT + "STAMP(16 + ts); }\n"),
+    ("    if (lane == 0) mbar_arrive(&bempty[i % x3::B_STAGES]);\n",
+     "    " + TSLOT + "STAMP(3 + 3 * ts); }\n"),
+    ("  for (int r = 0; r < x3::BM / 2; ++r) fence_operand(d[r]);\n", "  STAMP(62);\n"),
+    ("#pragma unroll\n  for (int j = 0; j < x3::BM / 8; ++j) {\n", "    STAMP(63);\n"),
+]
+
+
+def patched_tiled(src: str) -> str:
+    src = _patch(src, TILED_STAMPS)
+    return src.replace("  if (warp >= x3::PRODUCER_WARP) {\n",
+                       "  STAMP(0);\n  if (warp >= x3::PRODUCER_WARP) {\n", 1)
 
 
 def _patch(src: str, stamps: list) -> str:
@@ -165,6 +209,7 @@ def main() -> int:
     from repro_torch import _build
     from repro_torch.core.elp_bsd import resolve_format
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul
     from repro_torch.kernels.fused_decode import fused_decode_matmul
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -184,7 +229,8 @@ def main() -> int:
         torch.cuda.synchronize()
 
     name = "fused_decode_wgmma"
-    lib = build_traced(name, patched_decode, _build.matmul_signatures(name, "bf16"))
+    lib = build_traced(name, patched_decode, {**_build.matmul_signatures(name, "bf16"),
+                                              **_build.matmul_signatures(name, "bf16x3")})
     fmt = resolve_format("elp4")
     for label, k, n in (("w1/w3", 4096, 12288), ("wq/wo", 4096, 4096)):
         x = torch.randn(16, k, device=dev, generator=gen).to(torch.bfloat16)
@@ -198,6 +244,34 @@ def main() -> int:
                           3 + 3 * i: f"stage {i} freed"})
         names.update({61: "main loop done", 62: "partials flagged", 63: "end"})
         report(f"decode {label} M=16 K={k} N={n}", read_stamps(lib), names)
+    for label, k, n in (("fc0", 12544, 4096), ("fc2", 4096, 1000)):
+        x = torch.relu(torch.randn(64, k, device=dev, generator=gen))
+        codes = torch.randint(0, 256, (k // 2, n), device=dev, dtype=torch.uint8, generator=gen)
+        sf = torch.ones(1, device=dev)
+        cold(lib, lambda: fused_decode_matmul(x, codes, sf, fmt, nibble=True))
+        names = {0: "table and barriers"}
+        for i in (0, 3, 6, 9, 18):  # the first stage of K blocks 0, 1, 2, 3 and 6
+            names.update({1 + 3 * i: f"K block {i // 3} arrived",
+                          2 + 3 * i: f"K block {i // 3} decoded",
+                          3 + 3 * i: f"K block {i // 3} freed"})
+        names.update({61: "main loop done", 62: "partials flagged", 63: "end"})
+        report(f"decode bf16x3 {label} M=64 K={k} N={n}", read_stamps(lib), names)
+
+    name = "elp_bsd_matmul_wgmma"
+    lib = build_traced(name, patched_tiled, _build.matmul_signatures(name, "bf16x3"))
+    for label, m, k, n in (("conv1", 50176, 2400, 256), ("conv3", 12544, 3456, 384)):
+        x = torch.relu(torch.randn(m, k, device=dev, generator=gen))
+        codes = torch.randint(0, 256, (k // 2, n), device=dev, dtype=torch.uint8, generator=gen)
+        sf = torch.ones(1, device=dev)
+        cold(lib, lambda: elp_bsd_matmul(x, codes, sf, fmt, nibble=True))
+        names = {0: "table and barriers"}
+        for t, i in enumerate((0, 1, 2, 12, 24)):
+            names.update({32 + 4 * t: f"stage {i} float32 in", 33 + 4 * t: f"stage {i} slot free",
+                          34 + 4 * t: f"stage {i} split", 1 + 3 * t: f"stage {i} codes in",
+                          2 + 3 * t: f"stage {i} decoded", 16 + t: f"stage {i} split seen",
+                          3 + 3 * t: f"stage {i} freed"})
+        names.update({62: "main loop done", 63: "end"})
+        report(f"tiled bf16x3 {label} M={m} K={k} N={n}", read_stamps(lib), names)
 
     name = "flash_attention_wgmma"
     lib = build_traced(name, patched_flash, fa._signatures(name))

@@ -31,8 +31,11 @@ workspace the kernel cannot take. The two bf16 tensor-core matmuls
 
 with the 256-entry decode table (:func:`repro_torch.kernels.ref.decode_table`)
 in host memory and the row strides of x (elements) and codes (bytes), each
-a multiple of 16 bytes, as TMA asks. The attention kernels' entry points
-are declared by their wrapper (:mod:`repro_torch.kernels.flash_attention`).
+a multiple of 16 bytes, as TMA asks. Their float32-activation route
+(bf16x3: x split exactly into three bf16 terms) has the same arguments
+with float32 x, as ``<name>_bf16x3`` beside ``<name>_bf16x3_workspace``.
+The attention kernels' entry points are declared by their wrapper
+(:mod:`repro_torch.kernels.flash_attention`).
 """
 from __future__ import annotations
 
@@ -61,6 +64,7 @@ MAX_DIGITS = 2
 MAX_LUT = 8
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_DECLARED: set[tuple[str, str]] = set()  # (library, entry point)
 
 
 def _nvcc() -> str:
@@ -111,21 +115,26 @@ def build(names: list[str]) -> dict[str, str]:
 
 # The launch entry point's arguments between the workspace and the stream,
 # by entry suffix: the format descriptor (float32 kernels), or the decode
-# table and the row strides of x and codes (the bf16 kernel).
-LAUNCH_EXTRA = {"f32": (ctypes.c_void_p,),
-                "bf16": (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong)}
+# table and the row strides of x and codes (the tensor-core kernels).
+_TABLE_STRIDES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong)
+LAUNCH_EXTRA = {"f32": (ctypes.c_void_p,), "bf16": _TABLE_STRIDES, "bf16x3": _TABLE_STRIDES}
+
+
+def workspace_entry(name: str, kind: str) -> str:
+    """The entry point giving the workspace of ``<name>_<kind>``'s launches."""
+    return f"{name}_bf16x3_workspace" if kind == "bf16x3" else f"{name}_workspace"
 
 
 def matmul_signatures(name: str, kind: str = "f32") -> dict:
-    """ctypes signatures of a packed matmul library's two entry points,
-    ``<name>_workspace`` and ``<name>_<kind>``."""
+    """ctypes signatures of a packed matmul library's two entry points for
+    ``kind``: ``<name>_<kind>`` and its :func:`workspace_entry`."""
     # Every pointer and the stream as c_void_p: left undeclared, ctypes
     # would pass them as 32-bit ints and cut them.
     return {
         f"{name}_{kind}": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
                            + [ctypes.c_void_p, ctypes.c_longlong, *LAUNCH_EXTRA[kind],
                               ctypes.c_void_p], ctypes.c_int),
-        f"{name}_workspace": ([ctypes.c_int] * 3, ctypes.c_longlong),
+        workspace_entry(name, kind): ([ctypes.c_int] * 3, ctypes.c_longlong),
     }
 
 
@@ -133,17 +142,20 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu`` (built on first use).
 
     ``signatures`` maps each C entry point to its ``(argtypes, restype)``
-    (:func:`matmul_signatures` for the packed matmul kernels).
+    (:func:`matmul_signatures` for the packed matmul kernels); entry points
+    already declared keep their declarations.
     """
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(lib_path(name)))
-        for fn_name, (argtypes, restype) in signatures.items():
+        _LIBS[name] = lib
+    for fn_name, (argtypes, restype) in signatures.items():
+        if (name, fn_name) not in _DECLARED:
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = restype
-        _LIBS[name] = lib
+            _DECLARED.add((name, fn_name))
     return lib
 
 
@@ -172,13 +184,13 @@ def format_descriptor(fmt: ElpBsdFormat) -> ctypes.Array:
 
 def _launch(name: str, kind: str, x: torch.Tensor, codes: torch.Tensor, sf: torch.Tensor,
             out: torch.Tensor, k: int, nibble: bool, extra: tuple, what: str) -> None:
-    """Allocate the split-K workspace ``<name>_workspace`` asks for, then call
-    ``<name>_<kind>`` with ``extra`` before the current stream of ``x``'s
-    device; raise if it fails."""
+    """Allocate the workspace ``<name>_<kind>``'s :func:`workspace_entry` asks
+    for, then call ``<name>_<kind>`` with ``extra`` before the current stream
+    of ``x``'s device; raise if it fails."""
     m, n = out.shape
     lib = load(name, matmul_signatures(name, kind))
     with torch.cuda.device(x.device):
-        need = getattr(lib, f"{name}_workspace")(m, n, k)
+        need = getattr(lib, workspace_entry(name, kind))(m, n, k)
         work = torch.empty(max(need, 0), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = -1 if need < 0 else getattr(lib, f"{name}_{kind}")(
@@ -206,15 +218,18 @@ def launch(name: str, x: torch.Tensor, codes: torch.Tensor, sf: torch.Tensor,
             (ctypes.addressof(desc),), f"fmt={fmt.name}")
 
 
-def launch_bf16(name: str, x: torch.Tensor, k: int, codes: torch.Tensor, sf: torch.Tensor,
-                out: torch.Tensor, nibble: bool, table: ctypes.Array) -> None:
-    """Launch the bf16 kernel ``csrc/<name>.cu`` on the current stream of ``x``'s device.
+def launch_tensor_core(name: str, kind: str, x: torch.Tensor, k: int, codes: torch.Tensor,
+                       sf: torch.Tensor, out: torch.Tensor, nibble: bool,
+                       table: ctypes.Array) -> None:
+    """Launch route ``kind`` (``"bf16"`` or ``"bf16x3"``) of the tensor-core kernel
+    ``csrc/<name>.cu`` on the current stream of ``x``'s device.
 
-    ``x`` is bf16 with ``k`` logical columns and ``codes`` uint8 with
+    ``x`` is bf16 (``"bf16"``) or float32 (``"bf16x3"``, split by the kernel
+    into three bf16 terms) with ``k`` logical columns, ``codes`` uint8 with
     ``out.shape[1]`` logical columns, each with unit column stride, a
     16-byte aligned base and a row stride of a multiple of 16 bytes; ``out
     [M, N]`` is contiguous float32, ``sf`` one float32 on the device and
     ``table`` the 256 decode words. The caller has checked all of that.
     """
-    _launch(name, "bf16", x, codes, sf, out, k, nibble,
-            (ctypes.addressof(table), x.stride(0), codes.stride(0)), "bf16 x")
+    _launch(name, kind, x, codes, sf, out, k, nibble,
+            (ctypes.addressof(table), x.stride(0), codes.stride(0)), f"{x.dtype} x, route {kind}")

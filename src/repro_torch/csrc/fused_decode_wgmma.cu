@@ -1,5 +1,6 @@
-// Decode-step ELP_BSD decode + matmul for Hopper (sm_90a): bf16 activations
-// on the tensor cores (wgmma), operands fed by TMA, M <= 256.
+// Decode-step ELP_BSD decode + matmul for Hopper (sm_90a) on the tensor
+// cores (wgmma), operands fed by TMA, M <= 256: bf16 activations as they
+// are, float32 activations split exactly into three bf16 terms (bf16x3).
 //
 // Replaces, for bfloat16 activations, the Pallas TPU kernel
 // repro/kernels/fused_decode.py::fused_decode_matmul (body _fused_kernel):
@@ -41,6 +42,16 @@
 // stage still costs a consumer about 1800 cycles of a serial chain: the
 // wait, 550-870 cycles of dependent shared-memory loads to decode, the
 // wgmmas and their wait; so the codes stream at 0.3-1 TB/s, not 3.35.
+// Float32 activations (AlexNet's fc layers, M = 64) take the bf16x3 route:
+// a first launch splits x exactly into three bf16 terms x = hi + mid + lo
+// (split_bf16x3 in hopper.cuh; [3, M, K] bf16, 4.8 MB for fc0), and the
+// kernel's TERMS = 3 instance walks the K stages in threes, one x term
+// each, the codes riding with the first. The three terms' wgmmas share one
+// A fragment set, decoded once per K block, and one float32 accumulator:
+// each term's products with a bf16-exact weight are exact in float32, so
+// the sum is the float32 reference's up to the order of its additions.
+// Measured (PERF.md): a K block costs a consumer about 1500 cycles at fc0,
+// the same decode chain as above with twelve m64n64k16 wgmmas behind it.
 // Split-K needs no second launch: every split writes its partial sums to a
 // float32 workspace, and the last split of a strip to finish (a per-strip
 // counter in device memory, which that split resets to zero for the next
@@ -87,7 +98,9 @@ struct Shape {
   static_assert(STAGES >= 2, "the ring needs two stages");
 };
 
-template <int NT, bool NIBBLE>
+// TERMS = 1: x is bf16 [M, K]. TERMS = 3: x is the split [3, M, K] of a
+// float32 x, stage i of a block holding term i % 3 of K block i / 3.
+template <int NT, bool NIBBLE, int TERMS>
 __global__ void __launch_bounds__(threads_for(NT), blocks_per_sm(NT))
 fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                           const __grid_constant__ CUtensorMap c_map,
@@ -97,6 +110,8 @@ fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                           int steps) {
   using S = Shape<NT, NIBBLE>;
   constexpr int STAGES = S::STAGES;
+  // A consumer holds a K block's TERMS stages while it waits for the next one.
+  static_assert(TERMS == 1 || STAGES >= TERMS + 1, "the ring cannot hold two K blocks' stages");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -131,13 +146,17 @@ fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       for (int item = blockIdx.x; item < items; item += gridDim.x) {
         const int n0 = item / splits * BN;
         const int s0 = item % splits * steps, s1 = min(nk, s0 + steps);
-        for (int s = s0; s < s1; ++s, ++i) {
-          const int st = i % STAGES;
-          if (i >= STAGES) mbar_wait(&empty[st], (i / STAGES - 1) & 1);
-          mbar_expect_tx(&full[st], S::X_STAGE + S::C_STAGE);
-          const int k0 = s * BK;
-          tma_load_2d(xs + st * S::X_STAGE, &x_map, &full[st], k0, 0);
-          tma_load_2d(cs + st * S::C_STAGE, &c_map, &full[st], n0, NIBBLE ? k0 / 2 : k0);
+        for (int s = s0; s < s1; ++s) {
+          for (int t = 0; t < TERMS; ++t, ++i) {
+            const int st = i % STAGES;
+            if (i >= STAGES) mbar_wait(&empty[st], (i / STAGES - 1) & 1);
+            mbar_expect_tx(&full[st], S::X_STAGE + (t == 0 ? S::C_STAGE : 0));
+            const int k0 = s * BK;
+            if constexpr (TERMS == 1) tma_load_2d(xs + st * S::X_STAGE, &x_map, &full[st], k0, 0);
+            else tma_load_3d(xs + st * S::X_STAGE, &x_map, &full[st], k0, 0, t);
+            if (t == 0)
+              tma_load_2d(cs + st * S::C_STAGE, &c_map, &full[st], n0, NIBBLE ? k0 / 2 : k0);
+          }
         }
       }
     }
@@ -157,21 +176,31 @@ fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     mbar_wait(&full[st], (i / STAGES) & 1);
     decode_stage<NIBBLE>(f, cs + st * S::C_STAGE, tab_lane, col >> 4, col & 15, q);
   };
+  // The wgmmas of the K block whose TERMS stages start at stage i, all on
+  // the A fragments f (decoded from stage i's codes, whose wait decode did).
   auto issue = [&](float(&d)[NT / 2], uint32_t(&f)[16], int i) {
+#pragma unroll
+    for (int t = 1; t < TERMS; ++t) mbar_wait(&full[(i + t) % STAGES], ((i + t) / STAGES) & 1);
 #pragma unroll
     for (int r = 0; r < 16; ++r) fence_operand(f[r]);
     wgmma_fence();
-    const uint64_t desc = desc_b128(smem_u32(xs + (i % STAGES) * S::X_STAGE));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<NT, 0>(d, f + 4 * kk, desc + 2 * kk);
+    for (int t = 0; t < TERMS; ++t) {
+      const uint64_t desc = desc_b128(smem_u32(xs + ((i + t) % STAGES) * S::X_STAGE));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<NT, 0>(d, f + 4 * kk, desc + 2 * kk);
+    }
     wgmma_commit();
   };
   auto release = [&](int i) {
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[i % STAGES]);
+    if (lane == 0) {
+#pragma unroll
+      for (int t = 0; t < TERMS; ++t) mbar_arrive(&empty[(i + t) % STAGES]);
+    }
   };
 
-  int i = 0;  // stages consumed by this block so far
+  int i = 0;  // stages consumed by this block so far (TERMS per K block)
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int strip = item / splits, split = item % splits;
     const int s0 = split * steps, n_st = min(nk, s0 + steps) - s0;
@@ -179,20 +208,20 @@ fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
     for (int r = 0; r < NT / 2; ++r) d[r] = 0.f;
     uint32_t fa[16], fb[16];
-    // Two fragment sets: the next stage is decoded while this one's wgmmas run.
+    // Two fragment sets: the next K block is decoded while this one's wgmmas run.
     decode(fa, i);
     for (int j = 0; j < n_st; j += 2) {
-      issue(d, fa, i + j);
-      if (j + 1 < n_st) decode(fb, i + j + 1);
+      issue(d, fa, i + TERMS * j);
+      if (j + 1 < n_st) decode(fb, i + TERMS * (j + 1));
       wgmma_wait<0>();
-      release(i + j);
+      release(i + TERMS * j);
       if (j + 1 >= n_st) break;
-      issue(d, fb, i + j + 1);
-      if (j + 2 < n_st) decode(fa, i + j + 2);
+      issue(d, fb, i + TERMS * (j + 1));
+      if (j + 2 < n_st) decode(fa, i + TERMS * (j + 2));
       wgmma_wait<0>();
-      release(i + j + 1);
+      release(i + TERMS * (j + 1));
     }
-    i += n_st;
+    i += TERMS * n_st;
 #pragma unroll
     for (int r = 0; r < NT / 2; ++r) fence_operand(d[r]);
 
@@ -236,23 +265,35 @@ fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
     if (!*last_flag || n >= N) continue;
     __threadfence();
     // The last split adds every split's partial sums in split order (its
-    // own from registers: the same values it wrote).
+    // own from registers: the same values it wrote), for up to 32 of its
+    // outputs at a time: each split's loads for them are issued together,
+    // so the sum waits for one L2 round trip per split, not one per
+    // output and split.
+    constexpr int CH = NT / 2 < 32 ? NT / 2 : 32;
 #pragma unroll
-    for (int j = 0; j < NT / 8; ++j)
+    for (int r0 = 0; r0 < NT / 2; r0 += CH) {
+      float v[CH];
+      for (int s = 0; s < splits; ++s) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = 8 * j + 2 * q + h;
-        if (m >= M) continue;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          if (n + c >= N) continue;
-          const size_t at = static_cast<size_t>(m) * N + n + c;
-          const float own = d[4 * j + 2 * c + h];
-          float v = split == 0 ? own : __ldcg(work + at);
-          for (int s = 1; s < splits; ++s) v += s == split ? own : __ldcg(work + s * mn + at);
-          out[at] = v * scale;
+        for (int e = 0; e < CH; ++e) {
+          // d[r]: column n + c at x row 8j + 2q + h
+          const int r = r0 + e, j = r >> 2, c = (r >> 1) & 1, h = r & 1;
+          const int m = 8 * j + 2 * q + h;
+          float p = d[r];
+          if (s != split)
+            p = m < M && n + c < N
+                    ? __ldcg(work + s * mn + static_cast<size_t>(m) * N + n + c)
+                    : 0.f;
+          v[e] = s == 0 ? p : v[e] + p;
         }
       }
+#pragma unroll
+      for (int e = 0; e < CH; ++e) {
+        const int r = r0 + e, j = r >> 2, c = (r >> 1) & 1, h = r & 1;
+        const int m = 8 * j + 2 * q + h;
+        if (m < M && n + c < N) out[static_cast<size_t>(m) * N + n + c] = v[e] * scale;
+      }
+    }
   }
 }
 
@@ -288,12 +329,13 @@ bool plan(int M, int N, int K, int* grid, int* splits, int* steps) {
   return true;
 }
 
-template <int NT, bool NIBBLE>
+// x is bf16 [M, K] (TERMS = 1) or [3, M, K] (TERMS = 3), rows x_ld elements apart.
+template <int NT, bool NIBBLE, int TERMS>
 int launch(const void* x, const uint8_t* codes, const float* sf, float* out, int M, int N, int K,
            float* work, const DecodeTable& tab, long long x_ld, long long codes_ld, int grid,
            int splits, int steps, cudaStream_t stream) {
   using S = Shape<NT, NIBBLE>;
-  auto kernel = fused_decode_wgmma_kernel<NT, NIBBLE>;
+  auto kernel = fused_decode_wgmma_kernel<NT, NIBBLE, TERMS>;
   // All of the SM's memory as shared memory, so BLOCKS blocks fit on one.
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM) !=
           cudaSuccess ||
@@ -302,7 +344,12 @@ int launch(const void* x, const uint8_t* codes, const float* sf, float* out, int
     return -1;
   const int krows = NIBBLE ? (K + 1) / 2 : K;
   CUtensorMap x_map, c_map;
-  if (!make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, x_ld * 2, BK, NT) ||
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M), TERMS};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(x_ld * 2),
+                                 static_cast<cuuint64_t>(x_ld * 2 * M)};
+  const cuuint32_t box[3] = {BK, NT, 1};
+  if (!make_map_nd(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, TERMS == 1 ? 2 : 3, x, dims, strides,
+                   box) ||
       !make_map(&c_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes, N, krows, codes_ld, BN,
                 NIBBLE ? BK / 2 : BK))
     return -1;
@@ -311,18 +358,53 @@ int launch(const void* x, const uint8_t* codes, const float* sf, float* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool NIBBLE>
+template <bool NIBBLE, int TERMS>
 int launch_nt(const void* x, const uint8_t* codes, const float* sf, float* out, int M, int N,
               int K, float* work, const DecodeTable& tab, long long x_ld, long long codes_ld,
               int grid, int splits, int steps, cudaStream_t st) {
   if (M <= 16)
-    return launch<16, NIBBLE>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
-                              splits, steps, st);
+    return launch<16, NIBBLE, TERMS>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
+                                     splits, steps, st);
   if (M <= 64)
-    return launch<64, NIBBLE>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
-                              splits, steps, st);
-  return launch<256, NIBBLE>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
-                             splits, steps, st);
+    return launch<64, NIBBLE, TERMS>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
+                                     splits, steps, st);
+  return launch<256, NIBBLE, TERMS>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
+                                    splits, steps, st);
+}
+
+// The bf16x3 route's first launch: float32 x [M, K] (rows x_ld apart) into
+// x3 [3][M][kp] bf16 (hi, mid, lo; split_bf16x3), eight elements a thread,
+// zero past K. vec: x and x_ld allow 16-byte loads.
+__global__ void split_x_kernel(const float* __restrict__ x, long long x_ld, int M, int K, int kp,
+                               int vec, uint4* __restrict__ x3) {
+  const int chunks = kp / 8;
+  const long long u = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (u >= static_cast<long long>(M) * chunks) return;
+  const int m = static_cast<int>(u / chunks), k0 = 8 * static_cast<int>(u % chunks);
+  const float* row = x + m * x_ld;
+  float4 a, b;
+  if (vec && k0 + 8 <= K) {
+    a = *reinterpret_cast<const float4*>(row + k0);
+    b = *reinterpret_cast<const float4*>(row + k0 + 4);
+  } else {
+    float v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = k0 + j < K ? row[k0 + j] : 0.f;
+    a = make_float4(v[0], v[1], v[2], v[3]);
+    b = make_float4(v[4], v[5], v[6], v[7]);
+  }
+  uint4 t[3];
+  split_bf16x3_x8(a, b, t);
+  const long long plane = static_cast<long long>(M) * chunks;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) x3[i * plane + u] = t[i];
+}
+
+// The bf16x3 route's split of x: rows of K rounded up to 16 bytes of bf16,
+// after the split-K partial sums (16-byte aligned) in the workspace.
+int padded_k(int K) { return (K + 7) / 8 * 8; }
+long long partial_floats(int M, int N, int splits) {
+  return splits > 1 ? (static_cast<long long>(splits) * M * N + 3) / 4 * 4 : 0;
 }
 
 }  // namespace
@@ -358,8 +440,49 @@ extern "C" int fused_decode_wgmma_bf16(const void* x, const uint8_t* codes, cons
   DecodeTable tab;
   for (int i = 0; i < 256; ++i) tab.v[i] = table[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return nibble ? launch_nt<true>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
-                                  splits, steps, st)
-                : launch_nt<false>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
-                                   splits, steps, st);
+  return nibble ? launch_nt<true, 1>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
+                                     splits, steps, st)
+                : launch_nt<false, 1>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
+                                      splits, steps, st);
+}
+
+// The bf16x3 route, with the signatures of the two above: float32 x [M, K]
+// (M <= 256) with rows x_ld elements apart, codes as above. Its workspace
+// holds the split-K partial sums and, after them, the split of x
+// ([3, M, K rounded up to 8] bf16). Two launches on `stream`: the split,
+// then the TERMS = 3 kernel; returns the first failing launch's
+// cudaError_t (0 on success), or -1 as above.
+extern "C" long long fused_decode_wgmma_bf16x3_workspace(int M, int N, int K) {
+  int grid, splits, steps;
+  if (!plan(M, N, K, &grid, &splits, &steps)) return -1;
+  return partial_floats(M, N, splits) + 3LL * M * padded_k(K) / 2;
+}
+
+extern "C" int fused_decode_wgmma_bf16x3(const void* x, const uint8_t* codes, const float* sf,
+                                         float* out, int M, int N, int K, int nibble,
+                                         float* work, long long work_floats,
+                                         const uint32_t* table, long long x_ld,
+                                         long long codes_ld, void* stream) {
+  int grid, splits, steps;
+  if (!plan(M, N, K, &grid, &splits, &steps) || table == nullptr || x_ld < K || codes_ld < N ||
+      codes_ld % 16 != 0 || reinterpret_cast<uintptr_t>(codes) % 16 != 0 || work == nullptr ||
+      reinterpret_cast<uintptr_t>(work) % 16 != 0)
+    return -1;
+  const long long part = partial_floats(M, N, splits);
+  const int kp = padded_k(K);
+  if (work_floats < part + 3LL * M * kp / 2) return -1;
+  uint4* x3 = reinterpret_cast<uint4*>(work + part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long units = static_cast<long long>(M) * (kp / 8);
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && x_ld % 4 == 0;
+  split_x_kernel<<<static_cast<unsigned>((units + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(x), x_ld, M, K, kp, vec, x3);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  DecodeTable tab;
+  for (int i = 0; i < 256; ++i) tab.v[i] = table[i];
+  return nibble ? launch_nt<true, 3>(x3, codes, sf, out, M, N, K, work, tab, kp, codes_ld, grid,
+                                     splits, steps, st)
+                : launch_nt<false, 3>(x3, codes, sf, out, M, N, K, work, tab, kp, codes_ld, grid,
+                                      splits, steps, st);
 }

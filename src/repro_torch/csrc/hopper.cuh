@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
 // (elp_bsd_matmul_wgmma.cu, fused_decode_wgmma.cu, flash_attention_wgmma.cu):
 // mbarriers, TMA loads and tensor maps, wgmma shared-memory descriptors and
-// instructions, and the byte-table decode of ELP_BSD codes into the
-// register A operand of wgmma.
+// instructions, the byte-table decode of ELP_BSD codes into the register A
+// operand of wgmma, and the exact split of float32 activations into three
+// bf16 terms that the float32 (bf16x3) routes feed to wgmma.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; libcuda's encoder is fetched at run time
@@ -77,6 +78,21 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads of them (wgmma operands written by threads, not TMA).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -159,6 +175,58 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a, 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1));
 }
 
+// d[64 x 96] += A[64 x 16] (bf16 pairs in registers) . B[16 x 96] (shared memory,
+// descriptor desc_b; TRANS_B = 1 for an MN-major B).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48], const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, %53;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1));
+}
+
+// d[64 x 128] += A[64 x 16] (bf16 pairs in registers) . B[16 x 128] (shared memory,
+// descriptor desc_b; TRANS_B = 1 for an MN-major B).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "n"(TRANS_B), "r"(1));
+}
+
 // d[64 x 256] += A[64 x 16] (bf16 pairs in registers) . B[16 x 256] (shared memory,
 // descriptor desc_b; TRANS_B = 1 for an MN-major B).
 template <int TRANS_B>
@@ -221,13 +289,54 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 
-// d[64 x N] += A[64 x 16] (registers) . B[16 x N] (shared memory), N = 16, 64 or 256.
+// d[64 x N] += A[64 x 16] (registers) . B[16 x N] (shared memory), N = 16, 64, 96, 128 or 256.
 template <int N, int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t* a, uint64_t desc_b) {
-  static_assert(N == 16 || N == 64 || N == 256, "no wrapper for this N");
+  static_assert(N == 16 || N == 64 || N == 96 || N == 128 || N == 256, "no wrapper for this N");
   if constexpr (N == 16) wgmma_rs_n16<TRANS_B>(d, a, desc_b);
   else if constexpr (N == 64) wgmma_rs_n64<TRANS_B>(d, a, desc_b);
+  else if constexpr (N == 96) wgmma_rs_n96<TRANS_B>(d, a, desc_b);
+  else if constexpr (N == 128) wgmma_rs_n128<TRANS_B>(d, a, desc_b);
   else wgmma_rs_n256<TRANS_B>(d, a, desc_b);
+}
+
+// The exact split of a float32 x into three bf16 terms, x = hi + mid + lo,
+// by truncation: hi is x with its low 16 bits cleared, mid the remainder
+// x - hi (exact) truncated the same way, lo what is left (exact, and exact
+// in bf16: at most 8 significant bits). Each term holds 8 of x's 24
+// significand bits, so its product with a bf16-exact weight is exact in
+// float32. Exact for zero and every finite x above about 2^-110 in
+// magnitude (below that lo is a float32 subnormal with bits past bf16's);
+// unlike rounding to nearest, hi never overflows to inf near FLT_MAX.
+// Twin of repro_torch/kernels/ref.py::split_bf16x3, bit for bit.
+__device__ __forceinline__ void split_bf16x3(float x, float& hi, float& mid, float& lo) {
+  hi = __uint_as_float(__float_as_uint(x) & 0xFFFF0000u);
+  const float r = __fsub_rn(x, hi);
+  mid = __uint_as_float(__float_as_uint(r) & 0xFFFF0000u);
+  lo = __fsub_rn(r, mid);
+}
+
+// Two bf16-exact floats as one bf16x2 register: a in the low half, b in the high.
+__device__ __forceinline__ uint32_t pack_bf16_pair(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
+}
+
+// Eight consecutive float32 values split into three 16-byte rows of bf16
+// (hi, mid, lo), element 0 in the lowest half-word of t[.].x.
+__device__ __forceinline__ void split_bf16x3_x8(const float4& a, const float4& b, uint4 (&t)[3]) {
+  const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t w[3][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    float h0, m0, l0, h1, m1, l1;
+    split_bf16x3(v[2 * p], h0, m0, l0);
+    split_bf16x3(v[2 * p + 1], h1, m1, l1);
+    w[0][p] = pack_bf16_pair(h0, h1);
+    w[1][p] = pack_bf16_pair(m0, m1);
+    w[2][p] = pack_bf16_pair(l0, l1);
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) t[i] = make_uint4(w[i][0], w[i][1], w[i][2], w[i][3]);
 }
 
 // The A fragments of one 64-deep K stage (four k16 steps, four registers

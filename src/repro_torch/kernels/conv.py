@@ -39,14 +39,25 @@ def pad_nhwc(x: torch.Tensor, kh: int, kw: int, stride: int, padding: str) -> to
 def extract_patches(
     x: torch.Tensor, kh: int, kw: int, *, stride: int = 1, padding: str = "SAME"
 ) -> torch.Tensor:
-    """``x[B, H, W, C]`` -> patches ``[B, Ho, Wo, kh*kw*C]`` in ``(kh, kw, C)`` order."""
+    """``x[B, H, W, C]`` -> patches ``[B, Ho, Wo, kh*kw*C]`` in ``(kh, kw, C)`` order.
+
+    The patch rows lie a multiple of 16 bytes apart, as the matmul kernels'
+    TMA loads read them: where ``kh*kw*C`` elements are not (AlexNet's conv0,
+    K = 363), the result is a view of a buffer with padded rows, which the
+    kernels take without a copy (they read K columns of each row).
+    """
     b, h, w, c = x.shape
     ho, _ = _out_size_and_pads(h, kh, stride, padding)
     wo, _ = _out_size_and_pads(w, kw, stride, padding)
     xp = pad_nhwc(x, kh, kw, stride, padding)
     # unfold -> [B, Ho', Wo', C, kh, kw]; keep the first Ho x Wo windows
     win = xp.unfold(1, kh, stride).unfold(2, kw, stride)[:, :ho, :wo]
-    return win.permute(0, 1, 2, 4, 5, 3).reshape(b, ho, wo, kh * kw * c)
+    k = kh * kw * c
+    per_row = 16 // x.element_size()
+    kp = -(-k // per_row) * per_row
+    patches = torch.empty((b, ho, wo, kp), dtype=x.dtype, device=x.device)[..., :k]
+    patches.view(b, ho, wo, kh, kw, c).copy_(win.permute(0, 1, 2, 4, 5, 3))
+    return patches
 
 
 def quantized_conv2d(

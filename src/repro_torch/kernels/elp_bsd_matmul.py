@@ -6,8 +6,8 @@ Replaces the JAX package's Pallas TPU kernel
 ``[K, N]`` or nibble-packed ``[K/2, N]`` (low nibble = even row) and one
 float32 scale factor.
 
-Two CUDA C++ kernels for ``sm_90a`` compute it; :func:`route` picks one
-before any launch, by one rule:
+Three routes, each its own CUDA C++ kernel for ``sm_90a``; :func:`route`
+picks one before any launch, by one rule:
 
 * ``"wgmma"`` (``csrc/elp_bsd_matmul_wgmma.cu``): bf16 x and a format whose
   decoded values are all exact in bf16 (:func:`repro_torch.kernels.ref.bf16_exact`,
@@ -17,25 +17,33 @@ before any launch, by one rule:
   (:func:`repro_torch.kernels.ref.decode_table`). A bf16 x times an exact
   bf16 weight is exact in float32, so it forms the reference's products;
   only the order of the float32 sums differs. The LM prefill runs here.
-  TMA needs 16-byte row strides: an x whose K is not a multiple of 8, or
-  codes whose N is not a multiple of 16, are first copied once into a
-  buffer with padded rows (the main path's shapes never are).
-* ``"f32"`` (``csrc/elp_bsd_matmul.cu``): any other x (float32; float16 or
-  bf16 with a format that is not bf16-exact), cast to float32, on CUDA
-  cores: a 128 x 128 output tile per block, a K loop inside the block, x
-  and code tiles staged and decoded (shift-add) in shared memory, an
-  8 x 8 float32 micro-tile per thread. Its float32 arithmetic caps it at
-  the H100's CUDA-core rate (67 TFLOP/s). The AlexNet convs run here.
+* ``"bf16x3"`` (the second kernel of the same source): float32 or float16
+  x (as float32) and a bf16-exact format. The kernel splits each x tile
+  exactly into three bf16 terms, ``x = hi + mid + lo``
+  (:func:`repro_torch.kernels.ref.split_bf16x3`), in shared memory, and
+  sums the three terms' tensor-core products into one float32
+  accumulator: each product is exact, so only the order of the float32
+  sums differs from the reference. The AlexNet convs run here.
+* ``"f32"`` (``csrc/elp_bsd_matmul.cu``): a format that is not bf16-exact
+  (or an x of another type), x cast to float32, on CUDA cores: a
+  128 x 128 output tile per block, a K loop inside the block, x and code
+  tiles staged and decoded (shift-add) in shared memory, an 8 x 8 float32
+  micro-tile per thread, capped at the H100's CUDA-core rate (67 TFLOP/s).
 
-Both mask ragged edges and split K over several blocks per tile (summed by
-a deterministic second pass) where the tiles alone would leave SMs idle in
-the last wave; each kernel's source picks that split from its own tiles
-and occupancy. The decoded weight never reaches device memory. A failed
-build or launch raises: nothing retries on the other route.
+TMA needs a 16-byte aligned base and row stride: x or codes without them
+are first copied once into a buffer with padded rows. An x that is a
+row-strided view with such rows goes as it is: ``kernels/conv.py`` writes
+the im2col patches so, for conv0's K = 363.
+
+All three mask ragged edges and split K over several blocks per tile
+(summed by a deterministic second pass) where the tiles alone would leave
+SMs idle in the last wave; each kernel picks that split from its own
+tiles and occupancy. The decoded weight never reaches device memory. A failed
+build or launch raises: nothing retries on another route.
 
 :func:`elp_bsd_matmul` takes the plain version (:func:`elp_bsd_matmul_plain`)
 only for tensors on the CPU; on a CUDA tensor it launches the routed kernel
-or raises. ``elp_bsd_matmul.launches`` counts both kernels' launches and
+or raises. ``elp_bsd_matmul.launches`` counts every route's launches and
 ``elp_bsd_matmul.launches_by_route[route]`` each one's.
 """
 from __future__ import annotations
@@ -53,7 +61,7 @@ from repro_torch.kernels.ref import (
     unpack_nibbles_k,
 )
 
-ROUTES = ("wgmma", "f32")
+ROUTES = ("wgmma", "bf16x3", "f32")
 
 
 def elp_bsd_matmul_plain(
@@ -136,9 +144,15 @@ def launch_checked(name: str, x, codes, sf, fmt, nibble: bool) -> torch.Tensor:
 
 
 def route(x: torch.Tensor, fmt: ElpBsdFormat) -> str:
-    """The kernel :func:`elp_bsd_matmul` launches for a CUDA ``x``: ``"wgmma"`` for
-    bf16 ``x`` with a :func:`~repro_torch.kernels.ref.bf16_exact` format, else ``"f32"``."""
-    return "wgmma" if x.dtype == torch.bfloat16 and bf16_exact(fmt) else "f32"
+    """The kernel :func:`elp_bsd_matmul` launches for a CUDA ``x``. With a
+    :func:`~repro_torch.kernels.ref.bf16_exact` format: ``"wgmma"`` for bf16
+    ``x``, ``"bf16x3"`` for float32 or float16 ``x``; else ``"f32"``."""
+    if bf16_exact(fmt):
+        if x.dtype == torch.bfloat16:
+            return "wgmma"
+        if x.dtype in (torch.float32, torch.float16):
+            return "bf16x3"
+    return "f32"
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,8 +163,12 @@ def _table_words(fmt: ElpBsdFormat, nibble: bool) -> ctypes.Array:
 
 def _tma_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` (2-D) with a 16-byte aligned base and row stride and unit column
-    stride, as TMA reads it: ``t`` itself when it already has them, else a
-    copy into a zero buffer whose rows are padded to a multiple of 16 bytes."""
+    stride, as TMA reads it: ``t`` itself when it already has them (a
+    row-strided view included), else a copy into a zero buffer whose rows
+    are padded to a multiple of 16 bytes."""
+    if (t.stride(1) == 1 and t.stride(0) >= t.shape[1] and t.data_ptr() % 16 == 0
+            and t.stride(0) * t.element_size() % 16 == 0):
+        return t
     t = t.contiguous()
     row = t.shape[1] * t.element_size()
     if t.data_ptr() % 16 == 0 and row % 16 == 0:
@@ -161,19 +179,25 @@ def _tma_rows(t: torch.Tensor) -> torch.Tensor:
     return padded
 
 
-def launch_wgmma(x, codes, sf, fmt, nibble: bool,
-                 name: str = "elp_bsd_matmul_wgmma") -> torch.Tensor:
-    """Validate devices and dtypes, then launch the bf16 kernel ``csrc/<name>.cu``
-    (this module's wgmma route, or the decode-step kernel's) on bf16 ``x``,
-    uncast; float32 ``[M, N]`` out."""
+def launch_wgmma(x, codes, sf, fmt, nibble: bool, name: str = "elp_bsd_matmul_wgmma",
+                 route: str = "wgmma") -> torch.Tensor:
+    """Validate devices and dtypes, then launch route ``route`` of the tensor-core
+    kernel ``csrc/<name>.cu`` (this module's, or the decode-step kernel's):
+    ``"wgmma"`` on bf16 ``x`` as it is, ``"bf16x3"`` on float32 or float16
+    ``x`` as float32; float32 ``[M, N]`` out."""
     from repro_torch import _build
 
     _check_operands(name, x, codes, sf)
-    if x.dtype != torch.bfloat16:
+    if route == "wgmma" and x.dtype != torch.bfloat16:
         raise TypeError(f"the wgmma route takes bfloat16 x, got {x.dtype}")
+    if route == "bf16x3":
+        if x.dtype not in (torch.float32, torch.float16):
+            raise TypeError(f"the bf16x3 route takes float32 or float16 x, got {x.dtype}")
+        x = x.to(torch.float32)
     table = _table_words(fmt, nibble)
     out = torch.empty((x.shape[0], codes.shape[1]), dtype=torch.float32, device=x.device)
-    _build.launch_bf16(name, _tma_rows(x), x.shape[1], _tma_rows(codes), sf, out, nibble, table)
+    _build.launch_tensor_core(name, "bf16" if route == "wgmma" else route, _tma_rows(x),
+                              x.shape[1], _tma_rows(codes), sf, out, nibble, table)
     return out
 
 
@@ -200,8 +224,8 @@ def elp_bsd_matmul(
     if x.device.type != "cuda":
         raise ValueError(f"elp_bsd_matmul runs on cuda or cpu tensors, got {x.device}")
     r = route(x, fmt)
-    if r == "wgmma":
-        out = launch_wgmma(x, codes, sf, fmt, nibble)
+    if r in ("wgmma", "bf16x3"):
+        out = launch_wgmma(x, codes, sf, fmt, nibble, route=r)
     else:
         out = launch_checked("elp_bsd_matmul", x, codes, sf, fmt, nibble)
     elp_bsd_matmul.launches += 1

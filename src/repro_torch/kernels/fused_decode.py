@@ -5,9 +5,9 @@ Replaces the JAX package's Pallas TPU kernel
 ``_fused_kernel``): the same product as the tiled kernel for the small M
 of an fc layer or an LM decode step, a weight-streaming GEMV-like op.
 
-Two CUDA C++ kernels for ``sm_90a`` compute it; :func:`route` (the tiled
-kernel's rule, :func:`repro_torch.kernels.elp_bsd_matmul.route`) picks one
-before any launch:
+Three routes, each its own CUDA C++ kernel for ``sm_90a``; :func:`route`
+(the tiled kernel's rule, :func:`repro_torch.kernels.elp_bsd_matmul.route`)
+picks one before any launch:
 
 * ``"wgmma"`` (``csrc/fused_decode_wgmma.cu``): bf16 x and a bf16-exact
   format. x goes to the kernel as it is; the product runs transposed on
@@ -17,21 +17,26 @@ before any launch:
   split) items through a deep TMA ring, and the last split of a strip to
   finish adds the partial sums in split order, in the same launch. The LM
   decode step runs here, bound by its code stream.
-* ``"f32"`` (``csrc/fused_decode.cu``): any other x, cast to float32, on
-  CUDA cores: one block per 32-column output strip holding all M rows, a K
-  loop that stages the x strip and the code tile in shared memory and
-  decodes there, K split over blocks and summed in split order by a
-  second pass. AlexNet's fc layers run here (bound by the float32
-  CUDA-core rate at M = 64).
+* ``"bf16x3"`` (the same source): float32 or float16 x (as float32) and a
+  bf16-exact format. A first launch splits x exactly into three bf16 terms
+  (:func:`repro_torch.kernels.ref.split_bf16x3`, ``[3, M, K]``), then the
+  same kernel walks its K stages in threes, one term each, and runs the
+  three terms' wgmmas on A fragments decoded once per K block into one
+  float32 accumulator. AlexNet's fc layers (M = 64) run here.
+* ``"f32"`` (``csrc/fused_decode.cu``): a format that is not bf16-exact (or
+  an x of another type), cast to float32, on CUDA cores: one block per
+  32-column output strip holding all M rows, a K loop that stages the x
+  strip and the code tile in shared memory and decodes there, K split over
+  blocks and summed in split order by a second pass.
 
-Both are deterministic: no atomics touch the sums. A failed build or
-launch raises: nothing retries on the other route.
+All three are deterministic: no atomics touch the sums. A failed build
+or launch raises: nothing retries on another route.
 
 :func:`fused_decode_matmul` takes the plain version
 (:func:`fused_decode_matmul_plain`, the tiled kernel's plain version under
 a second name: the product is the same) only for tensors on the CPU; on a
 CUDA tensor it launches the routed kernel or raises.
-``fused_decode_matmul.launches`` counts both kernels' launches and
+``fused_decode_matmul.launches`` counts every route's launches and
 ``fused_decode_matmul.launches_by_route[route]`` each one's.
 """
 from __future__ import annotations
@@ -83,8 +88,8 @@ def fused_decode_matmul(
     if x.device.type != "cuda":
         raise ValueError(f"fused_decode_matmul runs on cuda or cpu tensors, got {x.device}")
     r = route(x, fmt)
-    if r == "wgmma":
-        out = launch_wgmma(x, codes, sf, fmt, nibble, name="fused_decode_wgmma")
+    if r in ("wgmma", "bf16x3"):
+        out = launch_wgmma(x, codes, sf, fmt, nibble, name="fused_decode_wgmma", route=r)
     else:
         out = launch_checked("fused_decode", x, codes, sf, fmt, nibble)
     fused_decode_matmul.launches += 1

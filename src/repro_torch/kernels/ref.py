@@ -5,8 +5,9 @@ builds each digit's ``±2^shift`` term in one integer construction of the
 float32 sign and exponent fields, ``(shift + 127) << 23 | sign << 31``,
 viewed as float32. Both are bit-identical to each other and to the JAX
 package's ``kernels/ref.py``. The float32 CUDA kernels run the shift-add
-form; the bf16 tensor-core kernel looks each code byte up in
-:func:`decode_table`, built from it.
+form; the tensor-core kernels look each code byte up in
+:func:`decode_table`, built from it, and split float32 activations by
+:func:`split_bf16x3`.
 """
 from __future__ import annotations
 
@@ -107,6 +108,51 @@ def decode_table(fmt: ElpBsdFormat, nibble: bool) -> torch.Tensor:
     lo = _bf16_bits(decode_values_shift_add(byte & 0x0F, fmt))
     hi = _bf16_bits(decode_values_shift_add(byte >> 4, fmt))
     return lo | (hi << 16)
+
+
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``x`` (cast to float32) split exactly into three bf16 terms, ``x = hi + mid + lo``.
+
+    By truncation: ``hi`` is x with its low 16 bits cleared, ``mid`` the
+    remainder ``x - hi`` (exact) truncated the same way, ``lo`` what is left
+    (exact, at most 8 significant bits). Each term is a float32 tensor whose
+    values are exact in bf16, so its product with a bf16-exact weight is
+    exact in float32. Exact for zero and every finite x above about 2^-110 in
+    magnitude; ``hi`` never overflows to inf. The float32 routes of the
+    tensor-core kernels split so (``csrc/hopper.cuh::split_bf16x3``, bit for
+    bit).
+    """
+    x = x.to(torch.float32)
+    mask = -65536  # 0xFFFF0000 as an int32
+    hi = (x.view(torch.int32) & mask).view(torch.float32)
+    r = x - hi
+    mid = (r.view(torch.int32) & mask).view(torch.float32)
+    return hi, mid, r - mid
+
+
+def elp_bsd_matmul_bf16x3(
+    x: torch.Tensor,
+    codes: torch.Tensor,
+    sf: torch.Tensor,
+    fmt: ElpBsdFormat,
+    *,
+    nibble: bool = False,
+    terms: int = 3,
+) -> torch.Tensor:
+    """The bf16x3 routes' arithmetic in plain PyTorch, float32 out.
+
+    ``x`` split by :func:`split_bf16x3`; the first ``terms`` terms each
+    times the decoded weight in float32, summed in term order, then
+    ``* sf``. ``terms=3`` is the kernels' function (the float32 product up
+    to the order of its additions); 1 and 2 are the controls that show
+    what dropping terms costs.
+    """
+    w = decode_values_shift_add(unpack_nibbles_k(codes) if nibble else codes, fmt)[: x.shape[1]]
+    parts = split_bf16x3(x)[:terms]
+    out = parts[0] @ w
+    for p in parts[1:]:
+        out = out + p @ w
+    return out * sf.reshape(())
 
 
 def unpack_nibbles_k(packed: torch.Tensor) -> torch.Tensor:

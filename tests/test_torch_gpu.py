@@ -6,9 +6,12 @@ skips where there is none. Run them on a machine with an H100:
     python -m pytest -m gpu tests/test_torch_*.py
 
 Tolerance: max |kernel - plain| <= 2e-5 * max |plain| (float32 sums in
-another order; split-K adds its partial sums in a fixed order). The tiled
-kernel's wgmma route takes bf16 x: its products are exact in float32, so
-the same limit holds.
+another order; split-K adds its partial sums in a fixed order). The
+matmuls' wgmma routes take bf16 x and their bf16x3 routes float32 x split
+exactly into three bf16 terms: either way every product is exact in
+float32, so the same limit holds. Float32 x reaches the CUDA-core kernels
+(``"f32"``) only for a format that is not bf16-exact, so those kernels are
+also launched directly here (``launch_checked``).
 """
 import math
 
@@ -19,8 +22,13 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import api  # noqa: E402
 from repro_torch.core.elp_bsd import PRESET_FORMATS  # noqa: E402
+from repro_torch.core.elp_bsd import DigitSpec, ElpBsdFormat  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul, elp_bsd_matmul_plain  # noqa: E402
+from repro_torch.kernels.elp_bsd_matmul import (  # noqa: E402
+    elp_bsd_matmul,
+    elp_bsd_matmul_plain,
+    launch_checked,
+)
 from repro_torch.kernels.fused_decode import (  # noqa: E402
     fused_decode_matmul,
     fused_decode_matmul_plain,
@@ -59,15 +67,35 @@ LAYOUTS = [(f, False) for f in sorted(PRESET_FORMATS)] + [("elp_bsd_a4", True)]
 SHAPES = [(256, 384, 128), (100, 70, 34), (100, 71, 34), (64, 4096, 256), (1, 2, 1)]
 
 
+def _routed(kernel, route, fn):
+    """``fn()``'s result, checking that it launched ``kernel`` once, on ``route``."""
+    before = (kernel.launches, dict(kernel.launches_by_route))
+    got = fn()
+    torch.cuda.synchronize()
+    assert kernel.launches == before[0] + 1
+    assert kernel.launches_by_route == {**before[1], route: before[1][route] + 1}
+    return got
+
+
 @pytest.mark.parametrize("fmt_name,nibble", LAYOUTS)
 @pytest.mark.parametrize("m,k,n", SHAPES)
 def test_tiled_kernel_matches_plain(cuda, fmt_name, nibble, m, k, n):
+    """Float32 x through the wrapper: the bf16x3 route."""
     x, codes, sf = _case(cuda, fmt_name, nibble, m, k, n)
     fmt = PRESET_FORMATS[fmt_name]
-    before = elp_bsd_matmul.launches
-    got = elp_bsd_matmul(x, codes, sf, fmt, nibble=nibble)
+    got = _routed(elp_bsd_matmul, "bf16x3",
+                  lambda: elp_bsd_matmul(x, codes, sf, fmt, nibble=nibble))
+    _close(got, elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=nibble))
+
+
+@pytest.mark.parametrize("fmt_name,nibble", LAYOUTS)
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_f32_tiled_kernel_matches_plain(cuda, fmt_name, nibble, m, k, n):
+    """The CUDA-core kernel (the "f32" route), launched directly."""
+    x, codes, sf = _case(cuda, fmt_name, nibble, m, k, n)
+    fmt = PRESET_FORMATS[fmt_name]
+    got = launch_checked("elp_bsd_matmul", x, codes, sf, fmt, nibble)
     torch.cuda.synchronize()
-    assert elp_bsd_matmul.launches == before + 1
     _close(got, elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=nibble))
 
 
@@ -122,12 +150,22 @@ def test_wgmma_route_raises_on_bad_inputs(cuda):
 @pytest.mark.parametrize("fmt_name,nibble", LAYOUTS)
 @pytest.mark.parametrize("m,k,n", SHAPES + [(256, 12544, 96)])
 def test_fused_kernel_matches_plain(cuda, fmt_name, nibble, m, k, n):
+    """Float32 x through the wrapper: the bf16x3 route."""
     x, codes, sf = _case(cuda, fmt_name, nibble, m, k, n)
     fmt = PRESET_FORMATS[fmt_name]
-    before = fused_decode_matmul.launches
-    got = fused_decode_matmul(x, codes, sf, fmt, nibble=nibble)
+    got = _routed(fused_decode_matmul, "bf16x3",
+                  lambda: fused_decode_matmul(x, codes, sf, fmt, nibble=nibble))
+    _close(got, fused_decode_matmul_plain(x, codes, sf, fmt, nibble=nibble))
+
+
+@pytest.mark.parametrize("fmt_name,nibble", LAYOUTS)
+@pytest.mark.parametrize("m,k,n", SHAPES + [(256, 12544, 96)])
+def test_f32_fused_kernel_matches_plain(cuda, fmt_name, nibble, m, k, n):
+    """The decode-step CUDA-core kernel (the "f32" route), launched directly."""
+    x, codes, sf = _case(cuda, fmt_name, nibble, m, k, n)
+    fmt = PRESET_FORMATS[fmt_name]
+    got = launch_checked("fused_decode", x, codes, sf, fmt, nibble)
     torch.cuda.synchronize()
-    assert fused_decode_matmul.launches == before + 1
     _close(got, fused_decode_matmul_plain(x, codes, sf, fmt, nibble=nibble))
 
 
@@ -489,3 +527,132 @@ def test_flash_routes_by_dtype(cuda):
     torch.cuda.synchronize()
     assert flash_attention.launches_by_route == {"wgmma": before["wgmma"] + 1,
                                                  "f32": before["f32"] + 1}
+
+
+# ---------------------------------------------------------------------------
+# The bf16x3 routes: float32 x split into three bf16 terms on the tensor cores
+# ---------------------------------------------------------------------------
+# AlexNet at batch 64: the five convs' im2col GEMMs (M, K, N) and the three
+# fc layers, then ragged shapes: conv0's K = 363 and N = 96 at a small M,
+# odd K (the nibble pad row), N off the tiles, split-K sized.
+ALEXNET_CONVS = [(200704, 363, 96), (50176, 2400, 256), (12544, 2304, 384), (12544, 3456, 384),
+                 (12544, 3456, 256)]
+ALEXNET_FCS = [(64, 12544, 4096), (64, 4096, 4096), (64, 4096, 1000)]
+BF16X3_RAGGED = [(300, 363, 96), (100, 71, 34), (129, 130, 130), (1, 2, 1), (64, 4001, 1000),
+                 (7, 4096, 256), (200, 3456, 384)]
+# Two digits 9 binary places apart: 2^9 + 1 needs 10 significant bits.
+WIDE = ElpBsdFormat((DigitSpec(shifts=(0,)), DigitSpec(shifts=(9,))), name="shifts_0_9")
+
+
+def _aligned_rows(x):
+    """``x`` as a view into rows of a multiple of 16 bytes, as im2col writes them."""
+    m, k = x.shape
+    buf = torch.zeros(m, -(-k // 4) * 4, device=x.device)
+    buf[:, :k] = x
+    return buf[:, :k]
+
+
+@pytest.mark.parametrize("m,k,n", ALEXNET_CONVS + BF16X3_RAGGED)
+def test_bf16x3_tiled_route_matches_plain(cuda, m, k, n):
+    x, codes, sf = _case(cuda, "elp_bsd_a4", True, m, k, n, seed=k)
+    if k % 4:
+        x = _aligned_rows(x)
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    got = _routed(elp_bsd_matmul, "bf16x3", lambda: elp_bsd_matmul(x, codes, sf, fmt, nibble=True))
+    _close(got, elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=True))
+
+
+@pytest.mark.parametrize("m,k,n", ALEXNET_FCS + [s for s in BF16X3_RAGGED if s[0] <= 256])
+def test_bf16x3_decode_route_matches_plain(cuda, m, k, n):
+    x, codes, sf = _case(cuda, "elp_bsd_a4", True, m, k, n, seed=k)
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    got = _routed(fused_decode_matmul, "bf16x3",
+                  lambda: fused_decode_matmul(x, codes, sf, fmt, nibble=True))
+    _close(got, fused_decode_matmul_plain(x, codes, sf, fmt, nibble=True))
+
+
+@pytest.mark.parametrize("impl", ["tiled", "fused"])
+@pytest.mark.parametrize("fmt_name,nibble", [("elp_bsd_c6", False), ("elp_bsd_a4", False),
+                                             ("elp_bsd_d6", False)])
+def test_bf16x3_routes_on_u8_codes(cuda, impl, fmt_name, nibble):
+    m = 300 if impl == "tiled" else 64
+    x, codes, sf = _case(cuda, fmt_name, nibble, m, 2304, 384, seed=9)
+    fmt = PRESET_FORMATS[fmt_name]
+    kernel = elp_bsd_matmul if impl == "tiled" else fused_decode_matmul
+    got = _routed(kernel, "bf16x3", lambda: kernel(x, codes, sf, fmt, nibble=nibble))
+    _close(got, elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=nibble))
+
+
+@pytest.mark.parametrize("impl", ["tiled", "fused"])
+def test_bf16x3_per_channel_sf_through_quantized_matmul(cuda, impl):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    w = torch.randn(2400, 256, device=cuda, generator=g) * 0.05
+    x = torch.randn(300 if impl == "tiled" else 64, 2400, device=cuda, generator=g)
+    pw, _ = ops.pack_weight(w, "elp_bsd_a4", granularity="per_channel")
+    assert pw.sf.numel() == 256
+    kernel = elp_bsd_matmul if impl == "tiled" else fused_decode_matmul
+    got = _routed(kernel, "bf16x3", lambda: ops.quantized_matmul(x, pw, impl=impl))
+    one = torch.ones(1, device=cuda)
+    _close(got, elp_bsd_matmul_plain(x, pw.codes, one, pw.fmt, nibble=True) * pw.sf)
+
+
+@pytest.mark.parametrize("impl", ["tiled", "fused"])
+def test_bf16x3_takes_float16_x(cuda, impl):
+    x, codes, sf = _case(cuda, "elp_bsd_a4", True, 64, 1024, 256, seed=3)
+    x = x.half()
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    kernel = elp_bsd_matmul if impl == "tiled" else fused_decode_matmul
+    got = _routed(kernel, "bf16x3", lambda: kernel(x, codes, sf, fmt, nibble=True,
+                                                    out_dtype=torch.float32))
+    _close(got, elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=True, out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("m,k,n", [(200704, 363, 96), (12544, 3456, 384), (64, 12544, 4096),
+                                   (64, 4096, 1000)])
+def test_bf16x3_routes_are_deterministic(cuda, m, k, n):
+    """Two runs bit-identical, split-K sums included."""
+    x, codes, sf = _case(cuda, "elp_bsd_a4", True, m, k, n, seed=5)
+    if k % 4:
+        x = _aligned_rows(x)
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    kernel = fused_decode_matmul if m <= 256 else elp_bsd_matmul
+    first = kernel(x, codes, sf, fmt, nibble=True)
+    for _ in range(3):
+        assert torch.equal(kernel(x, codes, sf, fmt, nibble=True), first)
+
+
+@pytest.mark.parametrize("impl", ["tiled", "fused"])
+def test_format_not_bf16_exact_takes_the_f32_route(cuda, impl):
+    """A format whose values need more than bf16's 8 significant bits: the
+    CUDA-core kernel through the wrapper, float32 and bf16 x alike."""
+    m = 300 if impl == "tiled" else 64
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(m, 256, device=cuda, generator=g)
+    codes = torch.randint(0, 2 ** WIDE.bits_per_weight, (256, 96), device=cuda, generator=g,
+                          dtype=torch.uint8)
+    sf = torch.tensor([0.01], device=cuda)
+    kernel = elp_bsd_matmul if impl == "tiled" else fused_decode_matmul
+    for xx in (x, x.to(torch.bfloat16)):
+        got = _routed(kernel, "f32", lambda: kernel(xx, codes, sf, WIDE, out_dtype=torch.float32))
+        _close(got, elp_bsd_matmul_plain(xx, codes, sf, WIDE, out_dtype=torch.float32))
+
+
+def test_bf16x3_routes_raise_on_bad_inputs(cuda):
+    from repro_torch.kernels.elp_bsd_matmul import launch_wgmma
+
+    x, codes, sf = _case(cuda, "elp_bsd_a4", True, 64, 128, 128)
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    for kernel in (elp_bsd_matmul, fused_decode_matmul):
+        with pytest.raises(TypeError, match="uint8"):
+            kernel(x, codes.to(torch.int32), sf, fmt, nibble=True)
+        with pytest.raises(ValueError, match="share a device"):
+            kernel(x, codes.cpu(), sf, fmt, nibble=True)
+        with pytest.raises(ValueError, match="two K rows per byte"):
+            kernel(x, codes[:10], sf, fmt, nibble=True)
+        with pytest.raises(ValueError, match="nibbles hold 4"):
+            kernel(x, codes, sf, PRESET_FORMATS["elp_bsd_c6"], nibble=True)
+    with pytest.raises(ValueError, match="exceeds"):
+        fused_decode_matmul(torch.cat([x] * 5), codes, sf, fmt, nibble=True)
+    for name in ("elp_bsd_matmul_wgmma", "fused_decode_wgmma"):
+        with pytest.raises(TypeError, match="float32 or float16"):
+            launch_wgmma(x.to(torch.bfloat16), codes, sf, fmt, True, name=name, route="bf16x3")

@@ -38,15 +38,17 @@ def test_decode_route_rule_without_launching():
     x = torch.zeros(16, 64)
     assert fd.route(x.to(torch.bfloat16), a4) == "wgmma"
     assert fd.route(x.to(torch.bfloat16), c6) == "wgmma"
-    assert fd.route(x, a4) == "f32"
-    assert fd.route(x.to(torch.float16), a4) == "f32"
+    assert fd.route(x, a4) == "bf16x3"
+    assert fd.route(x.to(torch.float16), a4) == "bf16x3"
     assert fd.route(x.to(torch.bfloat16), WIDE) == "f32"
+    assert fd.route(x, WIDE) == "f32"
     before = (fd.fused_decode_matmul.launches, dict(fd.fused_decode_matmul.launches_by_route))
     out = fd.fused_decode_matmul(x.to(torch.bfloat16), torch.zeros(32, 16, dtype=torch.uint8),
                                  1.0, a4, nibble=True)
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (16, 16)
     assert (fd.fused_decode_matmul.launches, fd.fused_decode_matmul.launches_by_route) == before
-    assert set(fd.fused_decode_matmul.launches_by_route) == set(fd.ROUTES) == {"wgmma", "f32"}
+    assert set(fd.fused_decode_matmul.launches_by_route) == set(fd.ROUTES) == {"wgmma", "bf16x3",
+                                                                               "f32"}
 
 
 def test_flash_route_rule_without_launching():

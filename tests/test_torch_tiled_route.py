@@ -1,4 +1,4 @@
-"""The tiled matmul's two routes: the pieces that run on the CPU, against the JAX package.
+"""The tiled matmul's tensor-core routes: the pieces that run on the CPU, against the JAX package.
 
 The bf16 tensor-core kernel (``csrc/elp_bsd_matmul_wgmma.cu``) decodes by a
 byte-indexed table built from ``repro_torch.kernels.ref.decode_table``;
@@ -91,9 +91,12 @@ def test_route_rule_without_launching():
     x = torch.zeros(300, 64)
     assert mm.route(x.to(torch.bfloat16), a4) == "wgmma"
     assert mm.route(x.to(torch.bfloat16), c6) == "wgmma"
-    assert mm.route(x, a4) == "f32"
-    assert mm.route(x.to(torch.float16), a4) == "f32"
+    assert mm.route(x, a4) == "bf16x3"
+    assert mm.route(x, c6) == "bf16x3"
+    assert mm.route(x.to(torch.float16), a4) == "bf16x3"
     assert mm.route(x.to(torch.bfloat16), WIDE) == "f32"
+    assert mm.route(x, WIDE) == "f32"
+    assert mm.route(x.to(torch.float16), WIDE) == "f32"
     before = (mm.elp_bsd_matmul.launches, dict(mm.elp_bsd_matmul.launches_by_route))
     out = mm.elp_bsd_matmul(x.to(torch.bfloat16), torch.zeros(32, 16, dtype=torch.uint8), 1.0, a4,
                             nibble=True)
@@ -111,6 +114,21 @@ def test_tma_rows_pads_only_rows_tma_cannot_read(shape, dtype):
     assert got.data_ptr() % 16 == 0
     assert torch.equal(got[:, : shape[1]], t) and not got[:, shape[1]:].any()
     assert (got.data_ptr() == t.data_ptr()) == (shape[1] * t.element_size() % 16 == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+def test_tma_rows_keeps_row_strided_views(dtype):
+    """A view into rows of a multiple of 16 bytes (the im2col patches of a K
+    that is not one) goes to TMA as it is; a view with other rows is copied."""
+    per_row = 16 // torch.empty((), dtype=dtype).element_size()
+    buf = torch.arange(6 * 2 * per_row).reshape(6, 2 * per_row).to(dtype)
+    view = buf[:, : 2 * per_row - 1]
+    got = mm._tma_rows(view)
+    assert got.data_ptr() == view.data_ptr() and got.stride() == view.stride()
+    odd = torch.arange(6 * 11).reshape(6, 11).to(dtype)[:, :9]
+    copied = mm._tma_rows(odd)
+    assert copied.data_ptr() != odd.data_ptr() and torch.equal(copied[:, :9], odd)
+    assert copied.stride(0) * copied.element_size() % 16 == 0
 
 
 def test_table_words_are_the_table_unsigned():
