@@ -38,17 +38,35 @@ stays held and timed).
   through the same packed model with every kernel swapped for its plain
   version, logits compared, beside controls of that comparison (correct
   changes of rounding and planted faults) and the same reading with float
-  activations; and the reduced 2-layer qwen3-8b on the card against the CPU.
+  activations; and the reduced 2-layer qwen3-8b on the card against the CPU;
+* the paper's Sec. V slice, after the AlexNet path: ALEXNET_MINI and
+  VGG_MINI trained on the card at the JAX package's budget (1200 momentum-SGD
+  steps, batch 128) with ``repro_torch.experiments.common.train_mini_cnn``;
+  Fig. 15(a) (``fig15a.run``, ``run_activation``) and Fig. 15(b)
+  (``fig15b.run``, every Table II format at activation bits 8..4, packed on
+  the kernels) with their rows and claim lines, each Fig. 15(b) accuracy held
+  within the search's ``ac`` (0.01) of the same weights on the CPU, exact
+  launches per packed forward (3 tiled + 2 decode-step bf16x3 for
+  ALEXNET_MINI, 4 + 2 for VGG_MINI); the quickstart flow
+  (``api.quantize(..., eval_fn=...)`` on card and CPU: the same CBW_A, the
+  codes that differ counted; the packed artifact's eval on the kernels,
+  ``save``, ``load``, a bit-identical forward); the same search on
+  full-width ALEXNET with seeded weights (agreement with the float model's
+  argmax as its eval_fn), its packed agreement within 0.01 of its float
+  twin's, save/load bit-identical; and the bf16x3 routes' distance from a
+  float64 sum for 1, 2 and 3 bf16 terms at K from 363 to 25088 (reported).
+  The kernel phase also times every GEMM shape of these forwards.
 
     python3 chip_smoke.py
 
 Exits non-zero on any failure, and without a result when there is no
 CUDA device. The last line is the JSON device record; the line before it
 holds the card's name and power limit, and before that one JSON object
-with each kernel route's numbers: ``launches`` counts its launches on both
-main paths (one AlexNet forward, one generate), and ``ms``, ``plain_ms``,
-``bound_ms`` and ``library_ms`` are the per-shape times of those launches,
-each shape weighted by its launches. The three ``/f32`` routes have no
+with each kernel route's numbers: ``launches`` counts its launches on the
+main paths (one AlexNet forward, the Sec. V phases, one generate), and
+``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are the per-shape
+times of those launches, each shape weighted by its launches (a Sec. V shape
+is timed once per format). The three ``/f32`` routes have no
 launch on either path: the matmuls' times are those of AlexNet's shapes
 (one forward's worth, the kernel launched directly), flash's those of the
 prefill's attention shape in float32, weighted as one generate's 36
@@ -57,10 +75,12 @@ sleep, so the host's own time to issue it is not counted.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -716,6 +736,299 @@ def lm_card_vs_cpu(torch, dev, failures) -> None:
             failures.append(f"reduced LM card vs CPU, act={act}")
 
 
+# The Sec. V slice. AC is the search's own accuracy budget (QuantScheme.ac):
+# card and CPU accuracies of the same weights must agree within it, or the
+# two devices could pick different bit-widths. Mini CNNs train at the JAX
+# package's budget (benchmarks/common.py: 1200 steps, batch 128, lr 2e-2,
+# seed 0) and evaluate on its 8 held-out batches of 128.
+AC = 0.01
+MINI_SPECS = ("ALEXNET_MINI", "VGG_MINI")
+FMT_NAMES = ("elp_bsd_a4", "elp_bsd_b7", "elp_bsd_c6", "elp_bsd_d6")
+FIG15B_ACT_BITS = (8, 7, 6, 5, 4)
+EVAL_BATCHES, EVAL_BATCH = 8, 128
+# Contraction lengths of the bf16x3 accuracy sweep: AlexNet's conv0 (363),
+# conv1 (2400) and conv3 (3456), VGG16's late convs (4608) and fc0 (25088).
+BF16X3_KS = (363, 2400, 3456, 4608, 25088)
+# The packed forwards of the AlexNet main path (one, batch 64, a4): the key of
+# its kernel rows (see main's ``case``).
+ALEXNET_B64 = ("alexnet", BATCH, "elp_bsd_a4")
+
+
+def gemm_shapes(spec) -> list:
+    """Each conv/fc GEMM of ``spec``'s forward: ("conv", H = W in, Cin, k, stride,
+    Cout) or ("fc", K, N), in layer order (SAME convs, VALID pools)."""
+    from repro_torch.models import cnn
+
+    hw, ch, flat, out = spec.input_hw, spec.input_ch, None, []
+    for layer in spec.layers:
+        if isinstance(layer, cnn.Conv):
+            out.append(("conv", hw, ch, layer.k, layer.stride, layer.ch))
+            hw, ch = -(-hw // layer.stride), layer.ch
+        elif isinstance(layer, cnn.Pool):
+            hw = (hw - layer.k) // layer.stride + 1
+        else:
+            out.append(("fc", flat if flat is not None else hw * hw * ch, layer.out))
+            flat = layer.out
+    return out
+
+
+def per_forward(spec) -> dict:
+    """Launches of one packed forward of ``spec`` at the eval batch: every conv on
+    the tiled bf16x3 route (M = 128 * Ho * Wo > 256), every fc on the decode-step
+    bf16x3 route (M = 128)."""
+    kinds = [g[0] for g in gemm_shapes(spec)]
+    return {"elp_bsd_matmul/bf16x3": kinds.count("conv"),
+            "fused_decode_matmul/bf16x3": kinds.count("fc")}
+
+
+def _times(launches: dict, n: int) -> tuple:
+    return _expected({k: v * n for k, v in launches.items()})
+
+
+def bf16x3_k_sweep(torch, dev, gen) -> None:
+    """Both bf16x3 routes' distance from the product summed in float64, at each K
+    of BF16X3_KS, for the kernel (three terms) and the plain arithmetic with 1, 2
+    and 3 bf16 terms of x and in float32 (cuBLAS, no TF32); a4 nibble codes,
+    N = 256, M = 2048 (tiled) and 64 (decode step). Reported, not gated: these
+    shapes are on no path of this script; the gate is REL_TOL at the paths'."""
+    from repro_torch.core.elp_bsd import PRESET_FORMATS
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul, elp_bsd_matmul_plain
+    from repro_torch.kernels.fused_decode import fused_decode_matmul
+    from repro_torch.kernels.ref import elp_bsd_matmul_bf16x3
+
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    n = 256
+    for kdim in BF16X3_KS:
+        codes = torch.randint(0, 256, ((kdim + 1) // 2, n), device=dev, generator=gen,
+                              dtype=torch.uint8)
+        sf = torch.tensor([1.0 / kdim ** 0.5], device=dev)
+        for name, kernel, m in (("elp_bsd_matmul/bf16x3", elp_bsd_matmul, 2048),
+                                ("fused_decode_matmul/bf16x3", fused_decode_matmul, 64)):
+            x = torch.randn(m, kdim, device=dev, generator=gen)
+            want = _f64_sum(x, codes, sf, fmt, nibble=True)
+            limit = REL_TOL * want.abs().max().item()
+            dist = {"kernel": kernel(x, codes, sf, fmt, nibble=True)}
+            for t in (1, 2, 3):
+                dist[f"{t} terms"] = elp_bsd_matmul_bf16x3(x, codes, sf, fmt, nibble=True,
+                                                           terms=t)
+            dist["float32"] = elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=True)
+            print(f"[bf16x3-k] {name} K={kdim} M={m} N={n}: max |out - f64| / limit ("
+                  + ", ".join(f"{k} {(v - want).abs().max().item() / limit:.4f}"
+                              for k, v in dist.items())
+                  + f"); limit {REL_TOL:g} * max|f64| = {limit:.3e}")
+            del x, want, dist
+
+
+def mini_phase(torch, dev, failures, forwards) -> tuple:
+    """Train both mini CNNs on the card at the reference's budget, then Fig. 15(a)
+    (ALEXNET_MINI) and Fig. 15(b) (both), the latter also on the CPU with the same
+    weights. Returns (trained weights on the card, launches of the packed runs)."""
+    from repro_torch import api
+    from repro_torch.experiments import common
+    from repro_torch.experiments import fig15a_error_comp as fig15a
+    from repro_torch.experiments import fig15b_accuracy_pdp as fig15b
+    from repro_torch.models import cnn
+
+    trained, launches = {}, (0,) * len(KERNEL_ROUTES)
+    for spec_name in MINI_SPECS:
+        spec = getattr(cnn, spec_name)
+        t0 = time.perf_counter()
+        trained[spec_name] = common.train_mini_cnn(spec, device=dev, cache=False)
+        torch.cuda.synchronize()
+        base = common.make_eval_fn(spec, device=dev)(trained[spec_name], None)
+        print(f"[mini] {spec.name}: 1200 momentum-SGD steps at batch {common.BATCH} (lr 2e-2, "
+              f"seed 0) on the card in {time.perf_counter() - t0:.1f} s; float eval accuracy "
+              f"{base:.4f} ({EVAL_BATCHES}x{EVAL_BATCH} held-out images)")
+
+        # one packed forward at the eval batch: exact launches per route
+        qm = api.quantize(spec, trained[spec_name], api.QuantScheme(fmt="elp_bsd_a4"), device=dev)
+        x, _ = common.CnnDataset(32, 3, 10, EVAL_BATCH).np_batch(10_000)
+        _zero_counts()
+        qm.forward(x)
+        torch.cuda.synchronize()
+        c = _counts()
+        forwards[(spec.name, EVAL_BATCH, "elp_bsd_a4")] += 1
+        print(f"[mini] {spec.name} launches in one packed forward at batch {EVAL_BATCH}: "
+              f"{dict(zip(KERNEL_ROUTES, c))}")
+        if c != _times(per_forward(spec), 1):
+            failures.append(f"{spec.name} packed forward launches {c}")
+        launches = tuple(a + b for a, b in zip(launches, c))
+
+        # Fig. 15(b) on the card (kernels), counted, and on the CPU (plain versions)
+        t0 = time.perf_counter()
+        _zero_counts()
+        rows = fig15b.run(spec, FIG15B_ACT_BITS, params=trained[spec_name], device=dev)
+        torch.cuda.synchronize()
+        c = _counts()
+        card_s = time.perf_counter() - t0
+        n_fwd = len(FIG15B_ACT_BITS) * EVAL_BATCHES
+        for fmt in FMT_NAMES:
+            forwards[(spec.name, EVAL_BATCH, fmt)] += n_fwd
+        want = _times(per_forward(spec), len(FMT_NAMES) * n_fwd)
+        print(f"[mini] {spec.name} fig15b on the card: {card_s:.1f} s; launches "
+              f"{dict(zip(KERNEL_ROUTES, c))} (expected {want})")
+        if c != want:
+            failures.append(f"{spec.name} fig15b launches {c}")
+        launches = tuple(a + b for a, b in zip(launches, c))
+        t0 = time.perf_counter()
+        cpu_rows = fig15b.run(spec, FIG15B_ACT_BITS,
+                              params={k: v.cpu() for k, v in trained[spec_name].items()},
+                              device="cpu")
+        worst = max(abs(a["accuracy"] - b["accuracy"]) for a, b in zip(rows, cpu_rows))
+        print(f"[mini] {spec.name} fig15b on the CPU (plain versions, same weights): "
+              f"{time.perf_counter() - t0:.1f} s; card vs CPU accuracy, largest difference over "
+              f"the {len(FMT_NAMES) * len(FIG15B_ACT_BITS)} cells {worst:.4f} (limit {AC})")
+        for a, b in zip(rows, cpu_rows, strict=True):
+            print(f"[mini] {spec.name} fig15b {a['format']} a{a['act_bits']}: card "
+                  f"{a['accuracy']:.4f}, CPU {b['accuracy']:.4f}")
+            if abs(a["accuracy"] - b["accuracy"]) > AC:
+                failures.append(f"{spec.name} fig15b {a['format']} a{a['act_bits']} card vs CPU")
+        print(f"[mini] {spec.name} fig15b rows (card):")
+        fig15b.report(rows)
+        sys.stdout.flush()
+
+    t0 = time.perf_counter()
+    _zero_counts()
+    params = trained["ALEXNET_MINI"]
+    rows = fig15a.run(cnn.ALEXNET_MINI, params=params, device=dev)
+    act = fig15a.run_activation(cnn.ALEXNET_MINI, params=params, device=dev)
+    if _counts() != (0,) * len(KERNEL_ROUTES):  # float weights: no packed matmul
+        failures.append(f"fig15a launched kernels {_counts()}")
+    print(f"[mini] alexnet_mini fig15a on the card ({time.perf_counter() - t0:.1f} s):")
+    fig15a.report(rows, act)
+    return trained, launches
+
+
+def quickstart_phase(torch, dev, trained, failures, forwards) -> tuple:
+    """``examples/quickstart.py``'s flow on the card and on the CPU: the Sec. V
+    search on the trained ALEXNET_MINI, then the packed artifact's eval on the
+    kernels, save, load and a bit-identical reloaded forward. Returns launches."""
+    from repro_torch import api
+    from repro_torch.experiments import common
+    from repro_torch.kernels.ref import unpack_nibbles_k
+    from repro_torch.models import cnn
+
+    spec = cnn.ALEXNET_MINI
+    scheme = api.QuantScheme(fmt="elp_bsd_a4", act="dynamic", ac=AC, bw_max=8, bw_min=4)
+    t0 = time.perf_counter()
+    qm = api.quantize(spec, trained, scheme, eval_fn=common.make_eval_fn(spec, device=dev),
+                      device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qc = api.quantize(spec, {k: v.cpu() for k, v in trained.items()}, scheme,
+                      eval_fn=common.make_eval_fn(spec, device="cpu"), device="cpu")
+    cpu_s = time.perf_counter() - t0
+    r, rc = qm.report, qc.report
+    differ = sum(int((unpack_nibbles_k(v.codes.cpu()) != unpack_nibbles_k(qc.params[k].codes))
+                     .sum()) for k, v in qm.params.items() if k.endswith("_w"))
+    n_codes = sum(v.shape[0] * v.shape[1] for k, v in qm.params.items() if k.endswith("_w"))
+    print(f"[quickstart] api.quantize(alexnet_mini, eval_fn) card {card_s:.2f} s, CPU "
+          f"{cpu_s:.2f} s: CBW_A card {r.act_bits}, CPU {rc.act_bits}; baseline accuracy card "
+          f"{r.baseline_accuracy:.4f} CPU {rc.baseline_accuracy:.4f}; float-twin accuracy card "
+          f"{r.accuracy:.4f} CPU {rc.accuracy:.4f}; codes differing card vs CPU {differ} of "
+          f"{n_codes}; compression {r.compression:.2f}x ({r.raw_bytes} -> {r.packed_bytes} B, "
+          f"bit-packed {r.encoded_bytes} B); Table II energy {r.energy_nj / 1e3:.3f} uJ")
+    if r.act_bits != rc.act_bits:
+        failures.append(f"quickstart CBW_A card {r.act_bits} vs CPU {rc.act_bits}")
+
+    eval_fn = common.make_eval_fn(spec, device=dev)
+    x, _ = common.CnnDataset(32, 3, 10, EVAL_BATCH).np_batch(10_000)
+    _zero_counts()
+    packed_acc = eval_fn(qm.params, r.act_bits)
+    first = qm.forward(x)
+    path = os.path.join(ROOT, "build", "chip_smoke", "alexnet_mini_elp4")
+    qm.save(path)
+    again = api.load(path, device=dev).forward(x)
+    torch.cuda.synchronize()
+    c = _counts()
+    forwards[(spec.name, EVAL_BATCH, "elp_bsd_a4")] += EVAL_BATCHES + 2
+    want = _times(per_forward(spec), EVAL_BATCHES + 2)
+    same = bool(torch.equal(first, again))
+    print(f"[quickstart] packed accuracy on the kernels {packed_acc:.4f} (act bits {r.act_bits}; "
+          f"float twin {r.accuracy:.4f}); reloaded forward bit-identical {same}; launches "
+          f"{dict(zip(KERNEL_ROUTES, c))} (expected {want})")
+    if not same:
+        failures.append("quickstart save/load forward drifted")
+    if abs(packed_acc - r.accuracy) > AC:
+        failures.append(f"quickstart packed accuracy {packed_acc} vs float twin {r.accuracy}")
+    if c != want:
+        failures.append(f"quickstart launches {c}")
+    shutil.rmtree(path)
+    return c
+
+
+def full_search_phase(torch, dev, failures, forwards) -> tuple:
+    """The Sec. V search on full-width ALEXNET with seeded weights. Its eval_fn is
+    top-1 agreement with the float model's argmax on the reference's 8 eval
+    batches of 128 (CnnDataset(224, 3, 10, 128), steps 10000-10007): the task's
+    labels mean nothing to untrained weights. Returns launches."""
+    from repro_torch import api
+    from repro_torch.data.pipeline import CnnDataset
+    from repro_torch.models import cnn
+
+    spec = cnn.ALEXNET
+    t0 = time.perf_counter()
+    params = cnn.init_params(spec, seed=0, device=dev)
+    ds = CnnDataset(224, 3, 10, EVAL_BATCH)
+    xs = [torch.from_numpy(ds.np_batch(10_000 + i)[0]).to(dev) for i in range(EVAL_BATCHES)]
+    with torch.no_grad():
+        ref = [torch.argmax(cnn.forward(params, spec, x), -1) for x in xs]
+    torch.cuda.synchronize()
+    print(f"[full] seeded ALEXNET params, {EVAL_BATCHES}x{EVAL_BATCH} images and their float "
+          f"argmax in {time.perf_counter() - t0:.1f} s")
+    n_evals = []
+
+    def agreement(p, act_quant):
+        n_evals.append(act_quant)
+        with torch.no_grad():
+            acc = [torch.mean((torch.argmax(cnn.forward(p, spec, x, act_bits=act_quant), -1)
+                               == y).to(torch.float32)) for x, y in zip(xs, ref)]
+        return float(torch.stack(acc).mean())
+
+    scheme = api.QuantScheme(fmt="elp_bsd_a4", act="dynamic", ac=AC, bw_max=8, bw_min=4)
+    t0 = time.perf_counter()
+    qm = api.quantize(spec, params, scheme, eval_fn=agreement, device=dev)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    r = qm.report
+    print(f"[full] api.quantize(ALEXNET, eval_fn) {search_s:.2f} s with {len(n_evals)} "
+          f"evaluations (act_quant {n_evals}): CBW_A {r.act_bits}, baseline agreement "
+          f"{r.baseline_accuracy:.4f}, float-twin agreement {r.accuracy:.4f}")
+    del params
+    torch.cuda.empty_cache()
+    _zero_counts()
+    packed = agreement(qm.params, r.act_bits)
+    first = qm.forward(xs[0])
+    path = os.path.join(ROOT, "build", "chip_smoke", "alexnet_elp4")
+    t0 = time.perf_counter()
+    qm.save(path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = api.load(path, device=dev)
+    load_s = time.perf_counter() - t0
+    again = back.forward(xs[0])
+    torch.cuda.synchronize()
+    c = _counts()
+    forwards[(spec.name, EVAL_BATCH, "elp_bsd_a4")] += EVAL_BATCHES + 2
+    want = _times(per_forward(spec), EVAL_BATCHES + 2)
+    same = bool(torch.equal(first, again))
+    disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+    print(f"[full] packed agreement on the kernels {packed:.4f} (float twin {r.accuracy:.4f}, "
+          f"limit {AC}); reloaded forward bit-identical {same}; save {save_s:.2f} s, load "
+          f"{load_s:.2f} s; bytes: raw {r.raw_bytes}, packed {r.packed_bytes}, bit-packed "
+          f"{r.encoded_bytes}, artifact on disk {disk}; launches {dict(zip(KERNEL_ROUTES, c))} "
+          f"(expected {want})")
+    if not same:
+        failures.append("full-width save/load forward drifted")
+    if abs(packed - r.accuracy) > AC:
+        failures.append(f"full-width packed agreement {packed} vs float twin {r.accuracy}")
+    if c != want:
+        failures.append(f"full-width launches {c}")
+    shutil.rmtree(path)
+    return c
+
+
 def main() -> int:
     # One card: the run uses device 0 and its record says so.
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -741,6 +1054,7 @@ def main() -> int:
     from repro_torch.models import cnn
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     # -- phase 1: card ---------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -794,11 +1108,13 @@ def main() -> int:
                                                  "fused", "fused_decode")}
     controls = []
 
-    def case(name, lhs, pw, label, library=None):
+    def case(name, lhs, pw, label, library=None, key=ALEXNET_B64):
         """``lhs @ pw`` on route ``name`` and on the float32 kernel it replaced,
         each against the plain version, at the inputs the main path gives it;
         with a ``library`` call, also time both, plain and library, and bound
-        the work at these shapes at each route's arithmetic."""
+        the work at these shapes at each route's arithmetic. ``key`` (spec
+        name, batch, format) names the packed forwards that run this shape:
+        their count weighs its times in the kernel record."""
         kernel, plain, impl, f32_source = under_test[name]
         f32_name = name.replace("bf16x3", "f32")
         wrapper, route_name = name.split("/")
@@ -819,12 +1135,12 @@ def main() -> int:
         ref = lambda: plain(lhs, pw.codes, pw.sf, pw.fmt, nibble=pw.nibble)  # noqa: E731
         f32 = lambda: launch_checked(f32_source, lhs, pw.codes, pw.sf, pw.fmt,  # noqa: E731
                                      pw.nibble)
-        row = {"shape": f"{label} M={m} K={kdim} N={n}"}
+        row = {"shape": f"{label} M={m} K={kdim} N={n}", "key": key}
         want = ref()
         row["max_abs_err"] = check(name, row["shape"], run(), want)
         if kernel.launches_by_route != {**before, route_name: before[route_name] + 1}:
             failures.append(f"{name} {label}: launches by route {kernel.launches_by_route}")
-        f32_row = {"shape": row["shape"],
+        f32_row = {"shape": row["shape"], "key": key,
                    "max_abs_err": check(f32_name, row["shape"] + " (launched directly)", f32(),
                                         want)}
         # Controls: the same product from fewer bf16 terms of x.
@@ -893,6 +1209,41 @@ def main() -> int:
         if i == 2:
             pw, _ = ops.pack_weight(w, "elp_bsd_a4", granularity="per_channel")
             case("fused_decode_matmul/bf16x3", xa, pw, f"fc{i} a4/nibble per-channel sf")
+    # The Sec. V slice's shapes: each conv/fc GEMM of the two mini CNNs at the
+    # eval batch of 128 in each Table II format (Fig. 15(b); N = 10-32, K from
+    # 27, code rows of 10 and 16 bytes), and of ALEXNET at 128 in a4 (the
+    # full-width search's packed eval). Library as above.
+    for spec_name, fmts in (("ALEXNET_MINI", FMT_NAMES), ("VGG_MINI", FMT_NAMES),
+                            ("ALEXNET", ("elp_bsd_a4",))):
+        spec = getattr(cnn, spec_name)
+        for i, g in enumerate(gemm_shapes(spec)):
+            if g[0] == "conv":
+                _, hw, cin, k, stride, cout = g
+                img = torch.randn(EVAL_BATCH, hw, hw, cin, device=dev, generator=gen)
+                w = torch.randn(k, k, cin, cout, device=dev, generator=gen) / (k * math.sqrt(k))
+                lhs = extract_patches(img, k, k, stride=stride).reshape(-1, k * k * cin)
+                xi = pad_nhwc(img, k, k, stride, "SAME").permute(0, 3, 1, 2).contiguous()
+                del img
+            else:
+                _, kdim, cout = g
+                lhs = torch.relu(torch.randn(EVAL_BATCH, kdim, device=dev, generator=gen))
+                w = torch.randn(kdim, cout, device=dev, generator=gen) / math.sqrt(kdim)
+            for fmt_name in fmts:
+                if g[0] == "conv":
+                    pw, _ = ops.pack_conv_weight(w, fmt_name)
+                    wq = ops.dequantize_nd(pw).permute(3, 2, 0, 1).contiguous()
+                    library = lambda: F.conv2d(xi, wq, stride=stride).permute(0, 2, 3, 1)  # noqa: E731
+                    name = "elp_bsd_matmul/bf16x3"
+                else:
+                    pw, _ = ops.pack_weight(w, fmt_name)
+                    wq = ops.dequantize(pw)
+                    library = lambda: torch.matmul(lhs, wq)  # noqa: E731
+                    name = "fused_decode_matmul/bf16x3"
+                case(name, lhs, pw, f"{spec.name} b{EVAL_BATCH} {g[0]}{i} {fmt_name}", library,
+                     key=(spec.name, EVAL_BATCH, fmt_name))
+            del lhs, w
+            xi = None
+    torch.cuda.empty_cache()
     for label, one, two in controls:
         print(f"[kernels] control {label}: one bf16 term of x reads {one:.2f} of the limit "
               f"(must exceed 1), two terms {two:.3f} (reported)")
@@ -906,7 +1257,7 @@ def main() -> int:
                   f"of the float32 bound {r['f32_bound_ms']:.4f} ms), f32 kernel "
                   f"{r['f32_route_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
                   f"{r['library_ms']:.4f} ms")
-        tot = {k: sum(r[k] for r in rows[name])
+        tot = {k: sum(r[k] for r in rows[name] if r["key"] == ALEXNET_B64)
                for k in ("ms", "f32_route_ms", "plain_ms", "library_ms", "bound_ms",
                          "f32_bound_ms")}
         print(f"[kernels] {name} per AlexNet forward: {tot['ms']:.4f} ms; the f32 kernel it "
@@ -980,13 +1331,40 @@ def main() -> int:
     cnn_launches = launches
     del qm, qm_cpu, params, calib, batch, logits, float_card, pairs
     torch.cuda.empty_cache()
+    print(f"[time] phases 1-4 (card, build, kernels, AlexNet main path): "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- phase 4b: the Sec. V slice: mini CNNs, Fig. 15(a)/(b), the search, artifacts --
+    forwards = collections.Counter({ALEXNET_B64: 1})
+    t0 = time.perf_counter()
+    trained, sec5_launches = mini_phase(torch, dev, failures, forwards)
+    print(f"[time] phase 4b(a), mini CNNs and Fig. 15: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    c = quickstart_phase(torch, dev, trained["ALEXNET_MINI"], failures, forwards)
+    sec5_launches = tuple(a + b for a, b in zip(sec5_launches, c))
+    print(f"[time] phase 4b(b), the quickstart flow: {time.perf_counter() - t0:.1f} s")
+    del trained
+    t0 = time.perf_counter()
+    c = full_search_phase(torch, dev, failures, forwards)
+    sec5_launches = dict(zip(KERNEL_ROUTES, (a + b for a, b in zip(sec5_launches, c))))
+    print(f"[time] phase 4b(c), the full-width search: {time.perf_counter() - t0:.1f} s; "
+          f"launches of the Sec. V phases {sec5_launches}")
+    t0 = time.perf_counter()
+    bf16x3_k_sweep(torch, dev, gen)
+    torch.cuda.empty_cache()
+    print(f"[time] bf16x3 K sweep: {time.perf_counter() - t0:.1f} s")
 
     # -- phase 5: the LM path's kernels at its shapes ------------------------------
     flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
-    for name in ("elp_bsd_matmul/bf16x3", "elp_bsd_matmul/f32", "fused_decode_matmul/bf16x3",
-                 "fused_decode_matmul/f32"):
+    # each AlexNet-path shape runs once per forward, each Sec. V shape once per
+    # packed forward of its (spec, batch, format); the f32 routes are timed at
+    # the AlexNet path's shapes only (launched directly, on no path)
+    for name in ("elp_bsd_matmul/bf16x3", "fused_decode_matmul/bf16x3"):
         for r in rows[name]:
-            r["weight"] = 1  # each AlexNet shape runs once per forward
+            r["weight"] = forwards[r["key"]]
+    for name in ("elp_bsd_matmul/f32", "fused_decode_matmul/f32"):
+        for r in rows[name]:
+            r["weight"] = 1 if r["key"] == ALEXNET_B64 else 0
     lm_kernel_phase(torch, dev, gen, flush, rows, failures)
     del flush
     torch.cuda.empty_cache()
@@ -996,6 +1374,7 @@ def main() -> int:
 
     # -- phase 8: the reduced LM on the card against the CPU -----------------------
     lm_card_vs_cpu(torch, dev, failures)
+    print(f"[time] total {time.perf_counter() - t_start:.1f} s")
 
     if failures:
         print(f"chip_smoke: FAILED: {failures}", file=sys.stderr)
@@ -1029,7 +1408,7 @@ def main() -> int:
             "route": "cuda",
             "source": sources[name][0],
             "replaces": sources[name][1],
-            "launches": cnn_launches.get(name, 0) + lm_launches[name],
+            "launches": cnn_launches.get(name, 0) + lm_launches[name] + sec5_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": wsum("ms"),
             "plain_ms": wsum("plain_ms"),

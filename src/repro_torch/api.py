@@ -8,6 +8,13 @@
                       api.QuantScheme(fmt="elp_bsd_a4", act="static"),
                       calib_data=images)                    # [n, B, H, W, C]
     logits = qm.forward(batch)   # convs on the tiled kernel, fc on the decode-step kernel
+    qm.save("artifacts/alexnet4b")
+    qm2 = api.load("artifacts/alexnet4b")                   # bit-identical forward
+
+    # the paper's Sec. V search: CBW_A within scheme.ac of the float model
+    qm = api.quantize(cnn.ALEXNET_MINI, trained,
+                      api.QuantScheme(fmt="elp_bsd_a4", act="dynamic", ac=0.01),
+                      eval_fn=eval_fn)                      # eval_fn(params, act_quant)
 
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
@@ -19,33 +26,70 @@
     new_tokens = qm.generate(prompts, 16)                   # [B, S] -> [B, 16]
 
 ``quantize`` calibrates (observers, percentile clipping; for CNNs the
-rho-gated fold of ``W @ E[eps]`` into biases), then packs (SF -> TQL ->
+rho-gated fold of ``W @ E[eps]`` into biases), packs (SF -> TQL ->
 nearest level -> Algorithm 1 -> ELP_BSD codes, nibble-packed for 4-bit;
-an LM per stacked layer slice). Entry points run on the card unless the
-caller passes ``device="cpu"``; with no card and no explicit CPU request
-they raise.
+an LM per stacked layer slice) and, given an ``eval_fn``, runs the Sec. V
+accuracy-constraint search. :class:`QuantizedModel` saves to and loads
+from an artifact directory in the JAX package's layout (either package
+reads the other's), with a SHA-256 checksum per leaf; a corrupted or
+incomplete artifact raises :class:`ArtifactError`. Entry points run on
+the card unless the caller passes ``device="cpu"``; with no card and no
+explicit CPU request they raise.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md, queue 1):
-the Sec. V search (``eval_fn``), ``save``/``load``, speculative schemes,
-``serve`` (the continuous-batching engine) and ``block_sizes="auto"`` (no
-autotune cache).
+speculative schemes, ``serve`` (the continuous-batching engine) and
+``block_sizes="auto"`` (no autotune cache).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+import hashlib
+import json
+import os
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
 
-from repro_torch.api_schemes import NOT_PORTED, QuantScheme, as_adapter
+from repro_torch.api_schemes import NOT_PORTED, CnnAdapter, LmAdapter, QuantScheme, as_adapter
 from repro_torch.calib.policy import CalibrationTable
+from repro_torch.checkpoint.manager import (
+    CheckpointManager,
+    _dtype_name,
+    _flatten,
+    leaf_to_numpy,
+)
 from repro_torch.core.elp_bsd import resolve_format, storage_bytes
 from repro_torch.core.energy import network_energy_nj
+from repro_torch.core.methodology import find_critical_act_bits
 from repro_torch.device import resolve_device
-from repro_torch.kernels.ops import PackedWeight, packed_tree_bytes, tree_leaves, tree_map
+from repro_torch.kernels.ops import (
+    PackedWeight,
+    dequantize_tree,
+    packed_tree_bytes,
+    tree_leaves,
+    tree_map,
+)
 
-__all__ = ["ConversionReport", "QuantScheme", "QuantizedModel", "quantize", "resolve_format"]
+__all__ = [
+    "ARTIFACT_VERSION",
+    "ArtifactError",
+    "ConversionReport",
+    "QuantScheme",
+    "QuantizedModel",
+    "load",
+    "quantize",
+    "resolve_format",
+]
+
+ARTIFACT_VERSION = 1
+_MANIFEST = "manifest.json"
+_CALIB = "calib.json"
+_PARAMS_DIR = "params"
+
+
+class ArtifactError(ValueError):
+    """A saved QuantizedModel is missing, malformed, or corrupted."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +100,9 @@ class ConversionReport:
     nibble codes per byte, float32 scales); ``encoded_bytes`` is the
     paper's Table II accounting with codes bit-packed at
     ``bits_per_weight``; ``energy_nj`` is the Table II network energy.
+    ``baseline_accuracy`` / ``accuracy`` are the Sec. V search's readings
+    (with an ``eval_fn``). ``tuned_blocks`` is the JAX package's autotune
+    record, always empty here (no autotune cache yet).
     """
 
     fmt: str
@@ -65,11 +112,33 @@ class ConversionReport:
     packed_bytes: int
     packed_weight_bytes: int
     encoded_bytes: int
+    baseline_accuracy: float | None = None
+    accuracy: float | None = None
     energy_nj: float | None = None
+    tuned_blocks: tuple = ()
 
     @property
     def compression(self) -> float:
         return self.raw_bytes / max(self.packed_bytes, 1)
+
+    @property
+    def accuracy_loss(self) -> float | None:
+        if self.accuracy is None or self.baseline_accuracy is None:
+            return None
+        return self.baseline_accuracy - self.accuracy
+
+    def to_json(self) -> dict:
+        doc = dataclasses.asdict(self)
+        doc["tuned_blocks"] = [[k, list(b)] for k, b in self.tuned_blocks]
+        return doc
+
+    @classmethod
+    def from_json(cls, doc: Mapping[str, Any]) -> "ConversionReport":
+        kw = dict(doc)
+        kw["tuned_blocks"] = tuple(
+            (str(k), tuple(int(x) for x in b)) for k, b in kw.get("tuned_blocks", [])
+        )
+        return cls(**kw)
 
 
 def _encoded_bytes(tree: dict) -> int:
@@ -86,7 +155,10 @@ def _encoded_bytes(tree: dict) -> int:
 
 
 def _to_device(x, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x).to(device)
+    if torch.is_tensor(x):
+        return x.to(device)
+    a = np.asarray(x)
+    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
 
 
 def _tree_to_device(tree, device: torch.device):
@@ -100,43 +172,78 @@ def quantize(
     scheme: QuantScheme | None = None,
     *,
     calib_data: Any = None,
-    eval_fn: Callable | None = None,
+    eval_fn: Callable[[Any, Any], float] | None = None,
     device=None,
 ) -> "QuantizedModel":
-    """Run the CoNLoCNN conversion on one model: calibrate, (fold,) pack.
+    """Run the CoNLoCNN conversion on one model: calibrate, (fold,) pack, search.
 
     Args:
       model: a ``CnnSpec`` or a decoder-LM ``ArchConfig``.
-      params: the float parameter dict (tensors or numpy arrays; nested
-        for an LM).
+      params: the trained float parameter dict (tensors or numpy arrays;
+        nested for an LM).
       scheme: the :class:`QuantScheme` (default: 4-bit ELP_BSD weights,
         Algorithm 1 on, float activations).
       calib_data: stacked calibration batches, required when
         ``scheme.act == "static"``: images ``[n, B, H, W, C]`` for a CNN,
         token ids ``[n, B, S]`` for an LM.
-      eval_fn: the Sec. V accuracy-constraint search, not ported yet.
+      eval_fn: ``eval_fn(params, act_quant) -> accuracy``, with
+        ``act_quant`` None, an int bit-width or a CalibrationTable (the
+        contract of :func:`repro_torch.experiments.common.make_eval_fn`);
+        ``params`` arrive on ``device``. It turns on the Sec. V search: the
+        baseline is the float ``params``; the critical activation
+        bit-width CBW_A is the lowest within ``scheme.ac`` of it (step 1,
+        on the float params); step 5 re-checks it on the float twin of the
+        packed codes (what the artifact serves, numerically) and walks
+        CBW_A up while the constraint is violated. A static scheme's table
+        is then re-stamped at CBW_A.
       device: where the conversion and the model run (default: the card).
     """
     adapter = as_adapter(model)
     scheme = scheme if scheme is not None else QuantScheme()
-    if eval_fn is not None:
-        raise NotImplementedError(f"the Sec. V search (eval_fn, core/methodology.py) is {NOT_PORTED}")
     if scheme.spec_k:
         raise NotImplementedError(f"speculative schemes (the LM serve path) are {NOT_PORTED}")
     if scheme.block_sizes == "auto":
         raise NotImplementedError(f'block_sizes="auto" (the autotune cache) is {NOT_PORTED}')
     device = resolve_device(device)
-    work = _tree_to_device(params, device)
-    raw_bytes = packed_tree_bytes(work)
+    params = _tree_to_device(params, device)
+    raw_bytes = packed_tree_bytes(params)
 
     table: CalibrationTable | None = None
+    work = params
     if scheme.act == "static":
         if calib_data is None:
             raise ValueError('scheme.act == "static" needs calib_data (stacked calibration batches)')
-        table, work = adapter.calibrate(work, _to_device(calib_data, device), scheme)
+        table, work = adapter.calibrate(params, _to_device(calib_data, device), scheme)
     packed = adapter.pack(work, scheme, table)
 
+    baseline_acc: float | None = None
+    accuracy: float | None = None
     act_bits = scheme.resolved_act_bits()
+    if eval_fn is not None:
+        # The baseline is the user's float model, not the bias-folded
+        # calibration output (its fold only makes sense under quantization).
+        baseline_acc = eval_fn(params, None)
+        deq = dequantize_tree(packed)
+        if scheme.act == "float":
+            accuracy = eval_fn(deq, None)  # no activation quantization: no search
+        else:
+            cbw = find_critical_act_bits(eval_fn, params, baseline_acc, scheme.ac,
+                                         scheme.bw_max, scheme.bw_min, calib=table)
+
+            def act_quant(bits: int):
+                return table.with_bits(bits) if table is not None else bits
+
+            # Step 5 on the float twin of the codes: walk CBW_A back up
+            # while the constraint is violated.
+            accuracy = eval_fn(deq, act_quant(cbw))
+            while baseline_acc - accuracy > scheme.ac and cbw < scheme.bw_max:
+                cbw += 1
+                accuracy = eval_fn(deq, act_quant(cbw))
+            act_bits = cbw
+            if table is not None:
+                table = table.with_bits(act_bits)
+                packed = adapter.stamp_act(packed, table)
+
     encoded_bytes = _encoded_bytes(packed)
     report = ConversionReport(
         fmt=scheme.format.name,
@@ -146,6 +253,8 @@ def quantize(
         packed_bytes=packed_tree_bytes(packed),
         packed_weight_bytes=packed_tree_bytes(packed, packed_only=True),
         encoded_bytes=encoded_bytes,
+        baseline_accuracy=baseline_acc,
+        accuracy=accuracy,
         energy_nj=network_energy_nj(
             adapter.spec.macs(), encoded_bytes, scheme.format.name, act_bits or 8
         )["total_nj"] if adapter.kind == "cnn" else None,
@@ -243,8 +352,174 @@ class QuantizedModel:
         raise NotImplementedError(f"continuous-batching LM serving (ServeEngine) is {NOT_PORTED}")
 
     def save(self, path: str) -> None:
-        raise NotImplementedError(f"artifact save (checkpoint/manager.py) is {NOT_PORTED}")
+        """Write the artifact directory, the manifest last (atomically).
+
+        Layout, as the JAX package writes it: ``manifest.json`` (model,
+        scheme, report, tree structure and a SHA-256 checksum per leaf),
+        ``params/`` (a checkpoint-manager step holding the packed tree) and
+        ``calib.json`` (the calibration table of a static scheme).
+        """
+        os.makedirs(path, exist_ok=True)
+        checks = {k: _leaf_sha256(v) for k, v in _flatten(self.params).items()}
+        CheckpointManager(os.path.join(path, _PARAMS_DIR), keep=1).save(0, self.params)
+        if self.table is not None:
+            self.table.save(os.path.join(path, _CALIB))
+        manifest = {
+            "format_version": ARTIFACT_VERSION,
+            "kind": self.adapter.kind,
+            "model": self.adapter.model_json(),
+            "scheme": self.scheme.to_json(),
+            "report": self.report.to_json() if self.report is not None else None,
+            "tree": _tree_to_json(self.params),
+            "checksums": checks,
+            "has_calib": self.table is not None,
+        }
+        tmp = os.path.join(path, _MANIFEST + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f, indent=1)
+        os.replace(tmp, os.path.join(path, _MANIFEST))
 
     @classmethod
-    def load(cls, path: str) -> "QuantizedModel":
-        raise NotImplementedError(f"artifact load (checkpoint/manager.py) is {NOT_PORTED}")
+    def load(cls, path: str, *, device=None) -> "QuantizedModel":
+        """Load and verify a saved artifact, its tensors on ``device`` (default: the card).
+
+        A missing file, a schema mismatch, an undeclared or missing leaf or
+        a checksum failure raises :class:`ArtifactError`: a partly written
+        or bit-flipped artifact never serves. A speculative scheme raises
+        :class:`ArtifactError` without its verify tier and
+        ``NotImplementedError`` with it (speculative serving is not ported).
+        """
+        device = resolve_device(device)
+        mf = os.path.join(path, _MANIFEST)
+        try:
+            with open(mf) as f:
+                doc = json.load(f)
+        except (OSError, json.JSONDecodeError, UnicodeDecodeError) as e:
+            raise ArtifactError(f"unreadable QuantizedModel manifest at {mf}: {e}") from e
+        if not isinstance(doc, dict) or doc.get("format_version") != ARTIFACT_VERSION:
+            raise ArtifactError(
+                f"unsupported artifact format_version "
+                f"{doc.get('format_version') if isinstance(doc, dict) else doc!r} "
+                f"(expected {ARTIFACT_VERSION})"
+            )
+        for key in ("kind", "model", "scheme", "tree", "checksums"):
+            if key not in doc:
+                raise ArtifactError(f"manifest missing required key {key!r}")
+        try:
+            if doc["kind"] == "cnn":
+                adapter = CnnAdapter(CnnAdapter.model_from_json(doc["model"]))
+            elif doc["kind"] == "lm":
+                adapter = LmAdapter(LmAdapter.model_from_json(doc["model"]))
+            else:
+                raise ValueError(f"unknown artifact kind {doc['kind']!r}")
+            scheme = QuantScheme.from_json(doc["scheme"])
+            example = _tree_from_json(doc["tree"])
+        except (TypeError, ValueError, KeyError) as e:
+            raise ArtifactError(f"malformed artifact manifest: {e}") from e
+        if scheme.spec_k:
+            if "verify_tree" not in doc or "verify_checksums" not in doc:
+                raise ArtifactError(
+                    "artifact's scheme is speculative but the manifest has no verify tier "
+                    "(verify_tree/verify_checksums): incomplete save"
+                )
+            raise NotImplementedError(
+                "speculative artifacts (a draft and a verify tier) are not ported to "
+                "repro_torch yet; see ROADMAP.md, queue 1 item 4 (the serving engine)"
+            )
+
+        restored = CheckpointManager(os.path.join(path, _PARAMS_DIR), keep=0).restore_latest(
+            example, device=device)
+        if restored is None:
+            raise ArtifactError(f"params checkpoint under {path!r} is missing or unreadable")
+        _, params = restored
+        flat = _flatten(params)
+        declared = doc["checksums"]
+        if set(flat) != set(declared):
+            raise ArtifactError(
+                f"artifact leaves {sorted(set(flat) ^ set(declared))} do not match the manifest"
+            )
+        for k, v in flat.items():
+            if _leaf_sha256(v) != declared[k]:
+                raise ArtifactError(f"checksum mismatch for leaf {k!r}: artifact corrupted")
+
+        table = None
+        if doc.get("has_calib"):
+            try:
+                table = CalibrationTable.load(os.path.join(path, _CALIB))
+            except (OSError, json.JSONDecodeError, KeyError, TypeError) as e:
+                raise ArtifactError(f"calibration table unreadable: {e}") from e
+        report = None
+        if doc.get("report") is not None:
+            try:
+                report = ConversionReport.from_json(doc["report"])
+            except (TypeError, ValueError, KeyError) as e:
+                raise ArtifactError(f"malformed conversion report: {e}") from e
+        return cls(params, adapter, scheme, table=table, report=report)
+
+
+def load(path: str, *, device=None) -> QuantizedModel:
+    """Module-level alias for :meth:`QuantizedModel.load`."""
+    return QuantizedModel.load(path, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Artifact plumbing
+# ---------------------------------------------------------------------------
+def _leaf_sha256(v) -> str:
+    """SHA-256 of a leaf's raw bytes, as the JAX package hashes them (bfloat16:
+    its 2-byte values)."""
+    return hashlib.sha256(np.ascontiguousarray(leaf_to_numpy(v)).tobytes()).hexdigest()
+
+
+def _tree_to_json(tree: Any):
+    """Structure-only description of a params tree (for the manifest)."""
+    if isinstance(tree, Mapping):
+        return {"kind": "dict", "items": {str(k): _tree_to_json(v) for k, v in tree.items()}}
+    if isinstance(tree, (list, tuple)):
+        return {"kind": "tuple" if isinstance(tree, tuple) else "list",
+                "items": [_tree_to_json(v) for v in tree]}
+    if isinstance(tree, PackedWeight):
+        return {
+            "kind": "packed",
+            "fmt": tree.fmt_name,
+            "nibble": bool(tree.nibble),
+            "shape": list(tree.shape),
+            "source_shape": list(tree.source_shape) if tree.source_shape else None,
+            "act_scale": tree.act_scale,
+            "act_bits": tree.act_bits,
+        }
+    if hasattr(tree, "shape") and hasattr(tree, "dtype"):
+        return {"kind": "array", "shape": list(tree.shape), "dtype": _dtype_name(tree)}
+    raise TypeError(f"cannot serialize tree node of type {type(tree).__name__}")
+
+
+def _tree_from_json(doc) -> Any:
+    """The example tree (structure and PackedWeight fields) a manifest describes.
+
+    Leaf values are placeholders: the checkpoint manager restores the
+    stored arrays by key.
+    """
+    if not isinstance(doc, dict) or "kind" not in doc:
+        raise ValueError(f"malformed tree node {doc!r}")
+    kind = doc["kind"]
+    if kind == "dict":
+        return {k: _tree_from_json(v) for k, v in doc["items"].items()}
+    if kind in ("list", "tuple"):
+        items = [_tree_from_json(v) for v in doc["items"]]
+        return tuple(items) if kind == "tuple" else items
+    if kind == "packed":
+        return PackedWeight(
+            codes=torch.zeros(0, dtype=torch.uint8),
+            sf=torch.zeros(0),
+            fmt_name=str(doc["fmt"]),
+            nibble=bool(doc["nibble"]),
+            shape=tuple(int(v) for v in doc["shape"]),
+            source_shape=(
+                tuple(int(v) for v in doc["source_shape"]) if doc.get("source_shape") else None
+            ),
+            act_scale=doc.get("act_scale"),
+            act_bits=doc.get("act_bits"),
+        )
+    if kind == "array":
+        return torch.zeros(0)
+    raise ValueError(f"unknown tree node kind {kind!r}")

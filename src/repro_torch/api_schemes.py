@@ -3,7 +3,8 @@
 :class:`QuantScheme` is the JAX package's frozen description of one
 CoNLoCNN conversion (weight format, granularity, nibble packing,
 Algorithm 1, the activation policy and its calibration knobs, kernel
-blocks, the Sec. V search knobs), validated the same way.
+blocks, the Sec. V search knobs), validated the same way and written to
+an artifact's manifest in the same JSON.
 :class:`CnnAdapter` puts a :class:`~repro_torch.models.cnn.CnnSpec` and
 :class:`LmAdapter` a decoder-LM
 :class:`~repro_torch.configs.base.ArchConfig` behind the calls
@@ -14,7 +15,7 @@ blocks, the Sec. V search knobs), validated the same way.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, ClassVar
+from typing import Any, ClassVar, Mapping
 
 import torch
 
@@ -22,7 +23,7 @@ from repro_torch.calib.policy import CLIP_MODES, CalibrationTable
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.elp_bsd import ElpBsdFormat, resolve_format
 from repro_torch.kernels.ops import PackedWeight
-from repro_torch.models.cnn import CnnSpec
+from repro_torch.models.cnn import CnnSpec, Conv, Fc, Pool
 from repro_torch.runtime.quantized_params import ACT_SITE_BY_LEAF, QUANTIZABLE, quantize_stacked
 
 ACT_POLICIES = ("float", "dynamic", "static")
@@ -111,6 +112,22 @@ class QuantScheme:
             return None
         return self.act_bits if self.act_bits is not None else 8
 
+    def to_json(self) -> dict:
+        doc = dataclasses.asdict(self)
+        if isinstance(doc["block_sizes"], tuple):
+            doc["block_sizes"] = list(doc["block_sizes"])
+        return doc
+
+    @classmethod
+    def from_json(cls, doc: Mapping[str, Any]) -> "QuantScheme":
+        unknown = set(doc) - {f.name for f in dataclasses.fields(cls)}
+        if unknown:
+            raise ValueError(f"unknown QuantScheme fields {sorted(unknown)}")
+        kw = dict(doc)
+        if isinstance(kw.get("block_sizes"), list):
+            kw["block_sizes"] = tuple(kw["block_sizes"])
+        return cls(**kw)
+
 
 def pack_cnn_params(
     params: dict,
@@ -190,11 +207,45 @@ class CnnAdapter:
             nibble=scheme.nibble,
         )
 
+    def stamp_act(self, packed: dict, table: CalibrationTable) -> dict:
+        del table  # the table rides the QuantizedModel, not the packed leaves
+        return packed
+
     def generate(self, params, batch, max_new_tokens: int, **kw):
         raise NotImplementedError(
             "CNN models classify — use QuantizedModel.forward(images); "
             "generate() is the LM serve path"
         )
+
+    def model_json(self) -> dict:
+        layers = []
+        for layer in self.spec.layers:
+            if isinstance(layer, Conv):
+                layers.append(["conv", layer.ch, layer.k, layer.stride])
+            elif isinstance(layer, Pool):
+                layers.append(["pool", layer.k, layer.stride])
+            elif isinstance(layer, Fc):
+                layers.append(["fc", layer.out])
+            else:
+                raise TypeError(f"unknown CNN layer {layer!r}")
+        return {"name": self.spec.name, "input_hw": self.spec.input_hw,
+                "input_ch": self.spec.input_ch, "layers": layers}
+
+    @staticmethod
+    def model_from_json(doc: Mapping[str, Any]) -> CnnSpec:
+        layers = []
+        for rec in doc["layers"]:
+            tag = rec[0]
+            if tag == "conv":
+                layers.append(Conv(int(rec[1]), int(rec[2]), int(rec[3])))
+            elif tag == "pool":
+                layers.append(Pool(int(rec[1]), int(rec[2])))
+            elif tag == "fc":
+                layers.append(Fc(int(rec[1])))
+            else:
+                raise ValueError(f"unknown CNN layer tag {tag!r}")
+        return CnnSpec(name=str(doc["name"]), layers=tuple(layers),
+                       input_hw=int(doc["input_hw"]), input_ch=int(doc["input_ch"]))
 
 
 def _map_named(fn, tree, name=None):
@@ -351,6 +402,20 @@ class LmAdapter:
         setup = ServeSetup(cfg=self.cfg, mesh=None, max_len=max_len, batch=b)
         return static_generate(setup, params, batch, max_new_tokens, greedy=greedy,
                                generator=generator)
+
+    def model_json(self) -> dict:
+        doc = dataclasses.asdict(self.cfg)
+        doc["period"] = list(doc["period"])
+        return doc
+
+    @staticmethod
+    def model_from_json(doc: Mapping[str, Any]) -> ArchConfig:
+        unknown = set(doc) - {f.name for f in dataclasses.fields(ArchConfig)}
+        if unknown:
+            raise ValueError(f"unknown ArchConfig fields {sorted(unknown)}")
+        kw = dict(doc)
+        kw["period"] = tuple(kw.get("period", ()))
+        return ArchConfig(**kw)
 
 
 def as_adapter(model):

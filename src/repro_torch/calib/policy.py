@@ -11,6 +11,7 @@ one does not.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Mapping
 
 import torch
@@ -59,6 +60,42 @@ class CalibrationTable:
         if default is not None and default in names:
             return self.site(default)
         return None
+
+    def with_bits(self, bits: int) -> "CalibrationTable":
+        """The same scales at another bit-width (the CBW_A search sweeps these)."""
+        return dataclasses.replace(
+            self, sites=tuple((n, dataclasses.replace(s, bits=bits)) for n, s in self.sites)
+        )
+
+    def save(self, path: str) -> None:
+        """Write the table as JSON, in the JAX package's file format."""
+        payload = {
+            "clip": self.clip,
+            "pct": self.pct,
+            "rho_threshold": self.rho_threshold,
+            "sites": [
+                {"name": n, **{k: (list(v) if isinstance(v, tuple) else v)
+                               for k, v in dataclasses.asdict(s).items()}}
+                for n, s in self.sites
+            ],
+        }
+        with open(path, "w") as f:
+            json.dump(payload, f, indent=1)
+
+    @classmethod
+    def load(cls, path: str) -> "CalibrationTable":
+        """Read a table written by :meth:`save` (or by the JAX package)."""
+        with open(path) as f:
+            payload = json.load(f)
+        sites = []
+        for rec in payload["sites"]:
+            rec = dict(rec)
+            name = rec.pop("name")
+            if rec.get("err_mean") is not None:
+                rec["err_mean"] = tuple(rec["err_mean"])
+            sites.append((name, SiteCalibration(**rec)))
+        return cls(sites=tuple(sites), clip=payload["clip"], pct=payload["pct"],
+                   rho_threshold=payload["rho_threshold"])
 
 
 def build_table(

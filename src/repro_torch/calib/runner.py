@@ -11,6 +11,7 @@ activations is alive at a time.
 :func:`calibrate_cnn` and :func:`calibrate_lm` are the model front ends
 (stats pass, then the policy's scales and rho gates; for CNNs the bias
 fold); :func:`calibrate_kv_cache` gives an LM's static K/V cache scales.
+:func:`per_layer_output_mse` measures what a table costs a CNN, site by site.
 """
 from __future__ import annotations
 
@@ -160,3 +161,26 @@ def calibrate_kv_cache(
         return (amax.reshape(n_layers, n_kv) / qmax).astype(np.float32)
 
     return scales(stats["k_cache"]), scales(stats["v_cache"])
+
+
+def per_layer_output_mse(
+    params: dict, quant_params: dict, spec, x: torch.Tensor, table: CalibrationTable
+) -> dict[str, float]:
+    """Per-site MSE of the calibrated-quantized forward against the float run.
+
+    ``quant_params`` may be the bias-folded params: each tap site's error
+    reflects everything quantized upstream of it, so folding site N's
+    compensation shows at site N+1.
+    """
+    from repro_torch.models import cnn
+
+    def run(p, calib):
+        tc = TapCollector()
+        with torch.no_grad():
+            cnn.forward(p, spec, x, calib=calib, tap=tc)
+        return tc.acts
+
+    acts_fp = run(params, None)
+    acts_q = run(quant_params, table)
+    return {name: float(torch.mean(torch.square(acts_q[name] - acts_fp[name])))
+            for name in acts_fp}

@@ -15,12 +15,20 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.quantize import second_neighbor_idx
+from repro_torch.core.elp_bsd import ElpBsdFormat
+from repro_torch.core.quantize import (
+    QuantizedTensor,
+    _levels_tensor,
+    quantize_tensor,
+    second_neighbor_idx,
+)
 
 
-def compensate_groups(w: torch.Tensor, nn_idx: torch.Tensor, levels: np.ndarray) -> torch.Tensor:
+def compensate_groups(
+    w: torch.Tensor, nn_idx: torch.Tensor, levels: "np.ndarray | torch.Tensor"
+) -> torch.Tensor:
     """Algorithm 1 over ``w[G, N]`` groups. Returns level indices ``[G, N]``."""
-    lv = torch.as_tensor(np.asarray(levels, np.float32), device=w.device)
+    lv = _levels_tensor(levels, w.device)
     g, n = w.shape
     wf = w.to(torch.float32)
     q = lv[nn_idx.long()]
@@ -68,3 +76,48 @@ def _to_groups(
 def _from_groups(x: torch.Tensor, perm: tuple[int, ...], t_shape: tuple[int, ...]) -> torch.Tensor:
     inv = tuple(int(i) for i in np.argsort(perm))
     return x.reshape(t_shape).permute(inv)
+
+
+def compensate_tensor(
+    w: torch.Tensor, qt: QuantizedTensor, group_axes: Sequence[int]
+) -> QuantizedTensor:
+    """Algorithm 1 on a quantized tensor: a new :class:`QuantizedTensor` with flipped levels.
+
+    ``w`` is the raw weight, ``qt`` its nearest-neighbour quantization, and
+    ``group_axes`` the axes the mean error is compensated over: ``(0, 1)``
+    for a conv ``[H, W, Cin, Cout]`` (the paper's intra-channel case),
+    ``(0,)`` for a matmul ``[din, dout]``.
+    """
+    wg, perm, t_shape = _to_groups(w, group_axes)
+    ig, _, _ = _to_groups(qt.level_idx, group_axes)
+    new_idx = _from_groups(compensate_groups(wg, ig, qt.levels), perm, t_shape)
+    lv = _levels_tensor(qt.levels, w.device)
+    return QuantizedTensor(
+        values=lv[new_idx.long()].to(qt.values.dtype),
+        level_idx=new_idx.to(torch.int32).contiguous(),
+        sf=qt.sf,
+        levels=qt.levels,
+        fmt=qt.fmt,
+    )
+
+
+def compensated_quantize(
+    w: torch.Tensor, fmt: ElpBsdFormat, group_axes: Sequence[int]
+) -> QuantizedTensor:
+    """Sec. V steps 2-4 in one call: SF -> TQL -> nearest level -> Algorithm 1."""
+    return compensate_tensor(w, quantize_tensor(w, fmt), group_axes)
+
+
+def mean_error_report(
+    w: torch.Tensor,
+    qt_before: QuantizedTensor,
+    qt_after: QuantizedTensor,
+    group_axes: Sequence[int],
+) -> dict[str, float]:
+    """Mean |group-mean error| before and after compensation, and the reduction."""
+    out = {}
+    for tag, qt in (("before", qt_before), ("after", qt_after)):
+        eg, _, _ = _to_groups(qt.values - w, group_axes)
+        out[tag] = float(torch.mean(torch.abs(torch.mean(eg, dim=1))))
+    out["reduction"] = 1.0 - out["after"] / max(out["before"], 1e-30)
+    return out

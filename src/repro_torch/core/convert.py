@@ -11,7 +11,8 @@ weights ``[..., K, N]`` and conv weights ``[H, W, Cin, Cout]`` alike.
   contracting dim ``(-2,)`` for matmuls, the spatial dims ``(0, 1)`` for
   convs. Groups must lie inside one scale cell.
 
-``nibble_pack`` emits 4-bit codes two per byte along K.
+``nibble_pack`` emits 4-bit codes two per byte along K; ``bitpack`` the
+dense host-side layout at ``bits_per_weight`` (Table II's storage).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.compensate import _from_groups, _to_groups, compensate_groups
-from repro_torch.core.elp_bsd import ElpBsdFormat, resolve_format
+from repro_torch.core.elp_bsd import ElpBsdFormat, pack_codes, resolve_format
 from repro_torch.core.quantize import nn_quantize_idx
 
 GRANULARITIES = ("per_tensor", "per_slice", "per_channel")
@@ -128,3 +129,8 @@ def nibble_pack(codes: torch.Tensor, axis: int = -2) -> torch.Tensor:
     if c.shape[0] % 2:
         c = torch.cat([c, torch.zeros_like(c[:1])])
     return (c[0::2] | (c[1::2] << 4)).movedim(0, axis).contiguous()
+
+
+def bitpack(ct: ConvertedTensor) -> np.ndarray:
+    """Dense host-side bit-packing of a converted tensor's codes at ``bits_per_weight``."""
+    return pack_codes(ct.codes().cpu().numpy(), ct.fmt)

@@ -29,8 +29,11 @@ __all__ = [
     "PRESET_FORMATS",
     "FORMAT_ALIASES",
     "decode_codes",
+    "encode_to_codes",
+    "pack_codes",
     "resolve_format",
     "storage_bytes",
+    "unpack_codes",
 ]
 
 
@@ -192,6 +195,42 @@ def decode_codes(codes: np.ndarray, fmt: ElpBsdFormat) -> np.ndarray:
         sign = np.where((field >> ibits) & 1, -1.0, 1.0) if sbits else 1.0
         out = out + sign * np.exp2(tab[idx].astype(np.float64))
     return out
+
+
+def encode_to_codes(levels_idx: np.ndarray, fmt: ElpBsdFormat) -> np.ndarray:
+    """Level indices (into ``fmt.levels()``) -> raw bit codes."""
+    return fmt.level_codes()[levels_idx]
+
+
+def pack_codes(codes: np.ndarray, fmt: ElpBsdFormat) -> np.ndarray:
+    """Bit-pack raw codes into a flat uint8 buffer (the storage format).
+
+    Weights lie contiguously at ``fmt.bits_per_weight`` bits each,
+    LSB-first, the final byte zero-padded: the layout whose byte count
+    Table II's accounting credits.
+    """
+    bits = fmt.bits_per_weight
+    codes = np.asarray(codes, dtype=np.uint64).reshape(-1)
+    buf = np.zeros((bits * codes.size + 7) // 8, dtype=np.uint8)
+    positions = np.arange(codes.size, dtype=np.uint64) * bits
+    for b in range(bits):
+        bitvals = ((codes >> np.uint64(b)) & np.uint64(1)).astype(np.uint8)
+        pos = positions + b
+        np.bitwise_or.at(buf, (pos // 8).astype(np.int64), bitvals << (pos % 8).astype(np.uint8))
+    return buf
+
+
+def unpack_codes(buf: np.ndarray, n: int, fmt: ElpBsdFormat) -> np.ndarray:
+    """Inverse of :func:`pack_codes`: the first ``n`` raw codes (int64)."""
+    bits = fmt.bits_per_weight
+    buf = np.asarray(buf, dtype=np.uint8)
+    positions = np.arange(n, dtype=np.int64) * bits
+    out = np.zeros(n, dtype=np.uint64)
+    for b in range(bits):
+        pos = positions + b
+        bitvals = (buf[pos // 8] >> (pos % 8).astype(np.uint8)) & np.uint8(1)
+        out |= bitvals.astype(np.uint64) << np.uint64(b)
+    return out.astype(np.int64)
 
 
 def storage_bytes(n_weights: int, fmt: ElpBsdFormat) -> int:

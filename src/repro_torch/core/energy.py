@@ -3,7 +3,7 @@
 Network energy = MACs x PDP(format, activation bits) + a DRAM term per
 weight byte streamed. PDP between the two published activation widths
 (5 and 8 bits) is linearly interpolated. A copy of the JAX package's
-``core/energy.py`` for the conversion report.
+``core/energy.py`` for the conversion report and Fig. 15(b).
 """
 from __future__ import annotations
 
@@ -66,3 +66,8 @@ def network_energy_nj(
         "memory_nj": memory_nj,
         "total_nj": compute_nj + memory_nj,
     }
+
+
+def pdp_reduction(fmt_name: str, act_bits: int, baseline: str = "conventional_fp") -> float:
+    """Fractional PDP reduction against a Table II baseline (the paper's headline)."""
+    return 1.0 - pdp_fj(fmt_name, act_bits) / pdp_fj(baseline, 8)

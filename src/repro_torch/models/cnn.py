@@ -214,3 +214,24 @@ def forward(
                     x = q(torch.relu(x), f"fc{idx - 1}")
     return x
 
+
+def weight_group_axes(params: dict) -> dict[str, tuple[int, ...]]:
+    """Algorithm 1 groups per weight (paper Sec. III-B.4): the spatial dims of
+    a conv, the contracting rows of an fc layer."""
+    return {
+        name: (0, 1) if name.startswith("conv") else (0,)
+        for name in params
+        if not name.endswith("_b")
+    }
+
+
+def loss_fn(params: dict, spec: CnnSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean cross entropy of the float forward: logsumexp minus the gold logit."""
+    logits = forward(params, spec, x)
+    gold = torch.gather(logits, 1, y.long()[:, None])[:, 0]
+    return torch.mean(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def accuracy(params: dict, spec: CnnSpec, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Top-1 accuracy of the forward on one batch (a float32 scalar)."""
+    return torch.mean((torch.argmax(forward(params, spec, x), -1) == y).to(torch.float32))

@@ -656,3 +656,72 @@ def test_bf16x3_routes_raise_on_bad_inputs(cuda):
     for name in ("elp_bsd_matmul_wgmma", "fused_decode_wgmma"):
         with pytest.raises(TypeError, match="float32 or float16"):
             launch_wgmma(x.to(torch.bfloat16), codes, sf, fmt, True, name=name, route="bf16x3")
+
+
+# ---------------------------------------------------------------------------
+# The Sec. V search, the Fig. 15(b) eval and the artifact on the card
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def trained_minis():
+    """Both mini CNNs after 100 steps of the port's trainer on the card, on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.experiments import common
+
+    return {name: {k: v.cpu() for k, v in common.train_mini_cnn(
+        getattr(cnn, name), steps=100, cache=False).items()}
+        for name in ("ALEXNET_MINI", "VGG_MINI")}
+
+
+@pytest.mark.parametrize("spec_name", ["ALEXNET_MINI", "VGG_MINI"])
+@pytest.mark.parametrize("fmt_name", sorted(PRESET_FORMATS))
+def test_packed_mini_eval_on_kernels_matches_plain(cuda, trained_minis, spec_name, fmt_name):
+    """Fig. 15(b)'s packed eval (batches of 128: convs on the tiled kernel, fc on
+    the decode-step kernel, both bf16x3) against the same packed model on the
+    CPU (plain versions): logits within 1e-4 * max |logit| with float
+    activations, accuracy within 0.01 (the search's ``ac``) at 8 and 4 bits."""
+    from repro_torch.experiments import common
+
+    spec = getattr(cnn, spec_name)
+    q_cpu = api.quantize(spec, trained_minis[spec_name], api.QuantScheme(fmt=fmt_name),
+                         device="cpu")
+    q_gpu = q_cpu.to(cuda)
+    x, _ = common.CnnDataset(32, 3, 10, 128).np_batch(10_000)
+    n_conv = sum(isinstance(l, cnn.Conv) for l in spec.layers)
+    n_fc = sum(isinstance(l, cnn.Fc) for l in spec.layers)
+    before = (dict(elp_bsd_matmul.launches_by_route), dict(fused_decode_matmul.launches_by_route))
+    got = q_gpu.forward(x).cpu()
+    torch.cuda.synchronize()
+    assert elp_bsd_matmul.launches_by_route == {**before[0],
+                                                "bf16x3": before[0]["bf16x3"] + n_conv}
+    assert fused_decode_matmul.launches_by_route == {**before[1],
+                                                     "bf16x3": before[1]["bf16x3"] + n_fc}
+    want = q_cpu.forward(x)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    eval_cpu = common.make_eval_fn(spec, device="cpu")
+    eval_gpu = common.make_eval_fn(spec)
+    for bits in (8, 4):
+        assert abs(eval_gpu(q_gpu.params, bits) - eval_cpu(q_cpu.params, bits)) <= 0.01, bits
+
+
+def test_search_and_artifact_on_card_match_cpu(cuda, trained_minis, tmp_path):
+    """``api.quantize(..., eval_fn=...)`` on the card picks the CPU's CBW_A with the
+    same codes; the saved artifact reloads on the card with a bit-identical forward."""
+    from repro_torch.experiments import common
+
+    spec = cnn.ALEXNET_MINI
+    scheme = api.QuantScheme(fmt="elp_bsd_a4", act="dynamic", ac=0.01, bw_max=8, bw_min=4)
+    q_cpu = api.quantize(spec, trained_minis["ALEXNET_MINI"], scheme,
+                         eval_fn=common.make_eval_fn(spec, device="cpu"), device="cpu")
+    q_gpu = api.quantize(spec, trained_minis["ALEXNET_MINI"], scheme,
+                         eval_fn=common.make_eval_fn(spec))
+    assert q_gpu.report.act_bits == q_cpu.report.act_bits
+    for k, v in q_cpu.params.items():
+        if isinstance(v, ops.PackedWeight):
+            assert torch.equal(v.codes, q_gpu.params[k].codes.cpu()), k
+    x, _ = common.CnnDataset(32, 3, 10, 128).np_batch(3)
+    first = q_gpu.forward(x)
+    q_gpu.save(str(tmp_path / "art"))
+    back = api.load(str(tmp_path / "art"))
+    assert back.device.type == "cuda" and back.report == q_gpu.report
+    assert torch.equal(back.forward(x), first)

@@ -98,3 +98,22 @@ def jax_pack_lm(jparams, jcfg, fmt="elp_bsd_a4", *, compensate=True, calib=None)
 
     return jax.jit(lambda p: pack_lm_params(p, jcfg, fmt, compensate=compensate,
                                             calib=calib))(jparams)
+
+
+# ---------------------------------------------------------------------------
+# Trained mini CNNs (the Sec. V search and the Fig. 15 experiments)
+# ---------------------------------------------------------------------------
+def jax_trained_mini(spec_name: str, steps: int, results_dir) -> dict:
+    """The JAX package's ``benchmarks.common.train_mini_cnn`` at ``steps`` (its seed
+    and lr), cached under ``results_dir`` instead of ``benchmarks/results``;
+    numpy params."""
+    from benchmarks import common
+    from repro.models import cnn as jcnn
+
+    saved = common.RESULTS
+    common.RESULTS = str(results_dir)
+    try:
+        params = common.train_mini_cnn(getattr(jcnn, spec_name), steps=steps)
+    finally:
+        common.RESULTS = saved
+    return {k: np.asarray(v) for k, v in params.items()}
