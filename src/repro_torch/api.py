@@ -24,21 +24,24 @@
     qm = api.quantize(cfg, params, api.QuantScheme(fmt="elp4", act="static"),
                       calib_data=token_batches)             # [n, B, S]
     new_tokens = qm.generate(prompts, 16)                   # [B, S] -> [B, 16]
+    outs = qm.serve([(prompt, 16) for prompt in prompts], n_slots=8)  # continuous batching
 
 ``quantize`` calibrates (observers, percentile clipping; for CNNs the
 rho-gated fold of ``W @ E[eps]`` into biases), packs (SF -> TQL ->
 nearest level -> Algorithm 1 -> ELP_BSD codes, nibble-packed for 4-bit;
 an LM per stacked layer slice) and, given an ``eval_fn``, runs the Sec. V
-accuracy-constraint search. :class:`QuantizedModel` saves to and loads
-from an artifact directory in the JAX package's layout (either package
-reads the other's), with a SHA-256 checksum per leaf; a corrupted or
-incomplete artifact raises :class:`ArtifactError`. Entry points run on
-the card unless the caller passes ``device="cpu"``; with no card and no
-explicit CPU request they raise.
+accuracy-constraint search. A speculative scheme
+(:meth:`QuantScheme.speculative`) also builds the verify tier that checks
+the draft tier's tokens at serve time. :class:`QuantizedModel` saves to
+and loads from an artifact directory in the JAX package's layout (either
+package reads the other's, the speculative ``verify_params/`` tier
+included), with a SHA-256 checksum per leaf; a corrupted or incomplete
+artifact raises :class:`ArtifactError`. Entry points run on the card
+unless the caller passes ``device="cpu"``; with no card and no explicit
+CPU request they raise.
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md, queue 1):
-speculative schemes, ``serve`` (the continuous-batching engine) and
-``block_sizes="auto"`` (no autotune cache).
+Not ported yet: ``block_sizes="auto"`` (no autotune cache; ROADMAP.md,
+queue 1 item 7) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ import dataclasses
 import hashlib
 import json
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -86,6 +90,7 @@ ARTIFACT_VERSION = 1
 _MANIFEST = "manifest.json"
 _CALIB = "calib.json"
 _PARAMS_DIR = "params"
+_VERIFY_DIR = "verify_params"
 
 
 class ArtifactError(ValueError):
@@ -200,8 +205,6 @@ def quantize(
     """
     adapter = as_adapter(model)
     scheme = scheme if scheme is not None else QuantScheme()
-    if scheme.spec_k:
-        raise NotImplementedError(f"speculative schemes (the LM serve path) are {NOT_PORTED}")
     if scheme.block_sizes == "auto":
         raise NotImplementedError(f'block_sizes="auto" (the autotune cache) is {NOT_PORTED}')
     device = resolve_device(device)
@@ -215,6 +218,21 @@ def quantize(
             raise ValueError('scheme.act == "static" needs calib_data (stacked calibration batches)')
         table, work = adapter.calibrate(params, _to_device(calib_data, device), scheme)
     packed = adapter.pack(work, scheme, table)
+
+    # A speculative scheme packs a SECOND tier of the same checkpoint: the
+    # verify tier ("float": the float tree itself) that the serve engine uses
+    # to check the low-bit draft's tokens. The report stays about the draft.
+    verify_params = None
+    if scheme.spec_k:
+        if adapter.kind != "lm":
+            raise ValueError("speculative schemes (spec_verify/spec_k) are an LM serving "
+                             "feature; CNN models classify in one forward")
+        if scheme.spec_verify == "float":
+            verify_params = work
+        else:
+            vscheme = dataclasses.replace(scheme, fmt=scheme.spec_verify, spec_verify=None,
+                                          spec_k=0)
+            verify_params = adapter.pack(work, vscheme, table)
 
     baseline_acc: float | None = None
     accuracy: float | None = None
@@ -259,11 +277,17 @@ def quantize(
             adapter.spec.macs(), encoded_bytes, scheme.format.name, act_bits or 8
         )["total_nj"] if adapter.kind == "cnn" else None,
     )
-    return QuantizedModel(packed, adapter, scheme, table=table, report=report)
+    return QuantizedModel(packed, adapter, scheme, table=table, report=report,
+                          verify_params=verify_params)
 
 
 class QuantizedModel:
-    """The artifact of a conversion: packed params plus what serves them."""
+    """The artifact of a conversion: packed params plus what serves them.
+
+    ``verify_params`` (speculative schemes only) is the second tier of the
+    same checkpoint, float or a wider ELP format: it checks the draft
+    tier's tokens at serve time and defines the output.
+    """
 
     def __init__(
         self,
@@ -273,12 +297,14 @@ class QuantizedModel:
         *,
         table: CalibrationTable | None = None,
         report: ConversionReport | None = None,
+        verify_params: dict | None = None,
     ):
         self.params = params
         self.adapter = adapter
         self.scheme = scheme
         self.table = table
         self.report = report
+        self.verify_params = verify_params
 
     @property
     def device(self) -> torch.device:
@@ -288,8 +314,10 @@ class QuantizedModel:
     def to(self, device) -> "QuantizedModel":
         """The same artifact with its tensors on ``device``."""
         device = resolve_device(device)
+        verify = (None if self.verify_params is None
+                  else _tree_to_device(self.verify_params, device))
         return QuantizedModel(_tree_to_device(self.params, device), self.adapter, self.scheme,
-                              table=self.table, report=self.report)
+                              table=self.table, report=self.report, verify_params=verify)
 
     def forward(self, x, *, impl: str | None = None, block_sizes=None) -> torch.Tensor:
         """Images ``[B, H, W, C]`` -> logits (CNN), tokens ``[B, S]`` -> last logits (LM).
@@ -327,40 +355,71 @@ class QuantizedModel:
                  max_len: int | None = None) -> torch.Tensor:
         """LM generation on the packed weights: prompts ``[B, S]`` -> new tokens ``[B, n]``.
 
-        Runs :func:`repro_torch.serve.engine.static_generate`: a whole-batch
-        prefill (prefill matmuls on the tiled kernel, attention on the flash
-        kernel), then lockstep decode steps (matmuls on the decode-step
-        kernel). The JAX package routes greedy keyless calls to its
-        continuous-batching ``ServeEngine``, which its own tests hold
-        token-identical to ``static_generate``; until the engine is ported
-        every call takes the static loop. Sampling (``greedy=False``) draws
-        from ``generator``. ``max_len`` is the cache length (default: prompt
-        plus new tokens).
+        Routes through :func:`repro_torch.serve.engine.batch_generate`, as the
+        JAX package does: greedy calls run on the continuous-batching
+        :class:`~repro_torch.serve.engine.ServeEngine` (one slot per row);
+        sampled calls (``greedy=False`` with a ``generator``) keep the static
+        lockstep loop. Either way the block matmuls consume the codes (on the
+        card the decode-step kernel at <= 256 rows, the tiled kernel above;
+        a dense prefill's attention on the flash kernel). Speculative
+        artifacts decode speculatively: the draft tier proposes, the verify
+        tier checks and defines the output. ``max_len`` is the cache length
+        (default: prompt plus new tokens).
         """
         if self.adapter.kind != "lm":
             return self.adapter.generate(self.params, batch, max_new_tokens)  # raises
-        if self.scheme.spec_k:
-            raise NotImplementedError(f"speculative decoding is {NOT_PORTED}")
         if isinstance(batch, dict):
             batch = {k: _to_device(v, self.device) for k, v in batch.items()}
         else:
             batch = _to_device(batch, self.device)
+        if self.scheme.spec_k:
+            return self.adapter.generate(
+                self.verify_params, batch, max_new_tokens, greedy=greedy, generator=generator,
+                max_len=max_len,
+                draft_params=self.params if self.scheme.spec_draft == "model" else None,
+                spec_k=self.scheme.spec_k, spec_draft=self.scheme.spec_draft)
         return self.adapter.generate(self.params, batch, max_new_tokens, greedy=greedy,
                                      generator=generator, max_len=max_len)
 
-    def serve(self, *args, **kwargs):
-        raise NotImplementedError(f"continuous-batching LM serving (ServeEngine) is {NOT_PORTED}")
+    def serve(self, requests, *, n_slots: int = 4, max_len: int | None = None, mesh="auto",
+              flash_decode: bool = False, metrics=None, trace=None) -> list:
+        """Continuous-batching LM serving on the packed weights.
+
+        ``requests`` is an iterable of ``(prompt_tokens, max_new_tokens)``
+        pairs, prompts of any lengths (nothing is padded to a batch
+        maximum). They are admitted into ``n_slots`` cache slots of one
+        :class:`~repro_torch.serve.engine.ServeEngine` and the generated
+        tokens come back as int32 numpy arrays in request order. ``max_len``
+        is the per-slot cache capacity (default: the largest
+        ``len(prompt) + max_new``). Speculative artifacts serve draft/verify
+        rounds, token-identical to serving the verify tier alone.
+        ``metrics``/``trace`` (an obs ``Registry`` / ``TraceLog``) turn on
+        the engine's instrumentation. ``mesh`` is ``"auto"`` or None (one
+        card); ``flash_decode`` is not ported. The paged cache and int8 K/V
+        are :class:`~repro_torch.serve.engine.ServeEngine` options, as in the
+        JAX package.
+        """
+        kw = dict(n_slots=n_slots, max_len=max_len, mesh=mesh, flash_decode=flash_decode,
+                  metrics=metrics, trace=trace)
+        if self.scheme.spec_k:
+            return self.adapter.serve(
+                self.verify_params, requests,
+                draft_params=self.params if self.scheme.spec_draft == "model" else None,
+                spec_k=self.scheme.spec_k, spec_draft=self.scheme.spec_draft, **kw)
+        return self.adapter.serve(self.params, requests, **kw)
 
     def save(self, path: str) -> None:
         """Write the artifact directory, the manifest last (atomically).
 
         Layout, as the JAX package writes it: ``manifest.json`` (model,
         scheme, report, tree structure and a SHA-256 checksum per leaf),
-        ``params/`` (a checkpoint-manager step holding the packed tree) and
-        ``calib.json`` (the calibration table of a static scheme).
+        ``params/`` (a checkpoint-manager step holding the packed tree),
+        ``calib.json`` (the calibration table of a static scheme) and
+        ``verify_params/`` (the speculative verify tier, whose structure and
+        checksums ride the manifest as ``verify_tree``/``verify_checksums``).
         """
         os.makedirs(path, exist_ok=True)
-        checks = {k: _leaf_sha256(v) for k, v in _flatten(self.params).items()}
+        checks = _checksums(self.params)
         CheckpointManager(os.path.join(path, _PARAMS_DIR), keep=1).save(0, self.params)
         if self.table is not None:
             self.table.save(os.path.join(path, _CALIB))
@@ -374,6 +433,10 @@ class QuantizedModel:
             "checksums": checks,
             "has_calib": self.table is not None,
         }
+        if self.verify_params is not None:
+            manifest["verify_tree"] = _tree_to_json(self.verify_params)
+            manifest["verify_checksums"] = _checksums(self.verify_params)
+            CheckpointManager(os.path.join(path, _VERIFY_DIR), keep=1).save(0, self.verify_params)
         tmp = os.path.join(path, _MANIFEST + ".tmp")
         with open(tmp, "w") as f:
             json.dump(manifest, f, indent=1)
@@ -385,9 +448,8 @@ class QuantizedModel:
 
         A missing file, a schema mismatch, an undeclared or missing leaf or
         a checksum failure raises :class:`ArtifactError`: a partly written
-        or bit-flipped artifact never serves. A speculative scheme raises
-        :class:`ArtifactError` without its verify tier and
-        ``NotImplementedError`` with it (speculative serving is not ported).
+        or bit-flipped artifact never serves. A speculative scheme without
+        its verify tier raises too (serving it would emit draft-tier tokens).
         """
         device = resolve_device(device)
         mf = os.path.join(path, _MANIFEST)
@@ -416,31 +478,23 @@ class QuantizedModel:
             example = _tree_from_json(doc["tree"])
         except (TypeError, ValueError, KeyError) as e:
             raise ArtifactError(f"malformed artifact manifest: {e}") from e
+        verify_example = None
         if scheme.spec_k:
             if "verify_tree" not in doc or "verify_checksums" not in doc:
                 raise ArtifactError(
                     "artifact's scheme is speculative but the manifest has no verify tier "
                     "(verify_tree/verify_checksums): incomplete save"
                 )
-            raise NotImplementedError(
-                "speculative artifacts (a draft and a verify tier) are not ported to "
-                "repro_torch yet; see ROADMAP.md, queue 1 item 4 (the serving engine)"
-            )
+            try:
+                verify_example = _tree_from_json(doc["verify_tree"])
+            except (TypeError, ValueError, KeyError) as e:
+                raise ArtifactError(f"malformed verify tree: {e}") from e
 
-        restored = CheckpointManager(os.path.join(path, _PARAMS_DIR), keep=0).restore_latest(
-            example, device=device)
-        if restored is None:
-            raise ArtifactError(f"params checkpoint under {path!r} is missing or unreadable")
-        _, params = restored
-        flat = _flatten(params)
-        declared = doc["checksums"]
-        if set(flat) != set(declared):
-            raise ArtifactError(
-                f"artifact leaves {sorted(set(flat) ^ set(declared))} do not match the manifest"
-            )
-        for k, v in flat.items():
-            if _leaf_sha256(v) != declared[k]:
-                raise ArtifactError(f"checksum mismatch for leaf {k!r}: artifact corrupted")
+        params = _restore_checked(path, example, doc["checksums"], device)
+        verify_params = None
+        if verify_example is not None:
+            verify_params = _restore_checked(path, verify_example, doc["verify_checksums"],
+                                             device, verify=True)
 
         table = None
         if doc.get("has_calib"):
@@ -454,7 +508,8 @@ class QuantizedModel:
                 report = ConversionReport.from_json(doc["report"])
             except (TypeError, ValueError, KeyError) as e:
                 raise ArtifactError(f"malformed conversion report: {e}") from e
-        return cls(params, adapter, scheme, table=table, report=report)
+        return cls(params, adapter, scheme, table=table, report=report,
+                   verify_params=verify_params)
 
 
 def load(path: str, *, device=None) -> QuantizedModel:
@@ -465,10 +520,41 @@ def load(path: str, *, device=None) -> QuantizedModel:
 # ---------------------------------------------------------------------------
 # Artifact plumbing
 # ---------------------------------------------------------------------------
+def _restore_checked(path: str, example, declared: dict, device, *, verify: bool = False):
+    """The params (or, with ``verify``, the verify-tier) tree of the artifact at
+    ``path``, its leaves held to the manifest's SHA-256 checksums;
+    :class:`ArtifactError` otherwise."""
+    directory = os.path.join(path, _VERIFY_DIR if verify else _PARAMS_DIR)
+    restored = CheckpointManager(directory, keep=0).restore_latest(example, device=device)
+    if restored is None:
+        what = "verify-tier" if verify else "params"
+        raise ArtifactError(f"{what} checkpoint under {path!r} is missing or unreadable")
+    _, tree = restored
+    flat = _flatten(tree)
+    if set(flat) != set(declared):
+        what = "verify-tier" if verify else "artifact"
+        raise ArtifactError(
+            f"{what} leaves {sorted(set(flat) ^ set(declared))} do not match the manifest"
+        )
+    for k, digest in _checksums(tree).items():
+        if digest != declared[k]:
+            what = "verify leaf" if verify else "leaf"
+            raise ArtifactError(f"checksum mismatch for {what} {k!r}: artifact corrupted")
+    return tree
+
+
+def _checksums(tree) -> dict[str, str]:
+    """Each leaf's :func:`_leaf_sha256` by checkpoint key, hashed on a few threads
+    (the device copy and SHA-256 release the GIL; an LM tree is gigabytes)."""
+    flat = _flatten(tree)
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        return dict(zip(flat, pool.map(_leaf_sha256, flat.values())))
+
+
 def _leaf_sha256(v) -> str:
     """SHA-256 of a leaf's raw bytes, as the JAX package hashes them (bfloat16:
     its 2-byte values)."""
-    return hashlib.sha256(np.ascontiguousarray(leaf_to_numpy(v)).tobytes()).hexdigest()
+    return hashlib.sha256(np.ascontiguousarray(leaf_to_numpy(v))).hexdigest()
 
 
 def _tree_to_json(tree: Any):

@@ -39,8 +39,9 @@ class QuantScheme:
     ``fmt`` is a preset name, an alias or an :class:`ElpBsdFormat`;
     ``act`` is ``"float"``, ``"dynamic"`` or ``"static"`` (calibrated
     scales, needs ``calib_data``); ``block_sizes`` is None or a
-    ``(block_m, block_n, block_k)`` tuple. The speculative fields are
-    validated, but speculative decoding is not ported yet.
+    ``(block_m, block_n, block_k)`` tuple. ``spec_verify``/``spec_k``/
+    ``spec_draft`` make the scheme speculative
+    (:meth:`speculative`): ``quantize`` then also builds the verify tier.
     """
 
     fmt: str = "elp_bsd_a4"
@@ -101,6 +102,20 @@ class QuantScheme:
             raise ValueError(
                 f"need 2 <= bw_min <= bw_max, got bw_min={self.bw_min} bw_max={self.bw_max}"
             )
+
+    @classmethod
+    def speculative(cls, draft: str = "elp_bsd_a4", K: int = 4, verify: str = "float",
+                    drafter: str = "model", **kw) -> "QuantScheme":
+        """A self-speculative serving scheme.
+
+        ``draft`` is the scheme's ``fmt``, the low-bit tier that drafts
+        ``K - 1`` tokens a round; ``verify`` (``"float"`` or a wider ELP
+        format) checks each run in one ``K``-wide forward and defines the
+        served output. ``drafter`` is the draft source (``"model"``: the
+        ``fmt`` tier decodes the drafts; ``"ngram"``: token-recycling lookup,
+        no draft forwards). Any other field passes through ``**kw``.
+        """
+        return cls(fmt=draft, spec_verify=verify, spec_k=int(K), spec_draft=drafter, **kw)
 
     @property
     def format(self) -> ElpBsdFormat:
@@ -215,6 +230,12 @@ class CnnAdapter:
         raise NotImplementedError(
             "CNN models classify — use QuantizedModel.forward(images); "
             "generate() is the LM serve path"
+        )
+
+    def serve(self, params, requests, **kw):
+        raise NotImplementedError(
+            "CNN models classify — use QuantizedModel.forward(images); "
+            "serve() is the LM continuous-batching path"
         )
 
     def model_json(self) -> dict:
@@ -385,23 +406,42 @@ class LmAdapter:
         return stamp_lm_act(packed, table)
 
     def generate(self, params, batch, max_new_tokens: int, *, greedy: bool = True,
-                 generator=None, max_len: int | None = None):
-        """Lockstep generation through :func:`repro_torch.serve.engine.static_generate`.
+                 generator=None, max_len: int | None = None, draft_params: Any = None,
+                 spec_k: int = 0, spec_draft: str = "model"):
+        """Generation through :func:`repro_torch.serve.engine.batch_generate`:
+        greedy calls on the continuous-batching engine, sampled ones on the
+        static loop."""
+        from repro_torch.serve.engine import batch_generate
 
-        The JAX package sends greedy keyless calls to its continuous-batching
-        ``ServeEngine``, which its own tests hold token-identical to
-        ``static_generate``; until the engine is ported (ROADMAP.md, queue 1
-        item 6) every call takes the static loop.
+        return batch_generate(self.cfg, params, self._batch(batch), max_new_tokens,
+                              max_len=max_len, greedy=greedy, generator=generator,
+                              draft_params=draft_params, spec_k=spec_k, spec_draft=spec_draft)
+
+    def serve(self, params, requests, *, n_slots: int = 4, max_len: int | None = None,
+              mesh="auto", flash_decode: bool = False, draft_params: Any = None,
+              spec_k: int = 0, spec_draft: str = "model", metrics: Any = None,
+              trace: Any = None) -> list:
+        """Continuous-batching serving through :class:`repro_torch.serve.engine.ServeEngine`.
+
+        ``spec_k`` turns on speculative decoding: ``params`` is then the
+        verify tier (it defines the output), drafted against by
+        ``draft_params`` (``spec_draft="model"``) or the engine's token
+        history (``"ngram"``).
         """
-        from repro_torch.serve.engine import ServeSetup, static_generate
+        import numpy as np
 
-        batch = self._batch(batch)
-        b, s = batch["tokens"].shape
+        from repro_torch.serve.engine import ServeEngine
+
+        reqs = [(np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t, np.int32).reshape(-1),
+                 int(n)) for t, n in requests]
+        if not reqs:
+            return []
         if max_len is None:
-            max_len = s + max_new_tokens + (self.cfg.frontend_tokens or 0)
-        setup = ServeSetup(cfg=self.cfg, mesh=None, max_len=max_len, batch=b)
-        return static_generate(setup, params, batch, max_new_tokens, greedy=greedy,
-                               generator=generator)
+            max_len = max(t.size + n for t, n in reqs)
+        eng = ServeEngine(self.cfg, params, n_slots=min(n_slots, len(reqs)), max_len=max_len,
+                          mesh=mesh, flash_decode=flash_decode, draft_params=draft_params,
+                          spec_k=spec_k, spec_draft=spec_draft, metrics=metrics, trace=trace)
+        return eng.serve(reqs)
 
     def model_json(self) -> dict:
         doc = dataclasses.asdict(self.cfg)

@@ -11,7 +11,9 @@ activations is alive at a time.
 :func:`calibrate_cnn` and :func:`calibrate_lm` are the model front ends
 (stats pass, then the policy's scales and rho gates; for CNNs the bias
 fold); :func:`calibrate_kv_cache` gives an LM's static K/V cache scales.
-:func:`per_layer_output_mse` measures what a table costs a CNN, site by site.
+:func:`per_layer_output_mse` measures what a table costs a CNN, site by site,
+and :func:`count_range_reductions` checks the zero range-reduction contract
+(DESIGN.md §6) on any forward.
 """
 from __future__ import annotations
 
@@ -184,3 +186,41 @@ def per_layer_output_mse(
     acts_q = run(quant_params, table)
     return {name: float(torch.mean(torch.square(acts_q[name] - acts_fp[name])))
             for name in acts_fp}
+
+
+# The ATen reductions that take a runtime range (max |x| and the like). The
+# elementwise overloads of max/min (``maximum``'s "other" and its out form)
+# are not reductions.
+_RANGE_OPS = ("amax", "amin", "aminmax", "max", "min")
+_ELEMENTWISE_OVERLOADS = ("other", "out")
+
+
+def count_range_reductions(fn: Callable, *args, **kwargs) -> int:
+    """Number of range reductions the call ``fn(*args, **kwargs)`` dispatches.
+
+    The acceptance gauge of static activation quantization (DESIGN.md §6):
+    a dynamic ``max|x|`` is an ``amax``/``amin``/``aminmax`` or a reducing
+    ``max``/``min`` ATen op, counted here by a
+    ``TorchDispatchMode`` as the call runs; model ops are not (max-pool is
+    ``max_pool2d``, relu and clamps elementwise, softmax one fused op), so
+    a calibrated forward counts zero. The JAX package counts ``reduce_max``
+    in the jaxpr instead. Custom kernels launched outside ATen (the CUDA
+    matmuls) are not seen; their inputs' quantization is.
+    """
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Counter(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if (func.overloadpacket.__name__ in _RANGE_OPS
+                    and func._overloadname not in _ELEMENTWISE_OVERLOADS):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    counter = _Counter()
+    with torch.no_grad(), counter:
+        fn(*args, **kwargs)
+    return counter.n

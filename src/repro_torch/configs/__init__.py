@@ -3,7 +3,7 @@
 Each architecture lives in its own module exporting ``CONFIG``, as in the
 JAX package. Only the decoder-LM configs the port serves are here; the
 rest of the JAX package's registry follows with their families
-(ROADMAP.md, queue 1 item 7).
+(ROADMAP.md, queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in ARCH_IDS:
         raise NotImplementedError(
             f"config {arch_id!r} is not ported to repro_torch yet (ported: {ARCH_IDS}); "
-            "see ROADMAP.md (queue 1 item 7)"
+            "see ROADMAP.md (queue 1 item 5)"
         )
     return importlib.import_module(f"repro_torch.configs.{arch_id}").CONFIG
 

@@ -52,8 +52,10 @@
 // Every decoded weight is exact in bf16, and x = hi + mid + lo exactly with
 // each term a bf16 holding 8 of x's 24 significand bits (split_bf16x3,
 // hopper.cuh), so each term's products are exact in float32 and the three
-// terms' wgmmas into one float32 accumulator sum what the float32
-// reference sums, in another order. Bound: three bf16 passes at the tensor
+// terms' wgmmas sum what the float32 reference sums, in another order: into
+// a wgmma accumulator for a few K stages, which the consumer then adds into
+// a float32 register sum, as the TPU kernel adds each K block's dot into a
+// float32 sum (a whole split summed on the tensor cores drifts with K). Bound: three bf16 passes at the tensor
 // cores' rate (about 0.47 ms for AlexNet's five convs) or, for conv0, the
 // bytes of x. The same transposed product, at a tile that fits the
 // shared memory: 128 weight columns x 96 x rows, wgmma m64n96k16. One
@@ -231,6 +233,14 @@ constexpr int PRODUCER_WARP = CONSUMERS * 4;  // the first producer warp
 constexpr int SPLIT_THREADS = 256;            // two producer warpgroups
 constexpr int THREADS = CONSUMERS * 128 + SPLIT_THREADS;
 constexpr int MAX_SPLITS = 4;
+// K stages a wgmma accumulator sums before the consumer adds it into its
+// float32 register sum (PROMOTE * BK * TERMS = 768 products).
+constexpr int PROMOTE = 4;
+// Registers a thread after setmaxnreg: the splitters give up what the
+// consumers' second sum needs (2 x 128 x (SPLIT_REGS + CONSUMER_REGS) =
+// the 64K of the register file, what the launch bound allots).
+constexpr int SPLIT_REGS = 80;
+constexpr int CONSUMER_REGS = 176;
 constexpr int F_STAGES = 2;                  // TMA ring: float32 x and codes
 constexpr int B_STAGES = 2;                  // split ring: bf16 terms
 constexpr int XF_HALF = BM * 32 * 4;         // 12 KB: [BM][32] float32, 128-byte rows
@@ -287,6 +297,7 @@ elp_bsd_matmul_bf16x3_kernel(const __grid_constant__ CUtensorMap x_map,
 
   const int warp = tid / 32, lane = tid % 32;
   if (warp >= x3::PRODUCER_WARP) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(x3::SPLIT_REGS));
     // The producer warpgroups. Their thread 0 issues the TMA loads of stage
     // i + F_STAGES once every splitter and consumer has read stage i; all
     // 256 split.
@@ -344,13 +355,27 @@ elp_bsd_matmul_bf16x3_kernel(const __grid_constant__ CUtensorMap x_map,
     return;
   }
 
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(x3::CONSUMER_REGS));
   // Consumers: warpgroup wg decodes weight columns [64 wg, 64 wg + 64) of the tile.
   const int wg = warp / 4, w = warp % 4, g = lane / 4, q = lane % 4;
   const int col = wg * 64 + w * 16 + 2 * g;  // this thread's columns: col, col + 1
   const uint32_t* tab_lane = tab + lane;
-  float d[x3::BM / 2];
+  // d is the wgmma accumulator of the last few stages; acc sums it in
+  // float32 every PROMOTE stages, as the TPU kernel adds each K block's dot
+  // into its float32 VMEM sum. The tensor cores' own accumulation loses
+  // precision over long sums (a whole split in d read 1.04 of the 2e-5
+  // limit at K = 25088; PERF.md).
+  float d[x3::BM / 2], acc[x3::BM / 2];
 #pragma unroll
-  for (int r = 0; r < x3::BM / 2; ++r) d[r] = 0.f;
+  for (int r = 0; r < x3::BM / 2; ++r) d[r] = acc[r] = 0.f;
+  auto promote = [&] {
+#pragma unroll
+    for (int r = 0; r < x3::BM / 2; ++r) {
+      fence_operand(d[r]);
+      acc[r] += d[r];
+      d[r] = 0.f;
+    }
+  };
   // A stage's codes are decoded from the TMA ring, before its split is
   // done; its wgmmas wait for the split.
   auto decode = [&](uint32_t(&f)[16], int i) {
@@ -392,12 +417,12 @@ elp_bsd_matmul_bf16x3_kernel(const __grid_constant__ CUtensorMap x_map,
     if (j + 2 < steps) decode(fa, j + 2);
     wgmma_wait<0>();
     release(j + 1);
+    if ((j + 2) % x3::PROMOTE == 0) promote();
   }
-#pragma unroll
-  for (int r = 0; r < x3::BM / 2; ++r) fence_operand(d[r]);
+  promote();
 
-  // As the bf16 kernel's epilogue: d[4j + {0, 1}] column col at x rows
-  // 8j + 2q + {0, 1}, d[4j + {2, 3}] column col + 1.
+  // As the bf16 kernel's epilogue: acc[4j + {0, 1}] column col at x rows
+  // 8j + 2q + {0, 1}, acc[4j + {2, 3}] column col + 1.
   const bool split = gridDim.z > 1;
   const float s = split ? 1.f : sf[0];
   float* dst = split ? work + static_cast<size_t>(blockIdx.z) * M * N : out;
@@ -411,7 +436,7 @@ elp_bsd_matmul_bf16x3_kernel(const __grid_constant__ CUtensorMap x_map,
       const int m = m0 + 8 * j + 2 * q + h;
       if (m >= M) continue;
       float* p = dst + static_cast<size_t>(m) * N + n;
-      const float lo = d[4 * j + h] * s, hi = d[4 * j + 2 + h] * s;
+      const float lo = acc[4 * j + h] * s, hi = acc[4 * j + 2 + h] * s;
       if (pair) {
         *reinterpret_cast<float2*>(p) = make_float2(lo, hi);
       } else {

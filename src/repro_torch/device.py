@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -33,3 +34,18 @@ def full_f32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
         torch.backends.cudnn.allow_tf32 = cd
+
+
+def host_to_device(a, device: torch.device) -> torch.Tensor:
+    """A device copy of the host array ``a`` that does not wait for the device.
+
+    On the card the values go through a fresh pinned buffer and a
+    non-blocking copy queued on the current stream (PyTorch's pinned
+    allocator keeps the buffer until the copy has run), so the caller may
+    change ``a`` at once and the host never waits for queued work. On the
+    CPU it is a plain copy.
+    """
+    t = torch.from_numpy(np.array(a))
+    if device.type != "cuda":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

@@ -31,7 +31,7 @@ def _tf_api() -> ModelApi:
 
     def loss(*args, **kwargs):
         raise NotImplementedError(
-            "training (loss_fn) is not ported to repro_torch yet; see ROADMAP.md (queue 1 item 8)"
+            "training (loss_fn) is not ported to repro_torch yet; see ROADMAP.md (queue 1 item 6)"
         )
 
     def prefill(params, cfg, batch, cache, *, pctx=None):
@@ -52,6 +52,6 @@ def get_model(cfg) -> ModelApi:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported to repro_torch yet (ported: "
-            f"{sorted(_FAMILIES)}); see ROADMAP.md (queue 1 item 7)"
+            f"{sorted(_FAMILIES)}); see ROADMAP.md (queue 1 item 5)"
         )
     return _FAMILIES[cfg.family]()

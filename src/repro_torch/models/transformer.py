@@ -9,22 +9,27 @@ a Python loop over per-layer views (a float leaf's ``[i]``, a packed
 leaf's :meth:`~repro_torch.kernels.ops.PackedWeight.layer`), so no layer's
 weights are copied.
 
-KV caches are dicts of ``[L, B, Smax, KV, hd]`` tensors in one of three
-layouts (:func:`cache_layout` names them from the keys):
+KV caches are dicts in one of five layouts (:func:`cache_layout` names
+them from the keys):
 
-  * dense: ``{"k", "v"}`` in the model dtype;
+  * dense: ``{"k", "v"}`` ``[L, B, Smax, KV, hd]`` in the model dtype;
   * dynamic int8 (``"quant"``): ``{"k", "v", "ks", "vs"}``, int8 codes with
     per-(token, head) float32 scales computed at write time;
   * static int8: ``{"k", "v", "k_scale", "v_scale"}``, int8 codes against
     per-(layer, head) scales calibrated offline
-    (:func:`repro_torch.calib.runner.calibrate_kv_cache`).
+    (:func:`repro_torch.calib.runner.calibrate_kv_cache`);
+  * paged (``"paged"``, ``"paged_static"``): a physical page pool
+    ``{"k", "v"}`` ``[L, n_pages, page, KV, hd]`` (static int8 codes with
+    ``"k_scale"``/``"v_scale"``) and a per-slot page table
+    ``"pages" [B, Pmax]`` (:func:`init_paged_cache`; the serve engine's
+    :class:`~repro_torch.serve.paging.PageTable` owns it).
 
 Unlike the JAX package, which returns a new cache from every call, the
 port writes the new entries into the cache tensors in place (a full-width
 cache is gigabytes, and a copy per step would double it) and returns the
-same dict. The paged layouts, the ``pctx`` multi-device context,
-flash-decode, cross-attention, MoE and modality frontends are not ported
-(ROADMAP.md, queue 1 items 6-8); inputs that select them raise
+same dict. The ``pctx`` multi-device context, flash-decode,
+cross-attention, MoE and modality frontends are not ported (ROADMAP.md,
+queue 1 items 5-6); inputs that select them raise
 ``NotImplementedError``.
 
 Prefill attention (the non-decode, unwindowed, causal case) goes through
@@ -65,7 +70,7 @@ CHUNKED_ATTN_THRESHOLD = 4096
 ATTN_CHUNK = 1024
 FLASH_BLOCK = 128  # the flash kernel's sequence block (callers pad to it)
 
-_NOT_PORTED = "not ported to repro_torch yet; see ROADMAP.md (queue 1 items 6-8)"
+_NOT_PORTED = "not ported to repro_torch yet; see ROADMAP.md (queue 1 items 5-6)"
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -200,7 +205,7 @@ def _static_dq(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
 
 def cache_layout(cache: dict) -> str:
     """Name a KV-cache dict's layout from its keys: ``"dense"``, ``"quant"``,
-    ``"static"``, or the (not ported) ``"paged"`` / ``"paged_static"``."""
+    ``"static"``, ``"paged"`` or ``"paged_static"``."""
     if "pages" in cache:
         return "paged_static" if "k_scale" in cache else "paged"
     if "ks" in cache:
@@ -252,6 +257,85 @@ def init_cache(
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_paged_cache(
+    cfg: ArchConfig,
+    batch: int,
+    max_len: int,
+    *,
+    page_size: int,
+    n_pages: int | None = None,
+    kv_scales=None,
+    dtype=None,
+    device=None,
+) -> dict[str, torch.Tensor]:
+    """Paged KV cache on ``device`` (default: the card): a shared physical
+    page pool plus a per-slot page table.
+
+    ``k``/``v`` are ``[L, n_pages, page_size, KV, hd]``: int8 codes when
+    ``kv_scales`` (calibrated per-(layer, head) scales, ``[L, KV]`` each) is
+    given, else ``dtype``. ``pages [batch, Pmax]`` maps each slot's logical
+    page ``p`` (positions ``p * page_size ..``) to a physical page; slots
+    admitted with a matching prompt prefix point at the same physical pages
+    (:class:`repro_torch.serve.paging.PageTable` owns the refcounts).
+    ``n_pages`` defaults to ``batch * Pmax + batch``: every slot fully
+    private plus one scratch page per slot, where a free slot's ride-along
+    writes land.
+    """
+    page_size = int(page_size)
+    if page_size < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    device = resolve_device(device)
+    n_layers = cfg.n_dec_layers or cfg.n_layers
+    pmax = -(-max_len // page_size)
+    if n_pages is None:
+        n_pages = batch * pmax + batch
+    shape = (n_layers, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    store_dt = torch.int8 if kv_scales is not None else (dtype or cfg.dtype)
+    cache = {
+        "k": torch.zeros(shape, dtype=store_dt, device=device),
+        "v": torch.zeros(shape, dtype=store_dt, device=device),
+        "pages": torch.zeros((batch, pmax), dtype=torch.int64, device=device),
+    }
+    if kv_scales is not None:
+        k_scale, v_scale = kv_scales
+        cache["k_scale"] = torch.as_tensor(k_scale, dtype=F32).to(device)
+        cache["v_scale"] = torch.as_tensor(v_scale, dtype=F32).to(device)
+    return cache
+
+
+def _cache_set_paged(c: torch.Tensor, u: torch.Tensor, pos, pages: torch.Tensor) -> torch.Tensor:
+    """Write ``u[B, s, KV, hd]`` into the page pool ``c[P, page, KV, hd]``
+    through the rows' page table ``pages[B, Pmax]``, in place.
+
+    Row ``b``'s token at logical position ``p`` lands in physical page
+    ``pages[b, p // page]`` at offset ``p % page``. Distinct rows never
+    write the same physical page: shared pages hold only prompt-prefix
+    positions below every sharer's writes, and each free slot's row points
+    at its own scratch page.
+    """
+    b, s = u.shape[0], u.shape[1]
+    page = c.shape[1]
+    ar = torch.arange(s, device=c.device)
+    if isinstance(pos, torch.Tensor):
+        positions = pos.to(c.device)[:, None] + ar[None, :]
+    else:
+        positions = (pos + ar)[None, :].expand(b, s)
+    pidx = torch.gather(pages, 1, positions // page)  # [B, s]
+    c[pidx, positions % page] = u.to(c.dtype)
+    return c
+
+
+def _paged_view(c: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+    """The rows' logical dense views gathered out of the page pool:
+    ``c[P, page, KV, hd]`` + ``pages[B, Pmax]`` -> ``[B, Pmax * page, KV, hd]``.
+
+    Logical position ``p`` of row ``b`` is element ``p`` of the view, so the
+    mask-past-pos read contract is the dense layout's.
+    """
+    v = c[pages]  # [B, Pmax, page, KV, hd]
+    return v.reshape(v.shape[0], v.shape[1] * v.shape[2], *v.shape[3:])
+
+
 # ---------------------------------------------------------------------------
 # One block
 # ---------------------------------------------------------------------------
@@ -294,7 +378,12 @@ def _attention(
     """GQA attention, optionally reading and updating a KV cache (write before attend).
 
     ``kv_layout`` names the cache tuple: ``"dense"`` ``(ck, cv)``,
-    ``"quant"`` ``(ck, cv, cks, cvs)``, ``"static"`` ``(ck, cv, ksc, vsc)``.
+    ``"quant"`` ``(ck, cv, cks, cvs)``, ``"static"`` ``(ck, cv, ksc, vsc)``,
+    ``"paged"`` ``(ck, cv, pages)`` and ``"paged_static"``
+    ``(ck, cv, pages, ksc, vsc)`` (a shared pool ``ck[P, page, KV, hd]``
+    addressed through the rows' page table). A paged cache's read is the
+    gathered logical view on the plain attention path, as in the JAX
+    package, for prefill runs too.
     ``acts`` records the attention mix entering the output projection
     under ``"attn_mix"``; ``tap_kv`` also records the post-RoPE k/v under
     ``"k_cache"``/``"v_cache"``.
@@ -303,8 +392,8 @@ def _attention(
         raise _not_ported("cross-attention (kv_override)")
     if pctx is not None:
         raise _not_ported("the multi-device ParallelCtx (pctx)")
-    if kv_layout not in ("dense", "quant", "static"):
-        raise _not_ported(f"the {kv_layout!r} KV-cache layout")
+    if kv_layout not in _CACHE_KEYS:
+        raise ValueError(f"unknown KV-cache layout {kv_layout!r}")
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     q = matmul(x, lp["wq"]).reshape(b, s, h, hd)
@@ -332,6 +421,22 @@ def _attention(
                 _cache_set(c, u, cache_pos)
             new_cache = (ck, cv, cks, cvs)
             k, v = _cache_dq(ck, cks, x.dtype), _cache_dq(cv, cvs, x.dtype)
+        elif kv_layout in ("paged", "paged_static"):
+            # Write this step's k/v through the page table, then gather the
+            # rows' logical views for the read. Shared prefix pages are never
+            # written: every write lands at or past the row's own prompt length.
+            if kv_layout == "paged_static":
+                ck, cv, pages, ksc, vsc = kv_cache
+                kq, vq = _static_q(k, ksc), _static_q(v, vsc)
+            else:
+                ck, cv, pages = kv_cache
+                kq, vq = k, v
+            _cache_set_paged(ck, kq, cache_pos, pages)
+            _cache_set_paged(cv, vq, cache_pos, pages)
+            new_cache = (ck, cv)
+            k, v = _paged_view(ck, pages), _paged_view(cv, pages)
+            if kv_layout == "paged_static":
+                k, v = _static_dq(k, ksc, x.dtype), _static_dq(v, vsc, x.dtype)
         elif kv_layout == "static":
             ck, cv, ksc, vsc = kv_cache
             _cache_set(ck, _static_q(k, ksc), cache_pos)
@@ -348,7 +453,8 @@ def _attention(
     q_offset = cache_pos if kv_cache is not None else 0
     # "decode": s queries per row at per-row depth (s == 1, or a [B] position
     # vector); prefill (a scalar position) takes the flash kernel.
-    decode = kv_cache is not None and (s == 1 or isinstance(cache_pos, torch.Tensor))
+    decode = kv_cache is not None and (s == 1 or isinstance(cache_pos, torch.Tensor)
+                                       or kv_layout.startswith("paged"))
     if decode:
         out = attention_dot(q, repeat_kv(k, h // kv), repeat_kv(v, h // kv), causal=causal,
                             window=window, q_offset=q_offset)
@@ -410,7 +516,9 @@ def block_apply(
 # Stack (a loop over layers)
 # ---------------------------------------------------------------------------
 _CACHE_KEYS = {"dense": ("k", "v"), "quant": ("k", "v", "ks", "vs"),
-               "static": ("k", "v", "k_scale", "v_scale")}
+               "static": ("k", "v", "k_scale", "v_scale"),
+               "paged": ("k", "v", "pages"),
+               "paged_static": ("k", "v", "pages", "k_scale", "v_scale")}
 
 
 def stack_apply(
@@ -445,13 +553,13 @@ def stack_apply(
     rope = (cos, sin, cos, sin)  # new keys share the query positions
 
     layout = "dense" if cache is None else cache_layout(cache)
-    if layout not in _CACHE_KEYS:
-        raise _not_ported(f"the {layout!r} KV-cache layout")
     ys: list[dict] = []
     for i in range(blocks["ln1"].shape[0]):
         lp = layer_params(blocks, i)
         if cache is not None:
-            kvc = tuple(cache[key][i] for key in _CACHE_KEYS[layout])
+            # the page table is shared by every layer; the rest is per layer
+            kvc = tuple(cache[key] if key == "pages" else cache[key][i]
+                        for key in _CACHE_KEYS[layout])
             x, _ = block_apply(lp, cfg, x, rope=rope, causal=causal, window=window, kv_cache=kvc,
                                kv_layout=layout, cache_pos=cache_pos, enc_out=enc_out, pctx=pctx)
             continue

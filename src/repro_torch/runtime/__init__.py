@@ -1,1 +1,2 @@
-"""Serving-side conversion of model parameters (stacked LM leaves to packed codes)."""
+"""Serving-side conversion of model parameters (stacked LM leaves to packed codes),
+the straggler monitor and the deprecated ``serve_loop`` entry points."""

@@ -1,1 +1,3 @@
-"""LM serving: the lockstep static-batch loop (the slot engine is not ported yet)."""
+"""LM serving: the continuous-batching ``ServeEngine`` (dense and paged KV caches,
+speculative drafters), its slot scheduler and page table, and the lockstep
+``static_generate``."""

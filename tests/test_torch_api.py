@@ -55,7 +55,8 @@ def test_cpu_quantize_and_forward_run_the_plain_path(mini):
 
 def test_not_ported_features_raise_not_implemented(mini):
     params, imgs = mini
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # speculative schemes are an LM serving feature, as in the JAX package
+    with pytest.raises(ValueError, match="LM serving"):
         api.quantize(cnn.ALEXNET_MINI, params, api.QuantScheme(spec_verify="float", spec_k=4),
                      device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -63,7 +64,7 @@ def test_not_ported_features_raise_not_implemented(mini):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         api.quantize(object(), params, device="cpu")
     qm = api.quantize(cnn.ALEXNET_MINI, params, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="CNN models classify"):
         qm.serve([])
     # generation is the LM path (ported); a CNN artifact says so, as in the JAX package
     with pytest.raises(NotImplementedError, match="CNN models classify"):

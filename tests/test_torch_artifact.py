@@ -258,7 +258,8 @@ def test_wrong_version_missing_files_and_speculative_scheme_raise(jax_artifacts,
     with open(mf, "w") as f:
         json.dump({**doc, "scheme": spec_scheme, "verify_tree": doc["tree"],
                    "verify_checksums": doc["checksums"]}, f)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    # a declared verify tier whose checkpoint is not there
+    with pytest.raises(tapi.ArtifactError, match="verify-tier checkpoint"):
         tapi.load(path, device="cpu")
     with open(mf, "w") as f:
         json.dump(doc, f)

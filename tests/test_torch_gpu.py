@@ -725,3 +725,66 @@ def test_search_and_artifact_on_card_match_cpu(cuda, trained_minis, tmp_path):
     back = api.load(str(tmp_path / "art"))
     assert back.device.type == "cuda" and back.report == q_gpu.report
     assert torch.equal(back.forward(x), first)
+
+
+# ---------------------------------------------------------------------------
+# The tiled bf16x3 route over a long K (its float32 register sum)
+# ---------------------------------------------------------------------------
+def test_bf16x3_tiled_route_long_k_against_float64(cuda):
+    """VGG16's fc0 length at M = 2048 (3 K splits): the tiled bf16x3 route's
+    distance from the float64 sum stays under half the 2e-5 limit; a whole
+    split summed in the wgmma accumulator read 1.04 of it."""
+    from repro_torch.kernels.ref import decode_values_shift_add, unpack_nibbles_k
+
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    m, k, n = 2048, 25088, 256
+    g = torch.Generator(device=cuda).manual_seed(0)
+    codes = torch.randint(0, 256, ((k + 1) // 2, n), device=cuda, generator=g, dtype=torch.uint8)
+    sf = torch.tensor([1.0 / k ** 0.5], device=cuda)
+    x = torch.randn(m, k, device=cuda, generator=g)
+    before = elp_bsd_matmul.launches_by_route["bf16x3"]
+    got = elp_bsd_matmul(x, codes, sf, fmt, nibble=True)
+    assert elp_bsd_matmul.launches_by_route["bf16x3"] == before + 1
+    w = decode_values_shift_add(unpack_nibbles_k(codes), fmt)[:k].double()
+    want = (x.double() @ w * sf.double()).float()
+    assert (got - want).abs().max().item() < 0.5 * REL_TOL * want.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# The serving engine on the card against the CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kv_cache", ["dense", "paged"])
+def test_engine_on_card_matches_cpu(cuda, kv_cache):
+    """Full-width qwen3-8b blocks cut to 2 layers (and a 4096-token vocab),
+    a4 packed with float activations: the engine's greedy tokens on the card
+    (dense admissions on the tiled route and flash, paged ones on the
+    decode-step route) equal the CPU's, with 2 slots and ragged prompts."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = dataclasses.replace(get_config("qwen3_8b"), n_layers=2, vocab=4096)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    qc = api.quantize(cfg, params, api.QuantScheme(fmt="elp4"), device="cpu")
+    qg = qc.to(cuda)
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, cfg.vocab, 32)
+    reqs = [(np.concatenate([prefix, rng.integers(0, cfg.vocab, s)]).astype(np.int32), n)
+            for s, n in ((270, 5), (17, 6), (40, 4))]
+    kw = dict(n_slots=2, max_len=320, kv_cache=kv_cache, page_size=16)
+    want = ServeEngine(cfg, qc.params, **kw).serve(reqs)
+    flash_before = flash_attention.launches
+    tiled_before = elp_bsd_matmul.launches_by_route["wgmma"]
+    fused_before = fused_decode_matmul.launches_by_route["wgmma"]
+    got = ServeEngine(cfg, qg.params, **kw).serve(reqs)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert fused_decode_matmul.launches_by_route["wgmma"] > fused_before
+    if kv_cache == "dense":
+        assert flash_attention.launches == flash_before + 3 * cfg.n_layers
+        assert elp_bsd_matmul.launches_by_route["wgmma"] == tiled_before + 7 * cfg.n_layers
+    else:
+        assert flash_attention.launches == flash_before

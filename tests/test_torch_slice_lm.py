@@ -117,8 +117,10 @@ def test_report_and_front_door():
     a = qm.generate(prompts, 4, greedy=False, generator=torch.Generator().manual_seed(0))
     b = qm.generate(prompts, 4, greedy=False, generator=torch.Generator().manual_seed(0))
     assert torch.equal(a, b) and int(a.max()) < jc.vocab
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        qm.serve([(prompts[0], 4)])
+    # continuous batching serves the greedy tokens of generate
+    served = qm.serve([(prompts[0], 4), (prompts[1], 3)], n_slots=2)
+    gen = qm.generate(prompts[:2], 4).numpy()
+    assert np.array_equal(served[0], gen[0]) and np.array_equal(served[1], gen[1][:3])
     with pytest.raises(ValueError, match="per_slice"):
         api.quantize(tc, tparams, api.QuantScheme(granularity="per_channel"), device="cpu")
     with pytest.raises(ValueError, match="dynamic"):

@@ -143,7 +143,7 @@ def test_model_api_and_unported_inputs():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.loss_fn(params, tc, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.prefill(params, tc, torch.zeros(1, 4, dtype=torch.long), {"k": 0, "v": 0, "pages": 0})
+        ttr.prefill(params, tc, torch.zeros(1, 4, dtype=torch.long), cache, pctx=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(type(tc)(**{**tc.__dict__, "family": "ssm"}))
     with pytest.raises(ValueError, match="exclusive"):
