@@ -417,6 +417,38 @@ def _zero_counts() -> None:
             k.launches_by_route[r] = 0
 
 
+def _phased(torch, fn):
+    """``fn()`` (synchronised) with the launches of each model call the engine
+    module makes counted on their own (its model API is wrapped here, in this
+    script only): returns (result, [(label, _counts() delta), ...])."""
+    import repro_torch.serve.engine as engine_mod
+
+    phases = []
+    real_get_model = engine_mod.get_model
+
+    def counting_get_model(cfg_):
+        inner = real_get_model(cfg_)
+
+        def wrap(f, label):
+            def call(*args, **kwargs):
+                before = _counts()
+                out = f(*args, **kwargs)
+                phases.append((label, tuple(a - b for a, b in zip(_counts(), before))))
+                return out
+            return call
+
+        return dataclasses.replace(inner, prefill=wrap(inner.prefill, "prefill"),
+                                   decode_step=wrap(inner.decode_step, "decode"))
+
+    engine_mod.get_model = counting_get_model
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        engine_mod.get_model = real_get_model
+    return out, phases
+
+
 def _teacher_forced(torch, transformer, params, cfg, prompts, tokens, cache) -> list:
     """Logits of the prefill and of each decode step fed ``tokens[:, i]``."""
     logits, cache = transformer.prefill(params, cfg, prompts, cache)
@@ -564,40 +596,17 @@ def lm_main_path(torch, dev, failures, rows) -> tuple:
           f"float blocks {torch.cuda.memory_allocated()} B")
 
     # The main path, counted from zero, with each prefill and decode step of
-    # static_generate counted on its own (the model API it calls is wrapped
-    # here, in this script only).
-    phases = []
-
-    def counting_get_model(cfg_):
-        inner = real_get_model(cfg_)
-
-        def wrap(fn, label):
-            def call(*args, **kwargs):
-                before = _counts()
-                out = fn(*args, **kwargs)
-                phases.append((label, tuple(a - b for a, b in zip(_counts(), before))))
-                return out
-            return call
-
-        return dataclasses.replace(inner, prefill=wrap(inner.prefill, "prefill"),
-                                   decode_step=wrap(inner.decode_step, "decode"))
-
+    # static_generate counted on its own.
     setup = engine_mod.ServeSetup(cfg=cfg, mesh=None, max_len=LM_PROMPT + LM_NEW, batch=LM_BATCH)
 
     def static_run():
         return engine_mod.static_generate(setup, qm.params, {"tokens": prompts}, LM_NEW)
 
-    real_get_model = engine_mod.get_model
-    engine_mod.get_model = counting_get_model
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    try:
-        t0 = time.perf_counter()
-        new = static_run()
-        torch.cuda.synchronize()
-        gen_first_s = time.perf_counter() - t0
-    finally:
-        engine_mod.get_model = real_get_model
+    t0 = time.perf_counter()
+    new, phases = _phased(torch, static_run)
+    gen_first_s = time.perf_counter() - t0
     c = _counts()
     prefill_counts = _expected({"elp_bsd_matmul/wgmma": n_layers * per_layer,
                                 "flash_attention/wgmma": n_layers})
@@ -880,12 +889,12 @@ def _engine_forced(torch, transformer, params, cfg, reqs, outs, kv_scales=None):
     return list(torch.split(logits, [len(o) for o in outs]))
 
 
-def _serve_run(torch, label, run, reqs, failures, tap, *, paged: bool):
+def _serve_run(torch, label, run, reqs, failures, tap, *, paged: bool, per_layer: int = 7):
     """Drive one engine run (``run(metrics, trace)`` serves ``reqs``) under the
     kernel ``tap``, counting every launch per model call from zero (the engine's
-    prefill, decode_step, verify and draft calls); check the counts per call,
-    completion and the page pool; print the obs readings. Returns (outs, engine,
-    launches)."""
+    prefill, decode_step, verify and draft calls); check the counts per call
+    (``per_layer`` packed block matmuls a layer), completion and the page pool;
+    print the obs readings. Returns (outs, engine, launches)."""
     import numpy as np
 
     import repro_torch.serve.engine as engine_mod
@@ -943,7 +952,8 @@ def _serve_run(torch, label, run, reqs, failures, tap, *, paged: bool):
     for label_, m, packed, got in calls:
         want = {}
         if packed:
-            want["fused_decode_matmul/wgmma" if m <= 256 else "elp_bsd_matmul/wgmma"] = 7 * n_layers
+            want["fused_decode_matmul/wgmma" if m <= 256 else "elp_bsd_matmul/wgmma"] = (
+                per_layer * n_layers)
         if label_ == "prefill":
             want["flash_attention/wgmma"] = n_layers
         if got != _expected(want):
@@ -1048,12 +1058,16 @@ def _serve_run(torch, label, run, reqs, failures, tap, *, paged: bool):
     return outs, eng, launches
 
 
-def _engine_held(torch, label, forced_pair, outs, failures) -> None:
+def _engine_held(torch, label, forced_pair, outs, failures, *, gate_tokens=True,
+                 tol=LM_LOGIT_REL_TOL) -> None:
     """Teacher-forced logits, kernels against plain versions, under the LM gate.
     Each engine token must sit within the gate of the top logit of both the plain
     and the kernel teacher-forced logits (each token off the argmax printed);
     controls of wrong tokens (shifted by one position, another request's) must
-    not."""
+    not. ``gate_tokens=False`` (an MoE model, whose engine run routes free)
+    prints the tokens' readings without gating them: a routing flip between the
+    engine's float order and the teacher-forced one moves a token's logits far
+    past the gate (see ROUTE_FLIP_LIMIT). ``tol`` is the logit gate of the model."""
     import numpy as np
 
     kernel_l, plain_l = forced_pair
@@ -1061,8 +1075,8 @@ def _engine_held(torch, label, forced_pair, outs, failures) -> None:
               for kl, pl in zip(kernel_l, plain_l))
     total = sum(len(o) for o in outs)
     print(f"[engine] {label}: teacher-forced kernels vs plain versions {rel:.3e} of max "
-          f"|logit| (limit {LM_LOGIT_REL_TOL:g})")
-    if rel > LM_LOGIT_REL_TOL:
+          f"|logit| (limit {tol:g})")
+    if rel > tol:
         failures.append(f"[engine] {label}: teacher-forced logits {rel:.3e} relative")
     for which, logits in (("plain", plain_l), ("kernel", kernel_l)):
         gaps = _token_gaps(torch, logits, outs)
@@ -1072,7 +1086,7 @@ def _engine_held(torch, label, forced_pair, outs, failures) -> None:
               f"token's logit below the top / max |logit|) "
               f"{[(i, j, round(g, 6)) for i, j, g in gaps]}; largest {worst:.3e} (limit "
               f"{LM_LOGIT_REL_TOL:g})")
-        if worst > LM_LOGIT_REL_TOL:
+        if gate_tokens and worst > LM_LOGIT_REL_TOL:
             failures.append(f"[engine] {label}: a token {worst:.3e} below the {which} top logit")
     n = len(outs)
     controls = (
@@ -1087,7 +1101,7 @@ def _engine_held(torch, label, forced_pair, outs, failures) -> None:
         print(f"[engine-control] {label}: {text}: largest gap below the plain top "
               f"{worst:.3e} of max |logit|, {sum(g > LM_LOGIT_REL_TOL for g in gaps)}/{total} "
               f"positions over the limit (must exceed {LM_LOGIT_REL_TOL:g})")
-        if worst <= LM_LOGIT_REL_TOL:
+        if gate_tokens and worst <= LM_LOGIT_REL_TOL:
             failures.append(f"[engine] {label}: the token gate does not see {text}")
 
 
@@ -1108,14 +1122,26 @@ def _plain_swapped(torch, fn):
         ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul, transformer.flash_attention = saved
 
 
-def _forced_pair(torch, params, cfg, reqs, outs, kv_scales=None):
+def _forced_pair(torch, params, cfg, reqs, outs, kv_scales, failures):
+    """Teacher-forced logits of the requests with the kernels and with their plain
+    versions; an MoE model's kernel run takes the plain run's routing (RouteTap),
+    and its own top-k sets are held under ROUTE_FLIP_LIMIT."""
     import repro_torch.models.transformer as transformer
 
-    kernel_l = _engine_forced(torch, transformer, params, cfg, reqs, outs, kv_scales)
     _zero_counts()
-    plain_l = _plain_swapped(torch, lambda: _engine_forced(torch, transformer, params, cfg,
-                                                           reqs, outs, kv_scales))
+    with RouteTap() as plain_route:
+        plain_l = _plain_swapped(torch, lambda: _engine_forced(torch, transformer, params, cfg,
+                                                               reqs, outs, kv_scales))
     assert not any(_counts()), "the plain teacher-forced run launched kernels"
+    with RouteTap(force=plain_route.ids if cfg.is_moe else None) as kernel_route:
+        kernel_l = _engine_forced(torch, transformer, params, cfg, reqs, outs, kv_scales)
+    if cfg.is_moe:
+        share, _ = _route_diff(kernel_route.ids, plain_route.ids, cfg.n_layers, len(reqs))
+        print(f"[engine] teacher-forced, routing forced to the plain run's: each layer's own "
+              f"top-{cfg.topk} differs from the plain ids in {share:.3e} of the (token, layer) "
+              f"sets (limit {ROUTE_FLIP_LIMIT:g})")
+        if share > ROUTE_FLIP_LIMIT:
+            failures.append(f"[engine] {cfg.name}: teacher-forced routing {share:.3e}")
     return kernel_l, plain_l
 
 
@@ -1254,7 +1280,8 @@ def hold_tapped(torch, dev, label, tap, rows, failures) -> None:
               f"{worst[name]:.3f} (limit 1), {sum(r['weight'] for r in rs)} launches; "
               f"kernel {sum(r['weight'] * r['ms'] for r in rs):.3f} ms over them, plain "
               f"{sum(r['weight'] * r['plain_ms'] for r in rs):.3f} ms, bound "
-              f"{sum(r['weight'] * r['bound_ms'] for r in rs):.3f} ms")
+              f"{sum(r['weight'] * r['bound_ms'] for r in rs):.3f} ms, library "
+              f"{sum(r['weight'] * r['library_ms'] for r in rs):.3f} ms")
     tap.calls.clear()
     del flush
     torch.cuda.empty_cache()
@@ -1305,8 +1332,8 @@ def engine_phase(torch, dev, qm, cfg, calib, failures, tap, rows) -> dict:
         total.update(launches)
         del eng
         t0 = time.perf_counter()
-        _engine_held(torch, label, _forced_pair(torch, qm.params, cfg, reqs, outs, kv), outs,
-                     failures)
+        _engine_held(torch, label, _forced_pair(torch, qm.params, cfg, reqs, outs, kv, failures),
+                     outs, failures)
         print(f"[engine] {label}: teacher-forced checks {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
     # The device's share of a decode step, apart from the runs above (the
@@ -1394,8 +1421,8 @@ def speculative_phase(torch, dev, cfg, calib, failures, rows) -> dict:
             kv_scales=scales).serve(reqs),
         reqs, failures, tap, paged=True)
     del eng
-    _engine_held(torch, label, _forced_pair(torch, qs.verify_params, cfg, reqs, outs, scales),
-                 outs, failures)
+    _engine_held(torch, label, _forced_pair(torch, qs.verify_params, cfg, reqs, outs, scales,
+                                            failures), outs, failures)
     hold_tapped(torch, dev, "engine (d)", tap, rows, failures)
     del qs, tap
     torch.cuda.empty_cache()
@@ -1431,6 +1458,547 @@ def lm_card_vs_cpu(torch, dev, failures) -> None:
               f"{diff:.3e} of max |logit| (limit {rel:g}); greedy tokens identical {same}")
         if diff > rel or (act == "float" and not same):
             failures.append(f"reduced LM card vs CPU, act={act}")
+
+
+# The MoE and VLM slice (the transformer families beside dense). olmoe-1b-7b
+# at full width and depth: a4 codes, static 8-bit activations, the experts on
+# the dense MoE form (every expert on every token, dequantized whole at every
+# call, as the JAX package runs MoE without a mesh); static_generate at the LM
+# phase's geometry, then the engine on the engine phase's traffic, dense (a)
+# and paged int8 (b). internvl2-26b at full width, its depth cut to
+# VLM_LAYERS of 48 (48 layers are about 40 GB of bf16 weights), batch
+# VLM_BATCH, each prompt VLM_FRONTEND seeded frontend embeddings and VLM_TEXT
+# seeded tokens.
+MOE_PER_LAYER = 4  # wq, wk, wv, wo on the kernels; the experts are bmm
+VLM_LAYERS, VLM_BATCH, VLM_TEXT, VLM_NEW = 4, 4, 128, 8
+VLM_PER_LAYER = 7
+# internvl2's logit gate (kernels against plain versions, teacher-forced),
+# placed by the vlm phase's own controls (PR 19's second chip run): every
+# kernel's function summed in float64 reads 5.5e-2 of max |logit| (the kernels
+# 5.8e-2; the frontend's 256 positions and static 8-bit activations calibrated
+# on text), every matmul output moved one bf16 step 0.17, the decode-step
+# matmul skipping its last 128 K rows 0.64. A query that also sees the next key
+# reads 6.7e-2, within the noise: that subtle fault is for the elementwise
+# flash check (hold_tapped); flash letting each query see the next 128 keys
+# must trip the gate.
+VLM_LOGIT_REL_TOL = 0.15
+# Routing flips. Teacher-forced on the same tokens, the kernels' float32 and
+# bf16 rounding moves a router logit by a little; where a token's 8th and 9th
+# experts lie closer than that, the two runs pick different experts. With the
+# reference's init (expert weights at fan-in E: each expert's output far larger
+# than the residual) a flip moves that token's residual, and through attention
+# every later token's, by far more than the rounding does, so flips cascade:
+# run free, the plain run against itself with every kernel's function summed
+# in float64 differs in a quarter of all (token, layer) top-8 sets (PR 19's
+# first chip run). That share cannot tell a correct change of rounding from a
+# fault, so it is reported, and the LM logit gate holds on the positions routed
+# alike in every layer. The gates proper run with the routing forced: every
+# run takes the plain run's expert ids (its gates from its own logits at those
+# ids), and each layer's own top-8 is recorded. Then a flip cannot cascade; the
+# share of own top-8 sets that differ from the plain ids (at most
+# ROUTE_FLIP_LIMIT) measures the router's inputs layer by layer, and the logit
+# gate (MOE_LOGIT_REL_TOL) holds at every position. Both limits are placed by
+# controls (MOE_CONTROL_STEPS positions; PR 19's second chip run, routing
+# forced): every kernel's function summed in float64 moves 8.1e-2 of the own
+# top-8 sets and 5.4e-2 of max |logit| (the kernels read 9.2e-2 and 6.0e-2:
+# sixteen layers of static 8-bit activations and experts far larger than the
+# residual amplify a change of rounding more than qwen3-8b's 36 layers, whose
+# float64 control reads 3.7e-2); every matmul output moved one bf16 step (more
+# than a correct kernel does) 0.56 and 0.31; planted faults 1.0 of the sets
+# (experts off by one, the top-8 of the wrong logits) and 1.24 of max |logit|
+# (the decode-step matmul skipping its last 128 K rows). Each limit sits
+# between the float64 control and the bf16-step one.
+ROUTE_FLIP_LIMIT = 0.25
+MOE_LOGIT_REL_TOL = 0.15
+MOE_CONTROL_STEPS = 4
+
+
+class RouteTap:
+    """While active, the expert ids every ``router_gates`` call picks, in call
+    order (one a layer per model call), each row sorted (a top-k set).
+    ``force`` (such a list from another run) makes call ``i`` route to
+    ``force[i]`` instead, with gates from its own logits at those ids;
+    ``fault`` plants a routing fault in what the router picks:
+    ``"off_by_one"`` (every id + 1) or ``"wrong_logits"`` (the top-k of the
+    negated router logits)."""
+
+    def __init__(self, force=None, fault=None):
+        self.ids, self.force, self.fault = [], force, fault
+
+    def __enter__(self):
+        import torch
+
+        import repro_torch.models.moe as moe
+        from repro_torch.device import full_f32
+
+        self._real = real = moe.router_gates
+
+        def gates(x2d, router, topk):
+            g, ids = real(x2d, -router if self.fault == "wrong_logits" else router, topk)
+            if self.fault == "off_by_one":
+                ids = (ids + 1) % router.shape[1]
+            self.ids.append(ids.sort(dim=-1).values)
+            if self.force is None:
+                return g, ids
+            ids = self.force[len(self.ids) - 1]
+            with full_f32():
+                logits = torch.matmul(x2d.float(), router.float())
+            return logits.gather(1, ids).softmax(dim=-1), ids
+
+        moe.router_gates = gates
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.models.moe as moe
+
+        moe.router_gates = self._real
+        return False
+
+
+def _route_diff(a_ids, b_ids, n_layers, batch):
+    """(share of (token, layer) top-k sets that differ, per model call a [batch]
+    mask: the token whose logits the call returns (a prefill's last) routed
+    alike in every layer)."""
+    differ = total = 0
+    matched = []
+    for c in range(len(a_ids) // n_layers):
+        ok = None
+        for layer in range(n_layers):
+            d = (a_ids[c * n_layers + layer] != b_ids[c * n_layers + layer]).any(-1)
+            differ += int(d.sum())
+            total += d.numel()
+            same = ~d.view(batch, -1)[:, -1]
+            ok = same if ok is None else ok & same
+        matched.append(ok)
+    return differ / total, matched
+
+
+def _rel_where(got: list, want: list, masks: list) -> tuple:
+    """Largest max |got - want| / max |want| over the rows of each position a mask
+    keeps, and how many rows it kept."""
+    worst, n = 0.0, 0
+    for a, b, m in zip(got, want, masks):
+        if bool(m.any()):
+            worst = max(worst, (a - b).abs()[m].max().item() / b.abs().max().item())
+            n += int(m.sum())
+    return worst, n
+
+
+def _collect(torch) -> int:
+    """Collect the earlier phases' garbage (engines and caches in reference cycles)
+    and return the device memory still allocated."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _swapped(mm, flash):
+    """A context in which the matmul kernels and flash are rebound (here only)."""
+    import contextlib
+
+    import repro_torch.kernels.ops as ops_mod
+    import repro_torch.models.transformer as transformer
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul, transformer.flash_attention)
+        (ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul), transformer.flash_attention = \
+            mm, flash
+        try:
+            yield
+        finally:
+            (ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul,
+             transformer.flash_attention) = saved
+    return ctx()
+
+
+def _moe_profile(torch, transformer, params, cfg, prompts, tokens, steps: int = 4) -> dict:
+    """torch.profiler over ``steps`` lockstep decode steps (after a prefill, not
+    traced): the device ms a step under the expert dequantize (``moe._dq``), the
+    expert products (``moe._bmm_f32``) and in all, and the wall ms a step."""
+    import repro_torch.models.moe as moe
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    real_dq, real_bmm = moe._dq, moe._bmm_f32
+
+    def dq(w, dtype):
+        with record_function("moe._dq"):
+            return real_dq(w, dtype)
+
+    def bmm(a, b):
+        with record_function("moe._bmm_f32"):
+            return real_bmm(a, b)
+
+    cache = transformer.init_cache(cfg, prompts.shape[0], prompts.shape[1] + steps + 1)
+    _, cache = transformer.prefill(params, cfg, prompts, cache)
+    torch.cuda.synchronize()
+    moe._dq, moe._bmm_f32 = dq, bmm
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(steps):
+                transformer.decode_step(params, cfg, tokens[:, i:i + 1], cache,
+                                        prompts.shape[1] + i)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / steps
+    finally:
+        moe._dq, moe._bmm_f32 = real_dq, real_bmm
+    avg = {e.key: e for e in prof.key_averages()}
+
+    def dev_ms(key):
+        e = avg.get(key)
+        t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) if e else 0
+        return t / 1e3 / steps
+
+    from torch.autograd import DeviceType
+
+    # device kernels only: the ranges' own device-side annotations are not work
+    kernels = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA and not e.name.startswith("moe."))
+    return {"dq_ms": dev_ms("moe._dq"), "bmm_ms": dev_ms("moe._bmm_f32"),
+            "device_ms": kernels / 1e3 / steps, "wall_ms": wall,
+            "dq_calls": avg["moe._dq"].count // steps if "moe._dq" in avg else 0,
+            "bmm_calls": avg["moe._bmm_f32"].count // steps if "moe._bmm_f32" in avg else 0}
+
+
+def moe_phase(torch, dev, failures, rows) -> dict:
+    """Full-width olmoe-1b-7b: seeded params, api.quantize, static_generate
+    (launches per prefill and decode step exact), teacher-forced kernels vs
+    plain with the routing-flip gate and its controls, the expert dequantize and
+    bmm under torch.profiler, then the engine (a) dense and (b) paged int8, each
+    run's launches exact per call and its tokens held against the teacher-forced
+    logits; every kernel shape of the phase held against its plain version.
+    Returns the phase's launches."""
+    import repro_torch.models.transformer as transformer
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch import api
+    from repro_torch.calib.runner import calibrate_kv_cache
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul_plain
+    from repro_torch.kernels.fused_decode import fused_decode_matmul_plain
+
+    import repro_torch.kernels.ops as ops_mod
+
+    t_phase = time.perf_counter()
+    resident = _collect(torch)
+    cfg = get_config("olmoe_1b_7b")
+    n_layers = cfg.n_layers
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    calib = torch.randint(0, cfg.vocab, (2, 4, LM_PROMPT), device=dev, generator=gen)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device=dev, generator=gen)
+    torch.cuda.synchronize()
+    n_par = sum(v.numel() for k, v in params.items() if k != "blocks")
+    n_par += sum(v.numel() for v in params["blocks"].values())
+    print(f"[moe] seeded {cfg.name} params ({n_par} weights, {cfg.dtype}; {cfg.n_experts} experts "
+          f"top-{cfg.topk}, {n_layers} layers) on the card in {time.perf_counter() - t0:.1f} s; "
+          f"param_count {cfg.param_count()}, active {cfg.active_param_count()}; "
+          f"memory_allocated before the phase {resident} B")
+    t0 = time.perf_counter()
+    qm = api.quantize(cfg, params, api.QuantScheme(fmt="elp4", act="static"), calib_data=calib)
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    blocks = qm.params["blocks"]
+    n_slices = sum(int(math.prod(v.codes.shape[:-2])) for v in blocks.values()
+                   if hasattr(v, "codes"))
+    print(f"[moe] conversion s {conv_s:.2f} (api.quantize: calibrate on 2x4x{LM_PROMPT} tokens, "
+          f"pack {n_slices} slices: {n_layers * MOE_PER_LAYER} attention, "
+          f"{n_slices - n_layers * MOE_PER_LAYER} expert); packed bytes "
+          f"{qm.report.packed_weight_bytes}; memory_allocated {torch.cuda.memory_allocated()} B; "
+          f"expert act scales: we1 {blocks['we1'].act_scale}, we2 {blocks['we2'].act_scale} "
+          "(stamped as the reference stamps them, unused by the expert path)")
+
+    # static_generate, counted per model call, its kernel shapes tapped
+    setup = engine_mod.ServeSetup(cfg=cfg, mesh=None, max_len=LM_PROMPT + LM_NEW, batch=LM_BATCH)
+    tap = KernelTap()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with tap:
+        t0 = time.perf_counter()
+        new, phases = _phased(torch, lambda: engine_mod.static_generate(
+            setup, qm.params, {"tokens": prompts}, LM_NEW))
+        first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(zip(KERNEL_ROUTES, _counts()))
+    prefill_counts = _expected({"elp_bsd_matmul/wgmma": n_layers * MOE_PER_LAYER,
+                                "flash_attention/wgmma": n_layers})
+    step_counts = _expected({"fused_decode_matmul/wgmma": n_layers * MOE_PER_LAYER})
+    want_phases = [("prefill", prefill_counts)] + [("decode", step_counts)] * (LM_NEW - 1)
+    print(f"[moe] launches {KERNEL_ROUTES} by phase of the generate: prefill "
+          f"{phases[0][1] if phases else None}, decode steps "
+          f"{sorted(set(p_[1] for p_ in phases[1:]))} over {len(phases) - 1} steps (expected "
+          f"{prefill_counts} and {step_counts})")
+    if phases != want_phases:
+        failures.append(f"[moe] launch counts by phase {phases}")
+    if (tuple(new.shape) != (LM_BATCH, LM_NEW) or int(new.min()) < 0
+            or int(new.max()) >= cfg.vocab):
+        failures.append(f"[moe] generated tokens of shape {tuple(new.shape)} or out of the vocab")
+    t0 = time.perf_counter()
+    again = engine_mod.static_generate(setup, qm.params, {"tokens": prompts}, LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    if not torch.equal(again, new):
+        failures.append("[moe] a second generate gave other tokens")
+    print(f"[moe] generate ({LM_BATCH} prompts x {LM_PROMPT} tokens, {LM_NEW} new): first "
+          f"{first_s * 1e3:.1f} ms, second {gen_s * 1e3:.1f} ms; tokens/s "
+          f"{LM_BATCH * LM_NEW / gen_s:.1f} (second run); max_memory_allocated {peak} B")
+    p = qm.params
+    cache = transformer.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+    pre_ms, step_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(p, cfg, prompts, cache)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+        for i in range(3):
+            t0 = time.perf_counter()
+            logits, cache = transformer.decode_step(p, cfg, new[:, i:i + 1], cache, LM_PROMPT + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[moe] prefill ms at b{LM_BATCH} s{LM_PROMPT}: median {statistics.median(pre_ms):.2f} "
+          f"(runs {[round(t, 2) for t in pre_ms]}); decode ms/step at b{LM_BATCH}: median "
+          f"{statistics.median(step_ms):.2f} (min {min(step_ms):.2f}, max {max(step_ms):.2f})")
+    prof = _moe_profile(torch, transformer, p, cfg, prompts, new)
+    print(f"[moe] torch.profiler over 4 decode steps at b{LM_BATCH}: a step {prof['wall_ms']:.1f} "
+          f"ms wall, {prof['device_ms']:.1f} ms of device kernels; expert dequantize "
+          f"{prof['dq_ms']:.2f} device ms a step ({prof['dq_calls']} calls), expert bmm "
+          f"{prof['bmm_ms']:.2f} device ms a step ({prof['bmm_calls']} calls)")
+
+    # Teacher-forced on the generated tokens, every (token, layer) top-8 set
+    # recorded: first run free (the kernels against the plain versions, the
+    # positions routed alike), then with the routing forced to the plain run's.
+    plain_mm = (elp_bsd_matmul_plain, fused_decode_matmul_plain)
+    kernel_mm = (ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul)
+
+    def forced(mm, flash, *, steps=LM_NEW, force=None, fault=None):
+        with _swapped(mm, flash), RouteTap(force, fault) as rt:
+            logits_ = _teacher_forced(torch, transformer, p, cfg, prompts, new[:, :steps], cache)
+        return logits_, rt.ids
+
+    t0 = time.perf_counter()
+    _zero_counts()
+    p_logits, p_ids = forced(plain_mm, _plain_flash())
+    if any(_counts()):
+        failures.append(f"[moe] the plain run launched kernels {_counts()}")
+    _zero_counts()
+    k_logits, k_ids = forced(kernel_mm, transformer.flash_attention)
+    if _counts() != tuple(a + (LM_NEW - 1) * b for a, b in zip(prefill_counts, step_counts)):
+        failures.append(f"[moe] the teacher-forced kernel run launched {_counts()}")
+    n_sets = LM_BATCH * (LM_PROMPT + LM_NEW - 1) * n_layers
+    share, matched = _route_diff(k_ids, p_ids, n_layers, LM_BATCH)
+    rel, n_matched = _rel_where(k_logits, p_logits, matched)
+    ctl = MOE_CONTROL_STEPS * n_layers  # router calls of the controls' positions
+    f_logits, f_ids = forced((_f64_sum,) * 2, _flash_f64, steps=MOE_CONTROL_STEPS)
+    f_share, f_matched = _route_diff(f_ids, p_ids[:ctl], n_layers, LM_BATCH)
+    f_rel, f_n = _rel_where(f_logits, p_logits, f_matched)
+    print(f"[moe] routing run free, teacher-forced ({time.perf_counter() - t0:.1f} s): kernels vs "
+          f"plain versions: top-{cfg.topk} sets that differ {share:.3e} of {n_sets} (token, "
+          f"layer) sets; {n_matched}/{LM_BATCH * LM_NEW} positions routed alike in every layer, "
+          f"their max |logit diff| / max |logit| {rel:.3e} (limit {MOE_LOGIT_REL_TOL:g}), all "
+          f"positions {_rel(k_logits, p_logits):.3e}. Control, every kernel's function summed in "
+          f"float64 ({MOE_CONTROL_STEPS} positions): sets that differ {f_share:.3e}; "
+          f"{f_n}/{LM_BATCH * MOE_CONTROL_STEPS} positions alike, their logits {f_rel:.3e}")
+    if rel > MOE_LOGIT_REL_TOL or not n_matched:
+        failures.append(f"[moe] run free: logits at the {n_matched} positions routed alike "
+                        f"{rel:.3e}")
+    del k_logits, k_ids, f_logits, f_ids
+    k_logits, k_ids = forced(kernel_mm, transformer.flash_attention, force=p_ids)
+    share, _ = _route_diff(k_ids, p_ids, n_layers, LM_BATCH)
+    rel = _rel(k_logits, p_logits)
+    print(f"[moe] routing forced to the plain run's: kernels vs plain versions: each layer's own "
+          f"top-{cfg.topk} differs from the plain ids in {share:.3e} of {n_sets} (token, layer) "
+          f"sets (limit {ROUTE_FLIP_LIMIT:g}); max |logit diff| / max |logit| over all "
+          f"{LM_BATCH * LM_NEW} positions {rel:.3e} (limit {MOE_LOGIT_REL_TOL:g})")
+    if share > ROUTE_FLIP_LIMIT or rel > MOE_LOGIT_REL_TOL:
+        failures.append(f"[moe] routing forced, kernels vs plain: routing {share:.3e}, logits "
+                        f"{rel:.3e}")
+    del k_logits, k_ids
+    step_gen = torch.Generator(device=dev).manual_seed(7)
+    controls = [
+        ("noise", "every kernel's function summed in float64, rounded once",
+         (_f64_sum,) * 2, _flash_f64, None),
+        ("noise", "every matmul output moved one bf16 step up or down",
+         tuple(_bf16_step(f, step_gen) for f in plain_mm), _plain_flash(), None),
+        ("fault", "experts off by one (every routed id + 1)", plain_mm, _plain_flash(),
+         "off_by_one"),
+        ("fault", "routing to the top-k of the negated router logits", plain_mm, _plain_flash(),
+         "wrong_logits"),
+        ("fault", "the decode-step matmul skips its last 128 K rows",
+         (elp_bsd_matmul_plain, _skip_k_tail), _plain_flash(), None),
+    ]
+    for kind, label, mm, flash, fault in controls:
+        c_logits, c_ids = forced(mm, flash, steps=MOE_CONTROL_STEPS, force=p_ids, fault=fault)
+        c_share, _ = _route_diff(c_ids, p_ids[:ctl], n_layers, LM_BATCH)
+        c_rel = _rel(c_logits, p_logits)
+        print(f"[moe-control] routing forced, {kind}: {label}: own top-{cfg.topk} sets that differ "
+              f"{c_share:.3e} (limit {ROUTE_FLIP_LIMIT:g}); logits {c_rel:.3e} (limit "
+              f"{MOE_LOGIT_REL_TOL:g})")
+        if kind == "fault" and not (c_share > ROUTE_FLIP_LIMIT or c_rel > MOE_LOGIT_REL_TOL):
+            failures.append(f"[moe] the routing and logit gates do not see the fault: {label}")
+        del c_logits, c_ids
+    del p_logits, p_ids
+    torch.cuda.empty_cache()
+    hold_tapped(torch, dev, "moe static_generate", tap, rows, failures)
+
+    # The engine on the engine phase's traffic: (a) dense through
+    # QuantizedModel.serve, (b) the paged static int8 cache.
+    reqs = engine_requests(cfg.vocab)
+    scales = calibrate_kv_cache(qm.params, cfg, calib)
+    geom = dict(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN)
+    runs = [
+        ("moe (a) dense, QuantizedModel.serve", False, None,
+         lambda reg, log: qm.serve(reqs, metrics=reg, trace=log, **geom)),
+        ("moe (b) paged int8", True, scales,
+         lambda reg, log: engine_mod.ServeEngine(cfg, qm.params, metrics=reg, trace=log, **geom,
+                                                 kv_cache="paged", page_size=ENGINE_PAGE,
+                                                 kv_scales=scales).serve(reqs)),
+    ]
+    total = collections.Counter(launches)
+    for label, is_paged, kv, run in runs:
+        outs, eng, got = _serve_run(torch, label, run, reqs, failures, tap, paged=is_paged,
+                                    per_layer=MOE_PER_LAYER)
+        total.update(got)
+        del eng
+        t0 = time.perf_counter()
+        _engine_held(torch, label, _forced_pair(torch, qm.params, cfg, reqs, outs, kv, failures),
+                     outs, failures, gate_tokens=False, tol=MOE_LOGIT_REL_TOL)
+        print(f"[moe] {label}: teacher-forced checks {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    hold_tapped(torch, dev, "moe engine (a)-(b)", tap, rows, failures)
+    del qm, p, cache
+    torch.cuda.empty_cache()
+    print(f"[time] moe phase: {time.perf_counter() - t_phase:.1f} s")
+    return {k: total[k] for k in KERNEL_ROUTES}
+
+
+def vlm_phase(torch, dev, failures, rows) -> dict:
+    """internvl2-26b at full width, VLM_LAYERS of its 48 layers: seeded params,
+    api.quantize, static_generate on frontend batches (launches per prefill and
+    decode step exact: frontend_proj and the block matmuls on the tiled route),
+    teacher-forced kernels vs plain under the LM gate with a planted fault; every
+    kernel shape held against its plain version. Returns the phase's launches."""
+    import repro_torch.models.transformer as transformer
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul_plain
+    from repro_torch.kernels.fused_decode import fused_decode_matmul_plain
+
+    t_phase = time.perf_counter()
+    resident = _collect(torch)
+    full = get_config("internvl2_26b")
+    cfg = dataclasses.replace(full, n_layers=VLM_LAYERS)
+    n_front = cfg.frontend_tokens
+    params = transformer.init_params(cfg, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    calib = torch.randint(0, cfg.vocab, (2, 4, VLM_TEXT), device=dev, generator=gen)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (VLM_BATCH, VLM_TEXT), device=dev,
+                                     generator=gen),
+             "frontend": torch.randn(VLM_BATCH, n_front, cfg.d_model, device=dev,
+                                     generator=gen).to(cfg.dtype)}
+    t0 = time.perf_counter()
+    qm = api.quantize(cfg, params, api.QuantScheme(fmt="elp4", act="static"), calib_data=calib)
+    torch.cuda.synchronize()
+    print(f"[vlm] {cfg.name}: full width, {VLM_LAYERS} of {full.n_layers} layers (48 are about "
+          f"{full.param_count() * 2 / 1e9:.0f} GB in bf16); conversion s "
+          f"{time.perf_counter() - t0:.2f}; frontend {n_front} embeddings + {VLM_TEXT} tokens, "
+          f"batch {VLM_BATCH}; memory_allocated before the phase {resident} B")
+    del params
+    torch.cuda.empty_cache()
+    n = n_front + VLM_TEXT
+    setup = engine_mod.ServeSetup(cfg=cfg, mesh=None, max_len=n + VLM_NEW, batch=VLM_BATCH)
+    tap = KernelTap()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with tap:
+        t0 = time.perf_counter()
+        new, phases = _phased(torch, lambda: engine_mod.static_generate(setup, qm.params, batch,
+                                                                          VLM_NEW))
+        gen_s = time.perf_counter() - t0
+    launches = dict(zip(KERNEL_ROUTES, _counts()))
+    prefill_counts = _expected({"elp_bsd_matmul/wgmma": VLM_LAYERS * VLM_PER_LAYER + 1,
+                                "flash_attention/wgmma": VLM_LAYERS})
+    step_counts = _expected({"fused_decode_matmul/wgmma": VLM_LAYERS * VLM_PER_LAYER})
+    print(f"[vlm] launches {KERNEL_ROUTES} by phase: prefill {phases[0][1] if phases else None}, "
+          f"decode steps {sorted(set(p_[1] for p_ in phases[1:]))} over {len(phases) - 1} steps "
+          f"(expected {prefill_counts} and {step_counts}); generate {gen_s * 1e3:.1f} ms, "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated()} B")
+    if phases != [("prefill", prefill_counts)] + [("decode", step_counts)] * (VLM_NEW - 1):
+        failures.append(f"[vlm] launch counts by phase {phases}")
+    if tuple(new.shape) != (VLM_BATCH, VLM_NEW) or int(new.max()) >= cfg.vocab:
+        failures.append(f"[vlm] generated tokens of shape {tuple(new.shape)}")
+    p = qm.params
+    cache = transformer.init_cache(cfg, VLM_BATCH, n + VLM_NEW)
+    pre_ms, step_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, cache = transformer.prefill(p, cfg, batch["tokens"], cache, frontend=batch["frontend"])
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+        for i in range(3):
+            t0 = time.perf_counter()
+            transformer.decode_step(p, cfg, new[:, i:i + 1], cache, n + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[vlm] prefill ms at b{VLM_BATCH} s{n}: median {statistics.median(pre_ms):.2f}; "
+          f"decode ms/step median {statistics.median(step_ms):.2f}")
+
+    def forced(mm, flash):
+        with _swapped(mm, flash):
+            logits, c = transformer.prefill(p, cfg, batch["tokens"], cache,
+                                            frontend=batch["frontend"])
+            out = [logits]
+            for i in range(VLM_NEW - 1):
+                logits, c = transformer.decode_step(p, cfg, new[:, i:i + 1], c, n + i)
+                out.append(logits)
+        return out
+
+    import repro_torch.kernels.ops as ops_mod
+
+    plain_mm = (elp_bsd_matmul_plain, fused_decode_matmul_plain)
+    k_logits = forced((ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul),
+                      transformer.flash_attention)
+    p_logits = forced(plain_mm, _plain_flash())
+    rel = _rel(k_logits, p_logits)
+    per_pos = [(a - b).abs().max().item() / b.abs().max().item()
+               for a, b in zip(k_logits, p_logits)]
+    agree = sum(int((new[:, j] == pl[:, -1].argmax(-1)).sum()) for j, pl in enumerate(p_logits))
+    print(f"[vlm] kernels vs plain versions, teacher-forced: {rel:.3e} of max |logit| (limit "
+          f"{VLM_LOGIT_REL_TOL:g}; per position {[f'{r:.2e}' for r in per_pos]}); greedy = "
+          f"plain argmax at {agree}/{VLM_BATCH * VLM_NEW}")
+    if rel > VLM_LOGIT_REL_TOL:
+        failures.append(f"[vlm] logits: kernels vs plain {rel:.3e}")
+    step_gen = torch.Generator(device=dev).manual_seed(9)
+    controls = [
+        ("noise", "every kernel's function summed in float64, rounded once",
+         (_f64_sum,) * 2, _flash_f64),
+        ("noise", "every matmul output moved one bf16 step up or down",
+         tuple(_bf16_step(f, step_gen) for f in plain_mm), _plain_flash()),
+        ("fault", "the decode-step matmul skips its last 128 K rows",
+         (elp_bsd_matmul_plain, _skip_k_tail), _plain_flash()),
+        ("subtle fault", "flash lets each query see the next key", plain_mm,
+         _plain_flash(shift=1)),
+        ("fault", "flash lets each query see the next 128 keys", plain_mm,
+         _plain_flash(shift=128)),
+    ]
+    for kind, label, mm, flash in controls:
+        r = _rel(forced(mm, flash), p_logits)
+        print(f"[vlm-control] {kind}: {label}: {r:.3e} of max |logit| (limit "
+              f"{VLM_LOGIT_REL_TOL:g})")
+        if kind == "fault" and r <= VLM_LOGIT_REL_TOL:
+            failures.append(f"[vlm] the logit gate does not see the planted fault: {label}")
+    hold_tapped(torch, dev, "vlm static_generate", tap, rows, failures)
+    del qm, p, cache, k_logits, p_logits
+    torch.cuda.empty_cache()
+    print(f"[time] vlm phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # The Sec. V slice. AC is the search's own accuracy budget (QuantScheme.ac):
@@ -2079,6 +2647,10 @@ def main() -> int:
     # -- phase 6: the LM main path, and phase 7: its kernels held on the card -----
     lm_launches, engine_launches = lm_main_path(torch, dev, failures, rows)
 
+    # -- phase 7b: the MoE family (olmoe-1b-7b) and the VLM stub (internvl2-26b) ----
+    moe_launches = moe_phase(torch, dev, failures, rows)
+    vlm_launches = vlm_phase(torch, dev, failures, rows)
+
     # -- phase 8: the reduced LM on the card against the CPU -----------------------
     lm_card_vs_cpu(torch, dev, failures)
     print(f"[time] total {time.perf_counter() - t_start:.1f} s")
@@ -2116,7 +2688,7 @@ def main() -> int:
             "source": sources[name][0],
             "replaces": sources[name][1],
             "launches": (cnn_launches.get(name, 0) + lm_launches[name] + sec5_launches[name]
-                         + engine_launches[name]),
+                         + engine_launches[name] + moe_launches[name] + vlm_launches[name]),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": wsum("ms"),
             "plain_ms": wsum("plain_ms"),

@@ -48,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import math
 import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Mapping
@@ -152,7 +153,7 @@ def _encoded_bytes(tree: dict) -> int:
     for leaf in tree_leaves(tree):
         if isinstance(leaf, PackedWeight):
             k, n = leaf.shape
-            stack = leaf.n_layers or 1
+            stack = math.prod(leaf.codes.shape[:-2])
             total += storage_bytes(stack * k * n, leaf.fmt) + leaf.sf.numel() * 4
         else:
             total += leaf.numel() * leaf.element_size()
@@ -164,6 +165,14 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
         return x.to(device)
     a = np.asarray(x)
     return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
+
+
+def _batch_to_device(batch, device: torch.device):
+    """Token ids, or a batch dict (``"tokens"``; a ``vlm`` model's ``"frontend"``), on
+    ``device``."""
+    if isinstance(batch, dict):
+        return {k: _to_device(v, device) for k, v in batch.items()}
+    return _to_device(batch, device)
 
 
 def _tree_to_device(tree, device: torch.device):
@@ -320,7 +329,8 @@ class QuantizedModel:
                               table=self.table, report=self.report, verify_params=verify)
 
     def forward(self, x, *, impl: str | None = None, block_sizes=None) -> torch.Tensor:
-        """Images ``[B, H, W, C]`` -> logits (CNN), tokens ``[B, S]`` -> last logits (LM).
+        """Images ``[B, H, W, C]`` -> logits (CNN), tokens ``[B, S]`` -> last logits (LM;
+        a ``vlm`` model takes a batch dict with ``"tokens"`` and ``"frontend"``).
 
         The scheme's activation policy applies: static schemes quantize
         against the calibration table, dynamic ones per tensor at
@@ -336,7 +346,7 @@ class QuantizedModel:
                     "impl/block_sizes are CNN execution overrides; the LM path picks its "
                     "matmul kernel from the row count (models/layers.matmul)"
                 )
-            return self.adapter.forward(self.params, _to_device(x, self.device))
+            return self.adapter.forward(self.params, _batch_to_device(x, self.device))
         calib = act_bits = None
         if self.scheme.act == "static":
             calib = self.table
@@ -368,10 +378,7 @@ class QuantizedModel:
         """
         if self.adapter.kind != "lm":
             return self.adapter.generate(self.params, batch, max_new_tokens)  # raises
-        if isinstance(batch, dict):
-            batch = {k: _to_device(v, self.device) for k, v in batch.items()}
-        else:
-            batch = _to_device(batch, self.device)
+        batch = _batch_to_device(batch, self.device)
         if self.scheme.spec_k:
             return self.adapter.generate(
                 self.verify_params, batch, max_new_tokens, greedy=greedy, generator=generator,

@@ -320,16 +320,18 @@ def pack_lm_params(
     return stamp_lm_act(packed, calib) if calib is not None else packed
 
 
-# Families whose forward supports the activation-tap contract, of those ported.
-_LM_TAP_FAMILIES = ("dense",)
+# Families whose forward supports the activation-tap contract (they run
+# through models/transformer.py).
+_LM_TAP_FAMILIES = ("dense", "moe", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
 class LmAdapter:
     """Decoder LMs (an ``ArchConfig`` of a ported family) behind the façade.
 
-    ``forward(tokens)`` is a fresh-cache prefill returning the last
-    position's logits. Static activation scales are baked into the
+    ``forward(tokens)`` (or a batch dict with ``"tokens"`` and, for a
+    ``vlm`` model, ``"frontend"``) is a fresh-cache prefill returning the
+    last position's logits. Static activation scales are baked into the
     PackedWeights at pack time.
     """
 

@@ -113,10 +113,10 @@ def calibrate_lm(
 
     Taps the embedding output, the stacked per-layer residual streams
     (``"blocks"``), the per-matmul input sites (``"attn_in"``,
-    ``"attn_mix"``, ``"ffn_in"``, ``"ffn_hidden"``) and the final
-    pre-unembed activation of the cache-less forward; the packed weights'
-    static activation scales are resolved against these sites
-    (:func:`repro_torch.api_schemes.stamp_lm_act`).
+    ``"attn_mix"``, ``"ffn_in"``, and for a dense MLP ``"ffn_hidden"``)
+    and the final pre-unembed activation of the cache-less token-only
+    forward; the packed weights' static activation scales are resolved
+    against these sites (:func:`repro_torch.api_schemes.stamp_lm_act`).
     """
     from repro_torch.models import transformer
 

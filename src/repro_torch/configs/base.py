@@ -81,6 +81,15 @@ class ArchConfig:
         emb = self.vocab * d * (1 if self.tie_embeddings else 2)
         return emb + (self.n_layers + self.n_dec_layers) * block
 
+    def active_param_count(self) -> int:
+        """Activated params per token (MoE uses top-k experts only)."""
+        if not self.is_moe:
+            return self.param_count()
+        per_ff = 3 if self.mlp_kind == "swiglu" else 2
+        dense_ffn = self.n_experts * per_ff * self.d_model * self.d_ff
+        active_ffn = self.topk * per_ff * self.d_model * self.d_ff
+        return self.param_count() - self.n_layers * (dense_ffn - active_ffn)
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (the JAX package's dims)."""
         return dataclasses.replace(

@@ -2,7 +2,8 @@
 
 The JAX package and this port use the same layouts (NHWC activations,
 HWIO conv weights, ``[in, out]`` matmul weights, ``[K, N]`` or nibble
-``[ceil(K/2), N]`` codes, stacked ``[L, ...]`` LM block leaves), so a
+``[ceil(K/2), N]`` codes, stacked ``[L, ...]`` LM block leaves and
+``[L, E, ...]`` MoE expert stacks), so a
 parameter tree or a packed weight moves across as its arrays. Nothing
 here imports the JAX package: the caller hands over ``np.asarray`` of its
 leaves, or packed-weight records whose ``codes``/``sf`` are arrays.
@@ -28,8 +29,9 @@ def params_from_numpy(tree: Mapping, device=None) -> dict:
     ``tree`` is a dict, nested as the JAX package nests it (an LM's
     ``embed``, ``blocks.*`` stacked ``[L, ...]``, ``final_norm``,
     ``lm_head``). Each leaf is an array (anything ``np.asarray`` takes) or
-    a packed-weight record with ``codes`` (``[K', N]`` or stacked
-    ``[L, K', N]``), ``sf``, ``fmt_name``, ``nibble``, ``shape`` and the
+    a packed-weight record with ``codes`` (``[K', N]``, stacked
+    ``[L, K', N]`` or an expert stack ``[L, E, K', N]``), ``sf``,
+    ``fmt_name``, ``nibble``, ``shape`` and the
     optional ``source_shape``/``act_scale``/``act_bits``, which becomes a
     :class:`PackedWeight` (:func:`packed_from_numpy`).
     """
@@ -63,8 +65,9 @@ def packed_from_numpy(
 ) -> PackedWeight:
     """A :class:`PackedWeight` from the JAX package's numpy codes and scale factors.
 
-    ``codes`` is ``[K', N]`` or a stacked ``[L, K', N]`` (``sf`` then
-    ``[L, 1, 1]``); ``shape`` is the logical ``(K, N)`` of one slice.
+    ``codes`` is ``[K', N]``, a stacked ``[L, K', N]`` (``sf`` then
+    ``[L, 1, 1]``) or an expert stack ``[L, E, K', N]`` (``sf``
+    ``[L, E, 1, 1]``); ``shape`` is the logical ``(K, N)`` of one slice.
     """
     device = resolve_device(device)
     codes = np.asarray(codes)

@@ -34,13 +34,14 @@ IMPLS = ("auto", "tiled", "fused")
 
 @dataclasses.dataclass
 class PackedWeight:
-    """ELP_BSD-encoded weight matrix ``[K, N]``, or a stack ``[L, K, N]`` of them.
+    """ELP_BSD-encoded weight matrix ``[K, N]``, or a stack of them.
 
     Attributes:
       codes: uint8 ``[K, N]`` (u8 mode) or ``[ceil(K/2), N]`` (nibble mode),
-        with a leading layer axis for a stacked LM leaf.
+        with a leading layer axis ``[L, K', N]`` for a stacked LM leaf, and
+        layer and expert axes ``[L, E, K', N]`` for an MoE expert stack.
       sf: float32 scale factors, ``[1, 1]`` per tensor or ``[1, N]`` per
-        output channel; ``[L, 1, 1]`` per layer slice of a stack.
+        output channel; ``[L, 1, 1]`` (``[L, E, 1, 1]``) per slice of a stack.
       fmt_name: a preset format name.
       nibble: whether codes are nibble-packed along K.
       shape: logical ``(K, N)``.
@@ -71,18 +72,22 @@ class PackedWeight:
 
     @property
     def n_layers(self) -> int | None:
-        """Slices of a stacked leaf (codes ``[L, K', N]``), None for one matrix."""
-        return self.codes.shape[0] if self.codes.ndim == 3 else None
+        """Layers of a stacked leaf (codes ``[L, K', N]`` or ``[L, E, K', N]``), None for
+        one matrix."""
+        return self.codes.shape[0] if self.codes.ndim >= 3 else None
 
     def layer(self, i: int) -> "PackedWeight":
-        """Slice ``i`` of a stacked leaf as one ``[K', N]`` weight, sharing storage (no copy).
+        """Layer ``i`` of a stacked leaf, sharing storage (no copy).
 
-        The codes become ``[K', N]`` and ``sf`` its one element, so the
-        slice goes through :func:`quantized_matmul` like any single weight.
+        An ``[L, K', N]`` leaf gives one ``[K', N]`` weight (``sf`` its one
+        element), which goes through :func:`quantized_matmul` like any single
+        weight; an ``[L, E, K', N]`` expert stack gives the layer's
+        ``[E, K', N]`` stack (``sf`` ``[E, 1, 1]``), which :func:`dequantize`
+        decodes whole.
         """
-        if self.codes.ndim != 3:
-            raise ValueError(f"layer() slices a stacked [L, K', N] leaf; codes are "
-                             f"{tuple(self.codes.shape)}")
+        if self.codes.ndim not in (3, 4):
+            raise ValueError(f"layer() slices a stacked [L, K', N] or [L, E, K', N] leaf; "
+                             f"codes are {tuple(self.codes.shape)}")
         return dataclasses.replace(self, codes=self.codes[i], sf=self.sf[i])
 
 

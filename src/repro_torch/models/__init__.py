@@ -1,7 +1,8 @@
-"""Models: the paper's CNNs (``cnn``) and the decoder LM (``transformer``).
+"""Models: the paper's CNNs (``cnn``) and the decoder LM (``transformer``, ``moe``).
 
 :func:`get_model` is the JAX package's family registry, for the families
-ported so far::
+ported so far (``dense``, ``moe`` and ``vlm``, all through
+:mod:`~repro_torch.models.transformer`)::
 
     api = get_model(cfg)
     params = api.init_params(cfg, seed, device=...)
@@ -9,7 +10,11 @@ ported so far::
     logits, cache = api.prefill(params, cfg, batch, cache)
     logits, cache = api.decode_step(params, cfg, token, cache, pos)
 
-``batch`` is a dict with ``"tokens"``.
+``batch`` is a dict with ``"tokens"`` and, for a ``vlm`` model,
+``"frontend"`` (precomputed patch embeddings, the stub frontend). The
+``ssm``, ``hybrid``, ``encdec`` and ``audio`` families raise
+(ROADMAP.md, queue 1 item 5, next); ``loss_fn`` raises until training is
+ported (queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -44,7 +49,7 @@ def _tf_api() -> ModelApi:
     return ModelApi(transformer.init_params, loss, transformer.init_cache, prefill, decode)
 
 
-_FAMILIES = {"dense": _tf_api}
+_FAMILIES = {"dense": _tf_api, "moe": _tf_api, "vlm": _tf_api}
 
 
 def get_model(cfg) -> ModelApi:
@@ -52,6 +57,6 @@ def get_model(cfg) -> ModelApi:
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported to repro_torch yet (ported: "
-            f"{sorted(_FAMILIES)}); see ROADMAP.md (queue 1 item 5)"
+            f"{sorted(_FAMILIES)}); see ROADMAP.md (queue 1 item 5, next)"
         )
     return _FAMILIES[cfg.family]()

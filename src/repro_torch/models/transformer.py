@@ -1,9 +1,11 @@
 """Decoder LM: init, the block stack, prefill and decode over a KV cache.
 
-The decoder-LM subset of the JAX package's ``repro/models/transformer.py``
-for the ``dense`` family (GQA attention with optional QK-norm, RoPE, a
-SwiGLU/GeGLU/GELU MLP), with the same parameter tree, cache layouts and
-tap sites. Block parameters are stacked on a leading ``[L, ...]`` axis as
+The decoder-LM part of the JAX package's ``repro/models/transformer.py``
+for the ``dense``, ``moe`` and ``vlm`` families (GQA attention with
+optional QK-norm, RoPE, a SwiGLU/GeGLU/GELU MLP or the MoE FFN of
+:mod:`repro_torch.models.moe`, the stub modality frontend's projection),
+with the same parameter tree, cache layouts and tap sites. Block
+parameters are stacked on a leading ``[L, ...]`` axis as
 in the JAX package; where it runs ``lax.scan`` over them this module runs
 a Python loop over per-layer views (a float leaf's ``[i]``, a packed
 leaf's :meth:`~repro_torch.kernels.ops.PackedWeight.layer`), so no layer's
@@ -27,10 +29,12 @@ them from the keys):
 Unlike the JAX package, which returns a new cache from every call, the
 port writes the new entries into the cache tensors in place (a full-width
 cache is gigabytes, and a copy per step would double it) and returns the
-same dict. The ``pctx`` multi-device context, flash-decode,
-cross-attention, MoE and modality frontends are not ported (ROADMAP.md,
-queue 1 items 5-6); inputs that select them raise
-``NotImplementedError``.
+same dict. A ``vlm`` model's frontend is the reference's stub: the caller
+hands over precomputed patch embeddings ``[B, F, D]``, which
+``frontend_proj`` maps and prepends to the token embeddings. Not ported:
+the ``pctx`` multi-device context and flash-decode (ROADMAP.md, queue 1
+item 6) and cross-attention (the enc-dec family, queue 1 item 5); inputs
+that select them raise ``NotImplementedError``.
 
 Prefill attention (the non-decode, unwindowed, causal case) goes through
 :func:`repro_torch.kernels.flash_attention.flash_attention`: the CUDA
@@ -42,6 +46,8 @@ in torch ops, as the JAX package leaves it to XLA.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -49,6 +55,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import full_f32, resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ops import PackedWeight
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     apply_rope,
     attention_chunked,
@@ -70,11 +77,10 @@ CHUNKED_ATTN_THRESHOLD = 4096
 ATTN_CHUNK = 1024
 FLASH_BLOCK = 128  # the flash kernel's sequence block (callers pad to it)
 
-_NOT_PORTED = "not ported to repro_torch yet; see ROADMAP.md (queue 1 items 5-6)"
 
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is {_NOT_PORTED}")
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet; see ROADMAP.md (queue 1 item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -83,23 +89,26 @@ def _not_ported(what: str) -> NotImplementedError:
 def init_block_params(
     cfg: ArchConfig, gen: torch.Generator, n_layers: int, *, cross: bool = False
 ) -> dict[str, torch.Tensor]:
-    """Stacked parameters for ``n_layers`` transformer blocks (dense family), on ``gen``'s device.
+    """Stacked parameters for ``n_layers`` transformer blocks, on ``gen``'s device.
 
-    Each ``[L, in, out]`` leaf is drawn one layer slice at a time, so only
-    one slice's float32 draw is alive besides the stack.
+    Each ``[L, in, out]`` leaf is drawn one layer slice at a time, and an
+    MoE expert stack ``[L, E, in, out]`` one ``(layer, expert)`` slice at a
+    time, so only one slice's float32 draw is alive besides the stack.
     """
     if cross:
-        raise _not_ported("cross-attention (the enc-dec family)")
-    if cfg.is_moe:
-        raise _not_ported("the MoE family")
+        raise _not_ported("cross-attention (the enc-dec family)", 5)
     d, hd, h, kv, ff = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     dt = cfg.dtype
     device = gen.device
 
-    def stack(shape):
+    def stack(shape, scale=1.0):
         out = torch.empty((n_layers, *shape), dtype=dt, device=device)
         for i in range(n_layers):
-            out[i] = dense_init(gen, shape, dt)
+            if len(shape) == 3:
+                for j in range(shape[0]):
+                    out[i, j] = dense_init(gen, shape[1:], dt, scale)
+            else:
+                out[i] = dense_init(gen, shape, dt, scale)
         return out
 
     p = {
@@ -113,10 +122,20 @@ def init_block_params(
     if cfg.qk_norm:
         p["qnorm"] = torch.zeros((n_layers, hd), dtype=dt, device=device)
         p["knorm"] = torch.zeros((n_layers, hd), dtype=dt, device=device)
-    p["w1"] = stack((d, ff))
-    p["w2"] = stack((ff, d))
-    if cfg.mlp_kind in ("swiglu", "geglu"):
-        p["w3"] = stack((d, ff))
+    if cfg.is_moe:
+        e = cfg.n_experts
+        p["router"] = stack((d, e))
+        # The reference draws each layer's [E, in, out] stack with dense_init,
+        # whose fan-in is the first dim: E. A slice's draw at fan-in `in`
+        # takes scale sqrt(in / E) for the same std, 1 / sqrt(E).
+        p["we1"] = stack((e, d, ff), math.sqrt(d / e))
+        p["we3"] = stack((e, d, ff), math.sqrt(d / e))
+        p["we2"] = stack((e, ff, d), math.sqrt(ff / e))
+    else:
+        p["w1"] = stack((d, ff))
+        p["w2"] = stack((ff, d))
+        if cfg.mlp_kind in ("swiglu", "geglu"):
+            p["w3"] = stack((d, ff))
     return p
 
 
@@ -129,10 +148,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     card), so the numbers differ from the JAX package's; the shapes, names
     and distributions are the same.
     """
-    if cfg.family != "dense":
-        raise _not_ported(f"the {cfg.family!r} family")
-    if cfg.frontend_tokens:
-        raise _not_ported("the modality frontend")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise _not_ported(f"the {cfg.family!r} family", 5)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     p = {
@@ -142,6 +159,9 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), cfg.dtype)
+    if cfg.frontend_tokens:
+        # the stub modality frontend: callers supply precomputed patch embeddings
+        p["frontend_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model), cfg.dtype)
     return p
 
 
@@ -389,9 +409,9 @@ def _attention(
     ``"k_cache"``/``"v_cache"``.
     """
     if kv_override is not None or prefix != "w":
-        raise _not_ported("cross-attention (kv_override)")
+        raise _not_ported("cross-attention (kv_override)", 5)
     if pctx is not None:
-        raise _not_ported("the multi-device ParallelCtx (pctx)")
+        raise _not_ported("the multi-device ParallelCtx (pctx)", 6)
     if kv_layout not in _CACHE_KEYS:
         raise ValueError(f"unknown KV-cache layout {kv_layout!r}")
     b, s, _ = x.shape
@@ -488,16 +508,15 @@ def block_apply(
     acts: dict | None = None,
     tap_kv: bool = False,
 ) -> tuple[torch.Tensor, tuple | None]:
-    """Pre-norm transformer block: attention + MLP.
+    """Pre-norm transformer block: attention + MLP or MoE.
 
     ``acts`` records the inputs of the block's matmuls: ``"attn_in"``
     (post-ln1, feeds wq/wk/wv), ``"attn_mix"`` (feeds wo), ``"ffn_in"``
-    (post-ln2, feeds w1/w3) and ``"ffn_hidden"`` (feeds w2).
+    (post-ln2, feeds w1/w3 or the router and experts) and ``"ffn_hidden"``
+    (feeds w2; the dense MLP only).
     """
     if enc_out is not None:
-        raise _not_ported("cross-attention (enc_out)")
-    if cfg.is_moe:
-        raise _not_ported("the MoE family")
+        raise _not_ported("cross-attention (enc_out)", 5)
     attn_in = rms_norm(x, lp["ln1"])
     if acts is not None:
         acts["attn_in"] = attn_in
@@ -509,7 +528,13 @@ def block_apply(
     ffn_in = rms_norm(x, lp["ln2"])
     if acts is not None:
         acts["ffn_in"] = ffn_in
-    return x + mlp_apply(lp, ffn_in, cfg.mlp_kind, acts=acts), new_cache
+    if cfg.is_moe:
+        b, s, d = ffn_in.shape
+        y = moe_lib.moe_apply({k: lp[k] for k in ("router", "we1", "we3", "we2")},
+                              ffn_in.reshape(b * s, d), cfg, pctx).reshape(b, s, d)
+    else:
+        y = mlp_apply(lp, ffn_in, cfg.mlp_kind, acts=acts)
+    return x + y, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -579,9 +604,14 @@ def stack_apply(
 # Decoder LM public API
 # ---------------------------------------------------------------------------
 def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor, frontend=None) -> torch.Tensor:
+    """Token embeddings ``[B, S, D]``; with ``frontend`` (precomputed patch embeddings
+    ``[B, F, D]``) their ``frontend_proj`` image prepended: ``[B, F + S, D]``."""
+    dev = params["embed"].device
+    x = params["embed"][torch.as_tensor(tokens).to(dev).long()].to(cfg.dtype)
     if frontend is not None:
-        raise _not_ported("the modality frontend")
-    return params["embed"][tokens.to(params["embed"].device).long()].to(cfg.dtype)
+        fe = matmul(torch.as_tensor(frontend).to(dev).to(cfg.dtype), params["frontend_proj"])
+        x = torch.cat([fe, x], dim=1)
+    return x
 
 
 def unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -599,7 +629,7 @@ def unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params, cfg: ArchConfig, tokens, *, frontend=None, pctx=None, tap=None,
             tap_kv: bool = False) -> torch.Tensor:
-    """Cache-less forward: logits ``[B, S, V]`` (float32).
+    """Cache-less forward: logits ``[B, S(+F), V]`` (float32).
 
     ``tap`` is the activation-tap hook of the calibration contract: sites
     ``"embed"``, ``"blocks"`` (stacked block outputs ``[L, B, S, D]``), the
@@ -622,7 +652,8 @@ def forward(params, cfg: ArchConfig, tokens, *, frontend=None, pctx=None, tap=No
 
 
 def prefill(params, cfg: ArchConfig, tokens, cache: dict, *, frontend=None, pctx=None):
-    """Fill the cache with the prompt; return the last position's logits and the cache."""
+    """Fill the cache with the prompt (after the ``frontend`` embeddings, if any);
+    return the last position's logits and the cache."""
     with torch.no_grad():
         x = embed_tokens(params, cfg, tokens, frontend)
         x, cache = stack_apply(params["blocks"], cfg, x, causal=True, window=cfg.window,

@@ -11,8 +11,10 @@ while only one slice's float32 copy and its sort and rank temporaries sit
 on the device (a full-width qwen3-8b ``w1`` stack is ``[36, 4096, 12288]``,
 7.2 GB in float32).
 
-What gets encoded: the matmul leaves named in :data:`QUANTIZABLE`.
-Embeddings, the LM head, norms and biases stay in the model dtype.
+What gets encoded: the matmul leaves named in :data:`QUANTIZABLE`, the
+MoE expert stacks ``we1``/``we3``/``we2`` ``[L, E, K, N]`` among them (one
+scale factor per ``[K, N]`` slice). Embeddings, the LM head, routers,
+norms and biases stay in the model dtype.
 The JAX package's deprecated ``quantize_params_for_serving`` is not
 ported: :func:`repro_torch.api.quantize` is the entry point.
 """
@@ -44,29 +46,36 @@ ACT_SITE_BY_LEAF = {
 def quantize_stacked(
     w: torch.Tensor, fmt: ElpBsdFormat, *, compensate: bool = True, nibble: bool | None = None
 ) -> PackedWeight:
-    """Encode ``w[L, K, N]`` (or one ``[K, N]``) with one scale factor per slice.
+    """Encode ``w[..., K, N]`` with one scale factor per ``[K, N]`` slice.
 
-    Encodes slice by slice into preallocated stacked codes ``[L, K', N]``
-    and scale factors ``[L, 1, 1]``, identical to converting the whole
-    stack at once at ``granularity="per_slice"``.
+    Takes one ``[K, N]`` matrix, a layer stack ``[L, K, N]`` or an MoE
+    expert stack ``[L, E, K, N]``. Encodes slice by slice into preallocated
+    stacked codes ``[..., K', N]`` and scale factors ``[..., 1, 1]``,
+    identical to converting the whole stack at once at
+    ``granularity="per_slice"`` (Algorithm 1 groups the contracting rows of
+    each slice's columns, so no two slices interact).
     """
     if w.ndim == 2:
         return pack_weight(w.to(torch.float32), fmt, compensate=compensate,
                            granularity="per_slice", nibble=nibble)[0]
-    if w.ndim != 3:
-        raise ValueError(f"quantize_stacked takes [L, K, N] or [K, N]; got {tuple(w.shape)}")
+    if w.ndim not in (3, 4):
+        raise ValueError(f"quantize_stacked takes [K, N], [L, K, N] or [L, E, K, N]; "
+                         f"got {tuple(w.shape)}")
+    lead = w.shape[:-2]
+    slices = w.reshape(-1, *w.shape[-2:])
     codes = sf = first = None
-    for i in range(w.shape[0]):
-        pw, _ = pack_weight(w[i].to(torch.float32), fmt, compensate=compensate,
+    for i in range(slices.shape[0]):
+        pw, _ = pack_weight(slices[i].to(torch.float32), fmt, compensate=compensate,
                             granularity="per_slice", nibble=nibble)
         if codes is None:
             first = pw
-            codes = torch.empty((w.shape[0], *pw.codes.shape), dtype=torch.uint8, device=w.device)
-            sf = torch.empty((w.shape[0], 1, 1), dtype=torch.float32, device=w.device)
+            codes = torch.empty((slices.shape[0], *pw.codes.shape), dtype=torch.uint8,
+                                device=w.device)
+            sf = torch.empty((slices.shape[0], 1, 1), dtype=torch.float32, device=w.device)
         codes[i] = pw.codes
         sf[i] = pw.sf.reshape(1, 1)
-    return PackedWeight(codes=codes, sf=sf, fmt_name=first.fmt_name, nibble=first.nibble,
-                        shape=first.shape)
+    return PackedWeight(codes=codes.reshape(*lead, *codes.shape[1:]), sf=sf.reshape(*lead, 1, 1),
+                        fmt_name=first.fmt_name, nibble=first.nibble, shape=first.shape)
 
 
 def packed_bytes(params) -> int:

@@ -50,9 +50,12 @@ logs per-request span events; ``profile=ProfileHook(dir, n)`` captures a
 ``torch.profiler`` trace around the first ``n`` decode dispatches. All
 three default to off.
 
-Not ported (ROADMAP.md, queue 1 items 5-6): device meshes (``mesh`` is
-None, or ``"auto"``, which resolves to None on one card), flash-decode and
-the MoE family; they raise ``NotImplementedError``.
+The engine serves the ``dense``, ``moe`` and ``vlm`` families (an MoE
+model through the dense MoE form, :func:`repro_torch.models.moe.moe_dense`,
+as the JAX package serves it without a mesh); frontend (``vlm``) prompts
+take :func:`static_generate`. Not ported (ROADMAP.md, queue 1 item 6):
+device meshes (``mesh`` is None, or ``"auto"``, which resolves to None on
+one card) and flash-decode; they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -72,11 +75,11 @@ from repro_torch.obs.trace import ProfileHook, TraceLog
 from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.serve.scheduler import Request, SlotScheduler
 
-# Families the slot engine drives (of those ported): the transformer cache
-# contract and token-only prompts.
-ENGINE_FAMILIES = ("dense",)
+# Families the slot engine drives: the transformer cache contract and
+# token-only prompts (frontend requests take static_generate).
+ENGINE_FAMILIES = ("dense", "moe", "vlm")
 
-_NOT_PORTED = "not ported to repro_torch yet; see ROADMAP.md (queue 1 items 5-6)"
+_NOT_PORTED = "not ported to repro_torch yet; see ROADMAP.md (queue 1 item 6)"
 
 
 def _resolve_mesh(mesh):
@@ -92,15 +95,19 @@ class ServeSetup:
 
     ``page_size=0`` keeps the dense ``[L, B, max_len, KV, hd]`` layout;
     ``kv_bits=8`` stores int8 codes against static per-(layer, head)
-    scales. ``mesh`` must be None; ``flash_decode=True`` and the MoE family
-    raise (not ported; the JAX package's ``moe_impl`` field is left out
-    with them).
+    scales. ``mesh`` must be None and ``flash_decode=True`` raises (not
+    ported). ``moe_impl`` is the JAX package's field: ``"ep"`` (expert
+    parallelism) takes effect only over a mesh, so on one card an MoE
+    model runs the dense form whichever is named; the engine and
+    :func:`batch_generate` name ``"dense"``, as the reference does without
+    a mesh.
     """
 
     cfg: ArchConfig
     mesh: object | None
     max_len: int
     batch: int
+    moe_impl: str = "ep"
     flash_decode: bool = False
     page_size: int = 0
     kv_bits: int = 0
@@ -110,8 +117,8 @@ class ServeSetup:
             raise NotImplementedError(f"serving on a device mesh is {_NOT_PORTED}")
         if self.flash_decode:
             raise NotImplementedError(f"flash-decode (a sequence-sharded cache) is {_NOT_PORTED}")
-        if self.cfg.is_moe:
-            raise NotImplementedError(f"serving the MoE family is {_NOT_PORTED}")
+        if self.moe_impl not in ("ep", "dense"):
+            raise ValueError(f'moe_impl is "ep" or "dense", got {self.moe_impl!r}')
         if self.kv_bits not in (0, 8):
             raise ValueError(f"kv_bits is 0 (model dtype) or 8 (static int8), got {self.kv_bits}")
 
@@ -276,8 +283,10 @@ def static_generate(
     sampled whole-batch generation. ``kv_scales`` (calibrated
     ``([L, KV], [L, KV])``) or ``setup.kv_bits=8`` switches the cache to
     the dense static-int8 layout, the quantized reference of the paged
-    engine. Sampling (``greedy=False`` with a ``generator``) draws from the
-    ``torch.Generator``, whose bits are not ``jax.random``'s.
+    engine. A ``vlm`` batch may carry ``"frontend"`` patch embeddings
+    ``[B, F, D]``: they fill the cache's first ``F`` positions, and decoding
+    starts after them. Sampling (``greedy=False`` with a ``generator``)
+    draws from the ``torch.Generator``, whose bits are not ``jax.random``'s.
     """
     cfg = setup.cfg
     api = get_model(cfg)
@@ -289,11 +298,10 @@ def static_generate(
     else:
         cache = api.init_cache(cfg, setup.batch, setup.max_len, device=device)
     tokens = torch.as_tensor(batch["tokens"]).to(device)
-    if "frontend" in batch:
-        raise NotImplementedError(f"modality frontends are {_NOT_PORTED}")
     prefill_fn, decode_fn = build_serve_fns(setup, api)
-    logits, cache = prefill_fn(params, {"tokens": tokens}, cache)
-    pos = tokens.shape[1]
+    logits, cache = prefill_fn(params, {**batch, "tokens": tokens}, cache)
+    pos = tokens.shape[1] + (
+        batch["frontend"].shape[1] if cfg.family == "vlm" and "frontend" in batch else 0)
     out = [_pick(logits, greedy, generator)]
     for i in range(max_new_tokens - 1):
         logits, cache = decode_fn(params, out[-1], cache, pos + i)
@@ -350,12 +358,13 @@ def batch_generate(
     device = params["embed"].device
     if engine_ok:
         eng = ServeEngine(cfg, params, n_slots=b, max_len=max_len, mesh=mesh,
-                          flash_decode=flash_decode, draft_params=draft_params, spec_k=spec_k, spec_draft=spec_draft)
+                          flash_decode=flash_decode, draft_params=draft_params, spec_k=spec_k,
+                          spec_draft=spec_draft)
         host = torch.as_tensor(tokens).cpu().numpy()
         outs = eng.serve([(host[i], max_new_tokens) for i in range(b)])
         return torch.from_numpy(np.stack(outs)).to(device)
     setup = ServeSetup(cfg=cfg, mesh=_resolve_mesh(mesh), max_len=max_len, batch=b,
-                       flash_decode=flash_decode)
+                       moe_impl="dense", flash_decode=flash_decode)
     return static_generate(setup, params, batch, max_new_tokens, greedy=greedy,
                            generator=generator)
 
@@ -367,7 +376,8 @@ class ServeEngine:
     """Slot-based continuous-batching server for decoder LMs.
 
     Args:
-      cfg: the architecture (the ``dense`` family).
+      cfg: the architecture (the ``dense``, ``moe`` or ``vlm`` family; token-only
+        requests).
       params: float or packed parameter tree, on the device it serves on.
         Packed trees are consumed as they are: the block matmuls read
         uint8 ELP_BSD codes.
@@ -425,8 +435,6 @@ class ServeEngine:
         trace: TraceLog | None = None,
         profile: ProfileHook | None = None,
     ):
-        if cfg.is_moe:
-            raise NotImplementedError(f"serving the MoE family is {_NOT_PORTED}")
         if cfg.family not in ENGINE_FAMILIES:
             raise ValueError(
                 f"ServeEngine drives the transformer cache contract (families "
@@ -476,7 +484,7 @@ class ServeEngine:
         self.mesh = _resolve_mesh(mesh)
         self.setup = ServeSetup(
             cfg=cfg, mesh=self.mesh, max_len=max_len, batch=n_slots,
-            flash_decode=flash_decode,
+            moe_impl="dense", flash_decode=flash_decode,
             page_size=int(page_size) if self._paged else 0, kv_bits=int(kv_bits),
         )
         self._api = get_model(cfg)
@@ -903,7 +911,9 @@ class ServeEngine:
         route :func:`repro_torch.kernels.elp_bsd_matmul.route` picks for the
         model's activation dtype on the card (``"plain"`` on the CPU). Keyed
         ``MxKxN|fmt|layout``, each value the kernel, its route, how it was
-        chosen (``"structural"``) and how many weights share the shape.
+        chosen (``"structural"``) and how many weights share the shape. An
+        MoE expert stack is dequantized whole and multiplied by ``bmm``
+        (``"moe_dense/dequantize"``), on no kernel.
         """
         from repro_torch.kernels.elp_bsd_matmul import route
         from repro_torch.kernels.ops import MAX_FUSED_M, PackedWeight, tree_leaves
@@ -919,9 +929,13 @@ class ServeEngine:
             if key in out:
                 out[key]["count"] += 1
                 continue
-            kernel = "fused_decode_matmul" if m <= MAX_FUSED_M else "elp_bsd_matmul"
-            rt = route(probe, leaf.fmt) if self.device.type == "cuda" else "plain"
-            out[key] = {"impl": f"{kernel}/{rt}", "source": "structural", "count": 1}
+            if leaf.codes.ndim == 4:
+                impl = "moe_dense/dequantize"
+            else:
+                kernel = "fused_decode_matmul" if m <= MAX_FUSED_M else "elp_bsd_matmul"
+                rt = route(probe, leaf.fmt) if self.device.type == "cuda" else "plain"
+                impl = f"{kernel}/{rt}"
+            out[key] = {"impl": impl, "source": "structural", "count": 1}
         return out
 
     def decode_cost(self) -> dict:

@@ -306,3 +306,78 @@ def test_new_entry_points_default_to_the_card(jax_artifacts, tmp_path, monkeypat
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert tapi.load(path, device="cpu").device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# LM artifacts with 4-D expert stacks and a frontend projection
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def lm_models():
+    """Reduced olmoe and internvl2: JAX params from a key, the same as numpy,
+    calibration token batches and a forward batch (a frontend for internvl2)."""
+    import torch_parity as tp
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config as tget
+
+    out = {}
+    for arch in ("olmoe_1b_7b", "internvl2_26b"):
+        jc, tc = jget(arch).reduced(), tget(arch).reduced()
+        jp, tparams = tp.lm_params(jc)
+        rng = np.random.default_rng(8)
+        calib = rng.integers(0, jc.vocab, (2, 2, 16)).astype(np.int32)
+        batch = {"tokens": rng.integers(0, jc.vocab, (2, 10)).astype(np.int32)}
+        if jc.frontend_tokens:
+            batch["frontend"] = rng.standard_normal(
+                (2, jc.frontend_tokens, jc.d_model)).astype(np.float32)
+        out[arch] = (jc, tc, jp, tparams, calib, batch)
+    return out
+
+
+def _lm_leaves_equal(tparams, jparams):
+    want = jmgr._flatten(jparams)[0]
+    got = tmgr._flatten(tparams)
+    assert list(got) == list(want)
+    for key, leaf in got.items():
+        np.testing.assert_array_equal(tmgr.leaf_to_numpy(leaf), np.asarray(want[key]),
+                                      err_msg=key)
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "internvl2_26b"])
+@pytest.mark.parametrize("saved_by", ["jax", "port"])
+def test_lm_artifact_reads_across_packages(lm_models, arch, saved_by, tmp_path):
+    """A packed static-act LM saved by either package loads in the other: every leaf
+    (the [L, E, K', N] expert codes and [L, E, 1, 1] sf, frontend_proj) bit-identical,
+    the stamped act scales equal, and the forward equal to the saving package's
+    model carried across (port) or within 1e-4 of max |logit| (JAX, float32 sums
+    in another order)."""
+    from repro_torch.interop import params_from_numpy
+
+    jc, tc, jp, tparams, calib, batch = lm_models[arch]
+    kw = dict(fmt="elp_bsd_a4", act="static", act_bits=8)
+    path = str(tmp_path / "lm")
+    if saved_by == "jax":
+        saved = japi.quantize(jc, jp, japi.QuantScheme(**kw), calib_data=jnp.asarray(calib))
+        saved.save(path)
+        tq = tapi.load(path, device="cpu")
+        jq = saved
+        carried = params_from_numpy(jax.tree.map(np.asarray, saved.params), device="cpu")
+        assert torch.equal(tq.forward(batch), tq.adapter.forward(carried, batch))
+    else:
+        tq = tapi.quantize(tc, tparams, tapi.QuantScheme(**kw), calib_data=calib, device="cpu")
+        tq.save(path)
+        jq = japi.load(path)
+        back = tapi.load(path, device="cpu")
+        _assert_same_tree(back.params, tq.params)
+        assert torch.equal(back.forward(batch), tq.forward(batch))
+    assert tq.adapter.cfg == tc and jq.scheme.to_json() == tq.scheme.to_json()
+    _lm_leaves_equal(tq.params, jq.params)
+    if jc.is_moe:
+        we1 = tq.params["blocks"]["we1"]
+        assert we1.codes.ndim == 4 and tuple(we1.sf.shape) == (tc.n_layers, tc.n_experts, 1, 1)
+    for name, leaf in tq.params["blocks"].items():
+        if isinstance(leaf, tops.PackedWeight):
+            want = jq.params["blocks"][name].act_scale
+            assert leaf.act_scale == (None if want is None else pytest.approx(want)), name
+    want = np.asarray(jq.forward({k: jnp.asarray(v) for k, v in batch.items()}))
+    got = tq.forward(batch).numpy()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

@@ -491,6 +491,10 @@ FLASH_WGMMA_CASES = [
     (2, 4, 4, 48, 80, 64, 0, 16, False, False),
     (1, 2, 1, 96, 96, 96, 0, 32, True, True),
     (1, 2, 2, 64, 64, 20, 0, 64, True, False),
+    # olmoe-1b-7b's prefill call: MHA (group 1), 16 heads; internvl2-26b's:
+    # group 6, 256 frontend embeddings + 128 text tokens
+    (16, 16, 16, 128, 128, 128, 0, 128, True, True),
+    (4, 48, 8, 384, 384, 128, 0, 128, True, True),
 ]
 
 
@@ -788,3 +792,86 @@ def test_engine_on_card_matches_cpu(cuda, kv_cache):
         assert elp_bsd_matmul.launches_by_route["wgmma"] == tiled_before + 7 * cfg.n_layers
     else:
         assert flash_attention.launches == flash_before
+
+
+# ---------------------------------------------------------------------------
+# The MoE and VLM slice: olmoe-1b-7b's and internvl2-26b's block matmul shapes
+# ---------------------------------------------------------------------------
+# (M, K, N) on the tiled wgmma route: olmoe's wq/wk/wv/wo at its lockstep
+# prefill's M = 16 x 128; internvl2's wq/wo, wk/wv, w1/w3, w2 at batch 4 x
+# (256 + 128) and frontend_proj at 4 x 256
+MOE_VLM_TILED_SHAPES = [(2048, 2048, 2048), (1536, 6144, 6144), (1536, 6144, 1024),
+                        (1536, 6144, 16384), (1536, 16384, 6144), (1024, 6144, 6144)]
+# and on the decode-step route: olmoe at M = 16 (lockstep) and 8 (engine
+# slots), internvl2 at M = 4
+MOE_VLM_DECODE_SHAPES = [(16, 2048, 2048), (8, 2048, 2048), (4, 6144, 6144), (4, 6144, 1024),
+                         (4, 6144, 16384), (4, 16384, 6144)]
+
+
+@pytest.mark.parametrize("m,k,n", MOE_VLM_TILED_SHAPES)
+def test_wgmma_route_matches_plain_at_moe_vlm_shapes(cuda, m, k, n):
+    x, codes, sf = _case(cuda, "elp_bsd_a4", True, m, k, n)
+    x = x.to(torch.bfloat16)
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    got = _routed(elp_bsd_matmul, "wgmma",
+                  lambda: elp_bsd_matmul(x, codes, sf, fmt, nibble=True, out_dtype=torch.float32))
+    _close(got, elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=True, out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("m,k,n", MOE_VLM_DECODE_SHAPES)
+def test_decode_wgmma_route_matches_plain_at_moe_vlm_shapes(cuda, m, k, n):
+    _decode_wgmma_case(cuda, "elp_bsd_a4", True, m, k, n)
+
+
+def test_olmoe_block_on_card_matches_cpu(cuda):
+    """One full-width olmoe-1b-7b layer (64 experts, top-8; float32, vocab cut to
+    4096), packed a4 on the card and copied to the CPU: prefill (4 tiled + 1 flash
+    launches) and decode steps (4 decode-step launches) on the card against the
+    same packed model on the CPU, within 1e-4 * max |logit| (float32 sums in
+    another order; the expert products are bmm on both), and the same experts
+    chosen for every token."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import moe, transformer
+
+    cfg = dataclasses.replace(get_config("olmoe_1b_7b"), n_layers=1, vocab=4096,
+                              dtype_str="float32")
+    params = transformer.init_params(cfg, 0, device=cuda)
+    qg = api.quantize(cfg, params, api.QuantScheme(fmt="elp4"), device=cuda)
+    del params
+    qc = qg.to("cpu")
+    prompts = torch.from_numpy(np.random.default_rng(9).integers(0, cfg.vocab, (4, 80)))
+    ids = {"cpu": [], "cuda": []}
+    real = moe.router_gates
+
+    def recording(x2d, router, topk):
+        gates, topi = real(x2d, router, topk)
+        ids[x2d.device.type].append(topi.cpu())
+        return gates, topi
+
+    moe.router_gates = recording
+    try:
+        cache_c = transformer.init_cache(cfg, 4, 84, device="cpu")
+        cache_g = transformer.init_cache(cfg, 4, 84, device=cuda)
+        counts = (elp_bsd_matmul.launches, fused_decode_matmul.launches, flash_attention.launches)
+        want, cache_c = transformer.prefill(qc.params, cfg, prompts, cache_c)
+        got, cache_g = transformer.prefill(qg.params, cfg, prompts.to(cuda), cache_g)
+        assert (elp_bsd_matmul.launches - counts[0], fused_decode_matmul.launches - counts[1],
+                flash_attention.launches - counts[2]) == (4, 0, 1)
+        assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+        tok = want.argmax(-1)
+        for i in range(3):
+            counts = (elp_bsd_matmul.launches, fused_decode_matmul.launches)
+            want, cache_c = transformer.decode_step(qc.params, cfg, tok, cache_c, 80 + i)
+            got, cache_g = transformer.decode_step(qg.params, cfg, tok.to(cuda), cache_g, 80 + i)
+            assert (elp_bsd_matmul.launches - counts[0],
+                    fused_decode_matmul.launches - counts[1]) == (0, 4)
+            assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item(), i
+            tok = want.argmax(-1)
+    finally:
+        moe.router_gates = real
+    assert len(ids["cpu"]) == len(ids["cuda"]) == 4
+    for a, b in zip(ids["cpu"], ids["cuda"]):
+        assert torch.equal(a, b)

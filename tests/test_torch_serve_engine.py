@@ -258,13 +258,17 @@ def ttr_cache(setup):
 
 
 def test_setup_and_engine_reject_unported_options(trees):
+    from repro_torch.models.moe import moe_apply
+
     tparams = trees[1]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeSetup(cfg=TC, mesh=object(), max_len=8, batch=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeSetup(cfg=TC, mesh=None, max_len=8, batch=1, flash_decode=True)
+    # MoE models serve (the dense form); MoE over a device mesh does not
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(TCfg(**{**KW, "n_experts": 4, "topk": 2}), tparams)
+        moe_apply({}, torch.zeros(2, TC.d_model), TCfg(**{**KW, "n_experts": 4, "topk": 2}),
+                  pctx=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(TC, tparams, mesh=object())
     assert ServeEngine(TC, tparams, mesh="auto").mesh is None
