@@ -78,6 +78,20 @@ stays held and timed).
   float64 sum for 1, 2 and 3 bf16 terms at K from 363 to 25088 (gated: the
   kernel under half the limit at every K, one term over it).
   The kernel phase also times every GEMM shape of these forwards.
+* the MoE family at full-width olmoe-1b-7b and the VLM stub at internvl2-26b
+  (4 of 48 layers), after the LM path (``moe_phase``, ``vlm_phase``);
+* the recurrent and enc-dec families at full width and depth
+  (``family_phase``): mamba2-780m, recurrentgemma-2b and
+  seamless-m4t-large-v2, each with seeded weights, ``api.quantize`` (a4 per
+  slice, float activations) and ``QuantizedModel.generate`` of 16 new
+  tokens for 16 seeded 128-token prompts (seamless also 16 x 200 seeded
+  frame embeddings, ragged against the flash block), through
+  ``batch_generate`` to ``static_generate``; launches exact per prefill and
+  decode step (derived from the packed tree), prefill and decode timed, the
+  tokens teacher-forced against the plain versions under the LM gate beside
+  each model's controls (float64 sums, a bf16 step, the decode-step K-tail
+  skip, and for seamless non-causal flash attending zero-padded keys), and
+  every kernel shape of the generate held against its plain version.
 
     python3 chip_smoke.py
 
@@ -86,7 +100,8 @@ CUDA device. The last line is the JSON device record; the line before it
 holds the card's name and power limit, and before that one JSON object
 with each kernel route's numbers: ``launches`` counts its launches on the
 main paths (one AlexNet forward, the Sec. V phases, one generate, the
-engine phase), and
+engine phase, the MoE and VLM phases, one generate of each recurrent and
+enc-dec model), and
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are the per-shape
 times of those launches, each shape weighted by its launches (a Sec. V shape
 is timed once per format, an engine shape at the inputs of its first call). The three ``/f32`` routes have no
@@ -2001,6 +2016,203 @@ def vlm_phase(torch, dev, failures, rows) -> dict:
     return launches
 
 
+# The recurrent and enc-dec families at full width and depth: mamba2-780m
+# (ssm), recurrentgemma-2b (hybrid) and seamless-m4t-large-v2 (audio: an
+# encoder over FAMILY_FRAMES seeded frame embeddings a prompt, 200 being
+# ragged against the flash kernel's 128-row block), each with seeded weights,
+# api.quantize (a4 codes per layer slice, float activations: the only scheme
+# the reference serves these families with) and QuantizedModel.generate of
+# LM_NEW tokens for LM_BATCH seeded prompts of LM_PROMPT tokens, which
+# batch_generate sends to static_generate. Their logit gate is the LM's
+# (LM_LOGIT_REL_TOL), each model's controls beside it, except where those
+# controls place it elsewhere (FAMILY_LOGIT_REL_TOL). mamba2-780m's, on an
+# H100 80GB HBM3 at 700 W (PERF.md): every kernel's function summed in
+# float64 (a correct result) reads 5.1e-2 of max |logit| against the plain
+# versions, over the LM gate (the kernels 5.7e-2), every matmul output moved
+# one bf16 step 0.13, the decode-step K-tail skip 1.44; so its gate sits at
+# 0.1, between the float64 control and the bf16 step. recurrentgemma-2b (float64 3.8e-2,
+# the kernels 4.1e-2, a bf16 step 0.105) and seamless (1.3e-2, 1.3e-2,
+# 1.6e-2) hold the LM gate.
+FAMILY_ARCHS = ("mamba2_780m", "recurrentgemma_2b", "seamless_m4t_large_v2")
+FAMILY_FRAMES = 200
+FAMILY_LOGIT_REL_TOL = {"mamba2_780m": 0.1}
+
+
+def _flash_zero_keys(q, k, v, *, causal=True, block_q=128, block_k=128, q_offset=0):
+    """A planted fault: a non-causal call's keys padded with zeros to the 128-row
+    block and attended unmasked (the plain version over the padded keys)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    if not causal:
+        pad = (-k.shape[2]) % 128
+        k, v = F.pad(k, (0, 0, 0, pad)), F.pad(v, (0, 0, 0, pad))
+    return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def _family_launches(cfg, params) -> tuple:
+    """Kernel launches of one prefill and of one decode step, from the packed tree:
+    every packed layer slice runs once a prefill on the tiled route (M = batch x
+    prompt, or x frames on the encoder side); a decode step runs the decoder's
+    slices, on the decode-step route at M = batch except the cross-attention's
+    xk/xv, which read the encoder output (M = batch x frames, the tiled route).
+    Flash runs a prefill's unwindowed attention with head_dim <= 128: none in
+    mamba2 (no attention) or recurrentgemma (a window, head_dim 256); in the
+    enc-dec model the encoder's self-attention and the decoder's self- and
+    cross-attention, one launch a layer each."""
+    from repro_torch.kernels.flash_attention import MAX_HD
+    from repro_torch.kernels.ops import PackedWeight
+
+    def slices(tree) -> int:
+        if isinstance(tree, dict):
+            return sum(slices(v) for v in tree.values())
+        return (tree.n_layers or 1) if isinstance(tree, PackedWeight) else 0
+
+    total = slices(params)
+    if cfg.family in ("encdec", "audio"):
+        cross = slices({k: params["decoder"][k] for k in ("xk", "xv")})
+        step_fused = slices(params["decoder"]) - cross
+        flash = cfg.n_layers + 2 * cfg.n_dec_layers if cfg.hd <= MAX_HD else 0
+    else:
+        cross, step_fused, flash = 0, total, 0
+    return (_expected({"elp_bsd_matmul/wgmma": total, "flash_attention/wgmma": flash}),
+            _expected({"fused_decode_matmul/wgmma": step_fused, "elp_bsd_matmul/wgmma": cross}))
+
+
+def family_phase(torch, dev, failures, rows, arch: str) -> dict:
+    """One recurrent or enc-dec model at full width and depth: seeded params,
+    api.quantize, QuantizedModel.generate (launches per prefill and decode step
+    exact); prefill and decode timed; the generated tokens teacher-forced
+    through the packed model with its kernels and with their plain versions
+    under the LM gate, beside its controls; every kernel shape of the generate
+    held against its plain version on the run's own inputs. Returns the
+    generate's launches."""
+    import repro_torch.kernels.ops as ops_mod
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul_plain
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.fused_decode import fused_decode_matmul_plain
+    from repro_torch.kernels.ops import tree_leaves
+    from repro_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    resident = _collect(torch)
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    tag = f"[{cfg.family}]"
+    params = model.init_params(cfg, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device=dev,
+                                     generator=gen)}
+    frames = FAMILY_FRAMES if cfg.family in ("encdec", "audio") else 0
+    if frames:
+        batch["frontend"] = torch.randn(LM_BATCH, frames, cfg.d_model, device=dev,
+                                        generator=gen).to(cfg.dtype)
+    n_par = sum(v.numel() for v in tree_leaves(params))
+    t0 = time.perf_counter()
+    qm = api.quantize(cfg, params, api.QuantScheme(fmt="elp4"))
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    prefill_counts, step_counts = _family_launches(cfg, qm.params)
+    print(f"{tag} {cfg.name}: full width and depth, {n_par} seeded weights ({cfg.dtype}); "
+          f"conversion s {conv_s:.2f} (a4 per slice, float activations); code + sf bytes "
+          f"{qm.report.packed_weight_bytes}; batch {LM_BATCH} x {LM_PROMPT} tokens"
+          f"{f' + {frames} frames' if frames else ''}, {LM_NEW} new; memory_allocated before "
+          f"the phase {resident} B")
+    tap = KernelTap()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with tap:
+        t0 = time.perf_counter()
+        new, phases = _phased(torch, lambda: qm.generate(batch, LM_NEW))
+        gen_s = time.perf_counter() - t0
+    launches = dict(zip(KERNEL_ROUTES, _counts()))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} launches {KERNEL_ROUTES} by phase: prefill {phases[0][1] if phases else None}, "
+          f"decode steps {sorted(set(p_[1] for p_ in phases[1:]))} over {len(phases) - 1} steps "
+          f"(expected {prefill_counts} and {step_counts}); generate {gen_s * 1e3:.1f} ms, "
+          f"tokens/s {LM_BATCH * LM_NEW / gen_s:.1f}, max_memory_allocated {peak} B")
+    if phases != [("prefill", prefill_counts)] + [("decode", step_counts)] * (LM_NEW - 1):
+        failures.append(f"{tag} {cfg.name}: launch counts by phase {phases}")
+    if (tuple(new.shape) != (LM_BATCH, LM_NEW) or int(new.min()) < 0
+            or int(new.max()) >= cfg.vocab):
+        failures.append(f"{tag} {cfg.name}: generated tokens of shape {tuple(new.shape)}")
+
+    p = qm.params
+    max_len = LM_PROMPT + LM_NEW
+
+    def fresh():
+        return model.init_cache(cfg, LM_BATCH, max_len, device=dev)
+
+    pre_ms, step_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state = model.prefill(p, cfg, batch, fresh())
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+        for i in range(4):
+            t0 = time.perf_counter()
+            _, state = model.decode_step(p, cfg, new[:, i:i + 1], state, LM_PROMPT + i)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"{tag} prefill ms at b{LM_BATCH} s{LM_PROMPT}: median {statistics.median(pre_ms):.2f} "
+          f"(runs {[round(t, 2) for t in pre_ms]}); decode ms/step median "
+          f"{statistics.median(step_ms):.2f} (min {min(step_ms):.2f}, max {max(step_ms):.2f})")
+
+    def forced(mm, flash) -> list:
+        with _swapped(mm, flash):
+            logits, state = model.prefill(p, cfg, batch, fresh())
+            out = [logits]
+            for i in range(LM_NEW - 1):
+                logits, state = model.decode_step(p, cfg, new[:, i:i + 1], state,
+                                                  LM_PROMPT + i)
+                out.append(logits)
+        return out
+
+    t0 = time.perf_counter()
+    tol = FAMILY_LOGIT_REL_TOL.get(arch, LM_LOGIT_REL_TOL)
+    plain_mm = (elp_bsd_matmul_plain, fused_decode_matmul_plain)
+    k_logits = forced((ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul), flash_attention)
+    p_logits = forced(plain_mm, _plain_flash())
+    rel = _rel(k_logits, p_logits)
+    agree = sum(int((new[:, j] == pl[:, -1].argmax(-1)).sum()) for j, pl in enumerate(p_logits))
+    print(f"{tag} kernels vs plain versions, teacher-forced: {rel:.3e} of max |logit| (limit "
+          f"{tol:g}; per position "
+          f"{[f'{(a - b).abs().max().item() / b.abs().max().item():.2e}' for a, b in zip(k_logits, p_logits)]}"
+          f"); greedy = plain argmax at {agree}/{LM_BATCH * LM_NEW}")
+    step_gen = torch.Generator(device=dev).manual_seed(11)
+    controls = [
+        ("noise", "every kernel's function summed in float64, rounded once",
+         (_f64_sum,) * 2, _flash_f64),
+        ("noise", "every matmul output moved one bf16 step up or down",
+         tuple(_bf16_step(f, step_gen) for f in plain_mm), _plain_flash()),
+        ("fault", "the decode-step matmul skips its last 128 K rows",
+         (elp_bsd_matmul_plain, _skip_k_tail), _plain_flash()),
+    ]
+    if frames:
+        controls.append(("fault", "non-causal flash attends the zero keys padding it to the "
+                         "128-row block", plain_mm, _flash_zero_keys))
+    for kind, label, mm, flash in controls:
+        r = _rel(forced(mm, flash), p_logits)
+        print(f"{tag}-control {kind}: {label}: {r:.3e} of max |logit| (limit {tol:g})")
+        if kind == "fault" and r <= tol:
+            failures.append(f"{tag} {cfg.name}: the logit gate does not see the planted fault: "
+                            f"{label}")
+    if rel > tol:
+        failures.append(f"{tag} {cfg.name}: logits, kernels vs plain {rel:.3e}")
+    print(f"{tag} teacher-forced checks {time.perf_counter() - t0:.1f} s")
+    hold_tapped(torch, dev, f"{cfg.name} generate", tap, rows, failures)
+    del qm, p, k_logits, p_logits, state
+    torch.cuda.empty_cache()
+    print(f"[time] {cfg.family} phase ({cfg.name}): {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # The Sec. V slice. AC is the search's own accuracy budget (QuantScheme.ac):
 # card and CPU accuracies of the same weights must agree within it, or the
 # two devices could pick different bit-widths. Mini CNNs train at the JAX
@@ -2651,6 +2863,11 @@ def main() -> int:
     moe_launches = moe_phase(torch, dev, failures, rows)
     vlm_launches = vlm_phase(torch, dev, failures, rows)
 
+    # -- phase 7c: the recurrent and enc-dec families -------------------------------
+    family_launches = collections.Counter()
+    for arch in FAMILY_ARCHS:
+        family_launches.update(family_phase(torch, dev, failures, rows, arch))
+
     # -- phase 8: the reduced LM on the card against the CPU -----------------------
     lm_card_vs_cpu(torch, dev, failures)
     print(f"[time] total {time.perf_counter() - t_start:.1f} s")
@@ -2688,7 +2905,8 @@ def main() -> int:
             "source": sources[name][0],
             "replaces": sources[name][1],
             "launches": (cnn_launches.get(name, 0) + lm_launches[name] + sec5_launches[name]
-                         + engine_launches[name] + moe_launches[name] + vlm_launches[name]),
+                         + engine_launches[name] + moe_launches[name] + vlm_launches[name]
+                         + family_launches[name]),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": wsum("ms"),
             "plain_ms": wsum("plain_ms"),

@@ -1,10 +1,9 @@
-"""Architecture registry over the configs ported so far.
+"""Architecture registry: the JAX package's ten configs.
 
 Each architecture lives in its own module exporting ``CONFIG``, as in the
-JAX package. Here are the configs of the transformer families the port
-serves (``dense``, ``moe``, ``vlm``). The recurrent and enc-dec configs
-(``mamba2_780m``, ``recurrentgemma_2b``, ``seamless_m4t_large_v2``) follow
-with their families (ROADMAP.md, queue 1 item 5, "next").
+JAX package: the transformer families (``dense``, ``moe``, ``vlm``), the
+SSM ``mamba2_780m``, the hybrid ``recurrentgemma_2b`` and the enc-dec
+``seamless_m4t_large_v2`` (family ``audio``).
 """
 from __future__ import annotations
 
@@ -13,12 +12,15 @@ import importlib
 from repro_torch.configs.base import ArchConfig
 
 ARCH_IDS = (
+    "mamba2_780m",
     "starcoder2_15b",
     "deepseek_7b",
     "yi_34b",
     "qwen3_8b",
     "olmoe_1b_7b",
     "kimi_k2_1t_a32b",
+    "recurrentgemma_2b",
+    "seamless_m4t_large_v2",
     "internvl2_26b",
 )
 
@@ -26,11 +28,7 @@ ARCH_IDS = (
 def get_config(arch_id: str) -> ArchConfig:
     arch_id = arch_id.replace("-", "_")
     if arch_id not in ARCH_IDS:
-        raise NotImplementedError(
-            f"config {arch_id!r} is not ported to repro_torch yet (ported: {ARCH_IDS}); "
-            "the ssm, hybrid and audio configs come with their families, ROADMAP.md "
-            "(queue 1 item 5, next)"
-        )
+        raise ValueError(f"unknown config {arch_id!r} (known: {ARCH_IDS})")
     return importlib.import_module(f"repro_torch.configs.{arch_id}").CONFIG
 
 

@@ -7,6 +7,11 @@ HWIO conv weights, ``[in, out]`` matmul weights, ``[K, N]`` or nibble
 parameter tree or a packed weight moves across as its arrays. Nothing
 here imports the JAX package: the caller hands over ``np.asarray`` of its
 leaves, or packed-weight records whose ``codes``/``sf`` are arrays.
+Each leaf keeps its dtype: a bfloat16 array (numpy's ``bfloat16``
+extension type, as ``np.asarray`` gives a JAX bfloat16 leaf) becomes a
+bfloat16 tensor bit for bit, and the float32 leaves of a bfloat16 model
+(mamba2's ``A_log``, ``D``, ``dt_bias``; the RG-LRU's ``lam``, ``ba``,
+``bx``) stay float32.
 """
 from __future__ import annotations
 
@@ -33,7 +38,9 @@ def params_from_numpy(tree: Mapping, device=None) -> dict:
     ``[L, K', N]`` or an expert stack ``[L, E, K', N]``), ``sf``,
     ``fmt_name``, ``nibble``, ``shape`` and the
     optional ``source_shape``/``act_scale``/``act_bits``, which becomes a
-    :class:`PackedWeight` (:func:`packed_from_numpy`).
+    :class:`PackedWeight` (:func:`packed_from_numpy`). The recurrent and
+    enc-dec trees (mamba2's ``blocks``, rglru's ``rec`` and ``attn``,
+    enc-dec's ``encoder`` and ``decoder``) move the same way.
     """
     device = resolve_device(device)
 
@@ -46,9 +53,18 @@ def params_from_numpy(tree: Mapping, device=None) -> dict:
                 getattr(v, "source_shape", None), getattr(v, "act_scale", None),
                 getattr(v, "act_bits", None), device=device,
             )
-        return torch.from_numpy(np.array(v)).to(device)
+        return array_to_tensor(v).to(device)
 
     return leaf(tree)
+
+
+def array_to_tensor(v) -> torch.Tensor:
+    """A host copy of ``v`` as a tensor of its dtype; numpy's ``bfloat16`` extension
+    type goes across through its 2-byte pattern."""
+    a = np.array(v)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def packed_from_numpy(

@@ -33,7 +33,13 @@ so the caller does not repeat them), any strides with a unit stride along
 ``hd`` (a ``[B, S, H, hd]`` activation viewed as ``[B, H, S, hd]`` is read
 in place, and the output has q's strides), and a ``q_offset`` that places
 the queries at absolute positions ``q_offset ..`` for the causal mask
-(prefill into a cache that already holds ``q_offset`` positions).
+(prefill into a cache that already holds ``q_offset`` positions). Sk
+need not tile by ``block_k``: both kernels mask keys at ``kpos >= Sk``
+(the wgmma kernel's TMA loads read zeros past the tensor's extent), and
+the plain version attends over the ``Sk`` keys it is given, so a
+non-causal call never sees a padded key. The JAX kernel asks its callers
+to pad Sk; with causal masking that padding lies past every query, but
+without it each zero key would add ``exp(0 - m)`` to every row's softmax.
 
 :func:`flash_attention` takes the plain version
 (:func:`flash_attention_plain`) only for tensors on the CPU; on a CUDA
@@ -70,10 +76,10 @@ def _check(q, k, v, block_q: int, block_k: int) -> tuple[int, int]:
             f"k{tuple(k.shape)}, v{tuple(v.shape)}"
         )
     sk = k.shape[2]
-    if s % block_q != 0 or sk % block_k != 0:
+    if s % block_q != 0 or sk < 1:
         raise ValueError(
             f"sequence lengths must tile by the block sizes: s={s} "
-            f"block_q={block_q}, sk={sk} block_k={block_k} (callers pad)"
+            f"block_q={block_q} (callers pad the queries), sk={sk} (at least 1 key)"
         )
     return h // k.shape[1], sk
 
@@ -173,8 +179,8 @@ def flash_attention(
 
     On the card the kernel is :func:`route`'s.
 
-    S and Sk must tile by the block sizes (callers pad), as in the JAX
-    package; returns ``[B, H, S, hd]`` in ``q.dtype`` with q's strides.
+    S must tile by ``block_q`` (callers pad the queries), as in the JAX
+    package; Sk is any key count (the kernels mask past it); returns ``[B, H, S, hd]`` in ``q.dtype`` with q's strides.
     ``q_offset`` is the absolute position of the first query (causal mask).
     """
     group, _ = _check(q, k, v, block_q, block_k)

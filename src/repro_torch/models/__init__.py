@@ -1,8 +1,10 @@
-"""Models: the paper's CNNs (``cnn``) and the decoder LM (``transformer``, ``moe``).
+"""Models: the paper's CNNs (``cnn``) and the LM families.
 
-:func:`get_model` is the JAX package's family registry, for the families
-ported so far (``dense``, ``moe`` and ``vlm``, all through
-:mod:`~repro_torch.models.transformer`)::
+:func:`get_model` is the JAX package's family registry: ``dense``, ``moe``
+and ``vlm`` through :mod:`~repro_torch.models.transformer`, ``ssm``
+through :mod:`~repro_torch.models.mamba2`, ``hybrid`` through
+:mod:`~repro_torch.models.rglru`, ``encdec`` and ``audio`` through
+:mod:`~repro_torch.models.encdec`::
 
     api = get_model(cfg)
     params = api.init_params(cfg, seed, device=...)
@@ -10,11 +12,12 @@ ported so far (``dense``, ``moe`` and ``vlm``, all through
     logits, cache = api.prefill(params, cfg, batch, cache)
     logits, cache = api.decode_step(params, cfg, token, cache, pos)
 
-``batch`` is a dict with ``"tokens"`` and, for a ``vlm`` model,
-``"frontend"`` (precomputed patch embeddings, the stub frontend). The
-``ssm``, ``hybrid``, ``encdec`` and ``audio`` families raise
-(ROADMAP.md, queue 1 item 5, next); ``loss_fn`` raises until training is
-ported (queue 1 item 6).
+``batch`` is a dict with ``"tokens"`` and, for a ``vlm``, ``encdec`` or
+``audio`` model, ``"frontend"`` (precomputed patch or frame embeddings,
+the stub frontend). The cache is each family's own: a KV cache, mamba2's
+``(conv, ssd)`` state, rglru's recurrent state and ring, and for enc-dec
+the ``(cache, enc_out)`` pair that prefill returns. ``loss_fn`` raises
+until training is ported (ROADMAP.md, queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -31,13 +34,14 @@ class ModelApi:
     decode_step: Callable[..., Any]
 
 
+def _loss(*args, **kwargs):
+    raise NotImplementedError(
+        "training (loss_fn) is not ported to repro_torch yet; see ROADMAP.md (queue 1 item 6)"
+    )
+
+
 def _tf_api() -> ModelApi:
     from repro_torch.models import transformer
-
-    def loss(*args, **kwargs):
-        raise NotImplementedError(
-            "training (loss_fn) is not ported to repro_torch yet; see ROADMAP.md (queue 1 item 6)"
-        )
 
     def prefill(params, cfg, batch, cache, *, pctx=None):
         return transformer.prefill(params, cfg, batch["tokens"], cache,
@@ -46,17 +50,61 @@ def _tf_api() -> ModelApi:
     def decode(params, cfg, token, cache, pos, *, pctx=None):
         return transformer.decode_step(params, cfg, token, cache, pos, pctx=pctx)
 
-    return ModelApi(transformer.init_params, loss, transformer.init_cache, prefill, decode)
+    return ModelApi(transformer.init_params, _loss, transformer.init_cache, prefill, decode)
 
 
-_FAMILIES = {"dense": _tf_api, "moe": _tf_api, "vlm": _tf_api}
+def _ssm_api() -> ModelApi:
+    from repro_torch.models import mamba2
+
+    def init_cache(cfg, batch, max_len, *, device=None):
+        return mamba2.init_state(cfg, batch, device=device)
+
+    def prefill(params, cfg, batch, cache, *, pctx=None):
+        return mamba2.prefill(params, cfg, batch["tokens"], cache)
+
+    def decode(params, cfg, token, cache, pos, *, pctx=None):
+        return mamba2.decode_step(params, cfg, token, cache, pos)
+
+    return ModelApi(mamba2.init_params, _loss, init_cache, prefill, decode)
+
+
+def _hybrid_api() -> ModelApi:
+    from repro_torch.models import rglru
+
+    def prefill(params, cfg, batch, cache, *, pctx=None):
+        return rglru.prefill(params, cfg, batch["tokens"], cache)
+
+    def decode(params, cfg, token, cache, pos, *, pctx=None):
+        return rglru.decode_step(params, cfg, token, cache, pos)
+
+    return ModelApi(rglru.init_params, _loss, rglru.init_cache, prefill, decode)
+
+
+def _encdec_api() -> ModelApi:
+    from repro_torch.models import encdec
+
+    def prefill(params, cfg, batch, cache, *, pctx=None):
+        return encdec.prefill(params, cfg, batch["tokens"], cache, frontend=batch["frontend"])
+
+    def decode(params, cfg, token, cache, pos, *, pctx=None):
+        return encdec.decode_step(params, cfg, token, cache, pos)
+
+    return ModelApi(encdec.init_params, _loss, encdec.init_cache, prefill, decode)
+
+
+_FAMILIES = {
+    "dense": _tf_api,
+    "moe": _tf_api,
+    "vlm": _tf_api,
+    "ssm": _ssm_api,
+    "hybrid": _hybrid_api,
+    "encdec": _encdec_api,
+    "audio": _encdec_api,
+}
 
 
 def get_model(cfg) -> ModelApi:
-    """The model API of ``cfg.family``; families not ported yet raise."""
+    """The model API of ``cfg.family``."""
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported to repro_torch yet (ported: "
-            f"{sorted(_FAMILIES)}); see ROADMAP.md (queue 1 item 5, next)"
-        )
+        raise ValueError(f"unknown model family {cfg.family!r} (known: {sorted(_FAMILIES)})")
     return _FAMILIES[cfg.family]()

@@ -141,6 +141,37 @@ def attention_chunked(
 
 
 # ---------------------------------------------------------------------------
+# The recurrent families' elementwise pieces
+# ---------------------------------------------------------------------------
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + exp(x))`` as ``jax.nn.softplus`` defines it, ``logaddexp(x, 0)``
+    (``F.softplus`` returns ``x`` itself above its threshold of 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                left: torch.Tensor | None = None) -> torch.Tensor:
+    """Depthwise causal conv1d of ``x[B, S, C]`` with ``w[cw, C]`` and bias ``b[C]``.
+
+    ``left`` (``[B, cw - 1, C]``, a cached window) is the context before
+    ``x``; without it ``x`` is zero-padded on the left, as the JAX package's
+    ``_causal_conv`` does. The conv is the sum of ``cw`` shifted elementwise
+    products in float32 (no TF32 on the card, where a cuDNN conv may round
+    its inputs), cast back to ``x.dtype`` after the bias.
+    """
+    cw, s = w.shape[0], x.shape[1]
+    if left is None:
+        xp = F.pad(x.to(F32), (0, 0, cw - 1, 0))
+    else:
+        xp = torch.cat([left.to(x.dtype), x], dim=1).to(F32)
+    wf = w.to(F32)
+    out = xp[:, 0:s] * wf[0]
+    for j in range(1, cw):
+        out = out + xp[:, j:j + s] * wf[j]
+    return (out + b.to(F32)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # MLPs and the matmul front door
 # ---------------------------------------------------------------------------
 def mlp_apply(p: dict, x: torch.Tensor, kind: str, acts: dict | None = None) -> torch.Tensor:

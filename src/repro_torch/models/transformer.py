@@ -1,10 +1,14 @@
-"""Decoder LM: init, the block stack, prefill and decode over a KV cache.
+"""Decoder LM and the generic block stack: init, prefill and decode over a KV cache.
 
-The decoder-LM part of the JAX package's ``repro/models/transformer.py``
-for the ``dense``, ``moe`` and ``vlm`` families (GQA attention with
-optional QK-norm, RoPE, a SwiGLU/GeGLU/GELU MLP or the MoE FFN of
-:mod:`repro_torch.models.moe`, the stub modality frontend's projection),
-with the same parameter tree, cache layouts and tap sites. Block
+The JAX package's ``repro/models/transformer.py`` for the ``dense``,
+``moe`` and ``vlm`` families (GQA attention with optional QK-norm, RoPE,
+a SwiGLU/GeGLU/GELU MLP or the MoE FFN of :mod:`repro_torch.models.moe`,
+the stub modality frontend's projection), with the same parameter tree,
+cache layouts and tap sites; its blocks also serve the enc-dec model
+(:mod:`repro_torch.models.encdec`: a non-causal encoder stack, and a
+decoder stack whose blocks add cross-attention over the encoder output,
+``xq``/``xk``/``xv``/``xo`` after ``ln_x``, without RoPE) and the hybrid's
+attention layers (:mod:`repro_torch.models.rglru`). Block
 parameters are stacked on a leading ``[L, ...]`` axis as
 in the JAX package; where it runs ``lax.scan`` over them this module runs
 a Python loop over per-layer views (a float leaf's ``[i]``, a packed
@@ -33,16 +37,19 @@ same dict. A ``vlm`` model's frontend is the reference's stub: the caller
 hands over precomputed patch embeddings ``[B, F, D]``, which
 ``frontend_proj`` maps and prepends to the token embeddings. Not ported:
 the ``pctx`` multi-device context and flash-decode (ROADMAP.md, queue 1
-item 6) and cross-attention (the enc-dec family, queue 1 item 5); inputs
-that select them raise ``NotImplementedError``.
+item 6); inputs that select them raise ``NotImplementedError``.
 
-Prefill attention (the non-decode, unwindowed, causal case) goes through
-:func:`repro_torch.kernels.flash_attention.flash_attention`: the CUDA
-kernel for tensors on the card, its plain version on the CPU. Queries and
-the written key prefix ``[0, cache_pos + s)`` are padded to the kernel's
-block; padded keys lie past every real query, so the causal mask hides
-them. The decode branch stays :func:`~repro_torch.models.layers.attention_dot`
-in torch ops, as the JAX package leaves it to XLA.
+Prefill-shaped attention without a window goes through
+:func:`repro_torch.kernels.flash_attention.flash_attention`, the CUDA
+kernel for tensors on the card, its plain version on the CPU: causal
+(the written key prefix ``[0, cache_pos + s)``), and non-causal with more
+than one query a row (the encoder's self-attention, cross-attention at
+prefill). Queries are padded to the kernel's block and the padded rows
+dropped; keys go in at their true count, which the kernel masks
+(``kpos >= Sk``), so no zero key ever enters a non-causal softmax. Decode
+(one query a row against a cache, or a cross-attention step) and windowed
+attention stay :func:`~repro_torch.models.layers.attention_dot` in torch
+ops, as the JAX package leaves them to XLA.
 """
 from __future__ import annotations
 
@@ -95,8 +102,6 @@ def init_block_params(
     MoE expert stack ``[L, E, in, out]`` one ``(layer, expert)`` slice at a
     time, so only one slice's float32 draw is alive besides the stack.
     """
-    if cross:
-        raise _not_ported("cross-attention (the enc-dec family)", 5)
     d, hd, h, kv, ff = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     dt = cfg.dtype
     device = gen.device
@@ -122,6 +127,12 @@ def init_block_params(
     if cfg.qk_norm:
         p["qnorm"] = torch.zeros((n_layers, hd), dtype=dt, device=device)
         p["knorm"] = torch.zeros((n_layers, hd), dtype=dt, device=device)
+    if cross:
+        p["ln_x"] = torch.zeros((n_layers, d), dtype=dt, device=device)
+        p["xq"] = stack((d, h * hd))
+        p["xk"] = stack((d, kv * hd))
+        p["xv"] = stack((d, kv * hd))
+        p["xo"] = stack((h * hd, d))
     if cfg.is_moe:
         e = cfg.n_experts
         p["router"] = stack((d, e))
@@ -149,7 +160,8 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     and distributions are the same.
     """
     if cfg.family not in ("dense", "moe", "vlm"):
-        raise _not_ported(f"the {cfg.family!r} family", 5)
+        raise ValueError(f"the {cfg.family!r} family has its own parameter tree: "
+                         "use repro_torch.models.get_model(cfg).init_params")
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     p = {
@@ -359,21 +371,20 @@ def _paged_view(c: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # One block
 # ---------------------------------------------------------------------------
-def _flash_prefill(q, k, v, q_offset: int) -> torch.Tensor:
-    """Causal attention of ``q[B, s, H, hd]`` over keys ``k/v[B, n, KV, hd]`` on the flash kernel.
+def _flash_prefill(q, k, v, q_offset: int, causal: bool = True) -> torch.Tensor:
+    """Attention of ``q[B, s, H, hd]`` over keys ``k/v[B, n, KV, hd]`` on the flash kernel.
 
-    Queries sit at ``q_offset ..``; q and the keys are padded to the
-    kernel's block along the sequence (padded keys lie past every real
-    query, so the causal mask hides them; padded query rows are dropped).
+    Queries sit at ``q_offset ..`` (the causal mask's positions). q is
+    padded to the kernel's block along the sequence and the padded rows
+    dropped; the keys go in at their true count ``n``, which the kernel
+    masks, so a non-causal softmax sees no padding.
     """
-    s, n = q.shape[1], k.shape[1]
+    s = q.shape[1]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # [B, heads, seq, hd] views
-    pq, pk = (-s) % FLASH_BLOCK, (-n) % FLASH_BLOCK
+    pq = (-s) % FLASH_BLOCK
     if pq:
         qt = F.pad(qt, (0, 0, 0, pq))
-    if pk:
-        kt, vt = F.pad(kt, (0, 0, 0, pk)), F.pad(vt, (0, 0, 0, pk))
-    out = flash_attention(qt, kt, vt, causal=True, block_q=FLASH_BLOCK, block_k=FLASH_BLOCK,
+    out = flash_attention(qt, kt, vt, causal=causal, block_q=FLASH_BLOCK, block_k=FLASH_BLOCK,
                           q_offset=q_offset)
     return out[:, :, :s].transpose(1, 2)
 
@@ -404,25 +415,27 @@ def _attention(
     addressed through the rows' page table). A paged cache's read is the
     gathered logical view on the plain attention path, as in the JAX
     package, for prefill runs too.
+    ``prefix="x"`` with ``kv_override`` (the encoder output ``[B, S_enc, D]``)
+    is cross-attention: ``xq`` on ``x``, ``xk``/``xv`` on the encoder output,
+    no RoPE, no QK-norm.
     ``acts`` records the attention mix entering the output projection
     under ``"attn_mix"``; ``tap_kv`` also records the post-RoPE k/v under
     ``"k_cache"``/``"v_cache"``.
     """
-    if kv_override is not None or prefix != "w":
-        raise _not_ported("cross-attention (kv_override)", 5)
     if pctx is not None:
         raise _not_ported("the multi-device ParallelCtx (pctx)", 6)
     if kv_layout not in _CACHE_KEYS:
         raise ValueError(f"unknown KV-cache layout {kv_layout!r}")
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = matmul(x, lp["wq"]).reshape(b, s, h, hd)
-    k = matmul(x, lp["wk"]).reshape(b, s, kv, hd)
-    v = matmul(x, lp["wv"]).reshape(b, s, kv, hd)
-    if cfg.qk_norm:
+    kv_src = x if kv_override is None else kv_override
+    q = matmul(x, lp[prefix + "q"]).reshape(b, s, h, hd)
+    k = matmul(kv_src, lp[prefix + "k"]).reshape(b, kv_src.shape[1], kv, hd)
+    v = matmul(kv_src, lp[prefix + "v"]).reshape(b, kv_src.shape[1], kv, hd)
+    if cfg.qk_norm and prefix == "w":
         q = rms_norm(q, lp["qnorm"])
         k = rms_norm(k, lp["knorm"])
-    if rope is not None:
+    if rope is not None and kv_override is None:
         cos_q, sin_q, cos_k, sin_k = rope
         q = apply_rope(q, cos_q, sin_q)
         k = apply_rope(k, cos_k, sin_k)
@@ -472,7 +485,8 @@ def _attention(
 
     q_offset = cache_pos if kv_cache is not None else 0
     # "decode": s queries per row at per-row depth (s == 1, or a [B] position
-    # vector); prefill (a scalar position) takes the flash kernel.
+    # vector); prefill (a scalar position) takes the flash kernel, causal or,
+    # with more than one query a row, not.
     decode = kv_cache is not None and (s == 1 or isinstance(cache_pos, torch.Tensor)
                                        or kv_layout.startswith("paged"))
     if decode:
@@ -481,6 +495,8 @@ def _attention(
     elif causal and not window:
         n = q_offset + s  # the written key prefix
         out = _flash_prefill(q, k[:, :n], v[:, :n], q_offset)
+    elif not causal and not window and s > 1:
+        out = _flash_prefill(q, k, v, 0, causal=False)
     else:
         kf, vf = repeat_kv(k, h // kv), repeat_kv(v, h // kv)
         attend = attention_chunked if kf.shape[1] >= CHUNKED_ATTN_THRESHOLD else attention_dot
@@ -489,7 +505,7 @@ def _attention(
     mix = out.reshape(b, s, h * hd)
     if acts is not None:
         acts["attn_mix"] = mix
-    return matmul(mix, lp["wo"]), new_cache
+    return matmul(mix, lp[prefix + "o"]), new_cache
 
 
 def block_apply(
@@ -508,15 +524,15 @@ def block_apply(
     acts: dict | None = None,
     tap_kv: bool = False,
 ) -> tuple[torch.Tensor, tuple | None]:
-    """Pre-norm transformer block: attention + MLP or MoE.
+    """Pre-norm transformer block: attention, cross-attention over ``enc_out``
+    (when given; the block then holds ``ln_x`` and ``xq``/``xk``/``xv``/``xo``),
+    then the MLP or MoE.
 
     ``acts`` records the inputs of the block's matmuls: ``"attn_in"``
     (post-ln1, feeds wq/wk/wv), ``"attn_mix"`` (feeds wo), ``"ffn_in"``
     (post-ln2, feeds w1/w3 or the router and experts) and ``"ffn_hidden"``
     (feeds w2; the dense MLP only).
     """
-    if enc_out is not None:
-        raise _not_ported("cross-attention (enc_out)", 5)
     attn_in = rms_norm(x, lp["ln1"])
     if acts is not None:
         acts["attn_in"] = attn_in
@@ -525,6 +541,10 @@ def block_apply(
         kv_layout=kv_layout, cache_pos=cache_pos, pctx=pctx, acts=acts, tap_kv=tap_kv,
     )
     x = x + attn_out
+    if enc_out is not None:
+        xa_out, _ = _attention(lp, cfg, rms_norm(x, lp["ln_x"]), rope=None, causal=False,
+                               prefix="x", kv_override=enc_out)
+        x = x + xa_out
     ffn_in = rms_norm(x, lp["ln2"])
     if acts is not None:
         acts["ffn_in"] = ffn_in
@@ -670,16 +690,19 @@ def decode_step(params, cfg: ArchConfig, token, cache: dict, pos, *, pctx=None):
     tokens at ``pos[b] .. pos[b] + s - 1``, causal within the run.
     """
     with torch.no_grad():
-        pos = _as_pos(pos)
-        s = token.shape[1]
-        dev = params["embed"].device
-        ar = torch.arange(s, device=dev)
-        if isinstance(pos, torch.Tensor):
-            pos = pos.to(dev)
-            positions = pos[:, None] + ar[None, :]
-        else:
-            positions = (pos + ar)[None, :]
+        pos, positions = step_positions(pos, token.shape[1], params["embed"].device)
         x = embed_tokens(params, cfg, token)
         x, cache = stack_apply(params["blocks"], cfg, x, causal=True, window=cfg.window,
                                positions=positions, cache=cache, cache_pos=pos, pctx=pctx)
         return unembed(params, cfg, x), cache
+
+
+def step_positions(pos, s: int, device) -> tuple:
+    """``(pos, positions)`` of a decode run of ``s`` tokens a row: ``pos`` as an int
+    or a ``[B]`` tensor on ``device``, and the tokens' positions ``[1 or B, s]``."""
+    pos = _as_pos(pos)
+    ar = torch.arange(s, device=device)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device)
+        return pos, pos[:, None] + ar[None, :]
+    return pos, (pos + ar)[None, :]

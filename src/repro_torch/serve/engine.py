@@ -53,7 +53,9 @@ three default to off.
 The engine serves the ``dense``, ``moe`` and ``vlm`` families (an MoE
 model through the dense MoE form, :func:`repro_torch.models.moe.moe_dense`,
 as the JAX package serves it without a mesh); frontend (``vlm``) prompts
-take :func:`static_generate`. Not ported (ROADMAP.md, queue 1 item 6):
+and the recurrent and enc-dec families (``ssm``, ``hybrid``, ``encdec``,
+``audio``: their state is not a KV cache of slot rows) take
+:func:`static_generate`, as in the JAX package. Not ported (ROADMAP.md, queue 1 item 6):
 device meshes (``mesh`` is None, or ``"auto"``, which resolves to None on
 one card) and flash-decode; they raise ``NotImplementedError``.
 """
@@ -76,7 +78,8 @@ from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.serve.scheduler import Request, SlotScheduler
 
 # Families the slot engine drives: the transformer cache contract and
-# token-only prompts (frontend requests take static_generate).
+# token-only prompts (frontend requests and the recurrent and enc-dec
+# families take static_generate).
 ENGINE_FAMILIES = ("dense", "moe", "vlm")
 
 _NOT_PORTED = "not ported to repro_torch yet; see ROADMAP.md (queue 1 item 6)"
@@ -285,7 +288,12 @@ def static_generate(
     the dense static-int8 layout, the quantized reference of the paged
     engine. A ``vlm`` batch may carry ``"frontend"`` patch embeddings
     ``[B, F, D]``: they fill the cache's first ``F`` positions, and decoding
-    starts after them. Sampling (``greedy=False`` with a ``generator``)
+    starts after them. An ``encdec``/``audio`` batch carries ``"frontend"``
+    frame embeddings ``[B, S_enc, D]`` for the encoder: the state is
+    ``(cache, enc_out)`` and decoding starts after the prompt's tokens. The
+    recurrent families carry their own state (mamba2's conv window and SSD
+    state; rglru's recurrent state and ring) from the prefill through
+    every step. Sampling (``greedy=False`` with a ``generator``)
     draws from the ``torch.Generator``, whose bits are not ``jax.random``'s.
     """
     cfg = setup.cfg

@@ -1,16 +1,23 @@
 """Every config the port registers, against the JAX package, on the CPU.
 
 Each config runs at ``reduced()`` (float32, 2 layers, d_model 64; for an
-MoE config 8 experts, top-2; for internvl2 8 frontend embeddings) with the
-same weights in both packages (a JAX key, carried across as numpy) and
-the same numpy inputs:
+MoE config 8 experts, top-2; for internvl2 8 frontend embeddings; for
+seamless a frame embedding per token, as the JAX package's data pipeline
+gives an enc-dec batch; mamba2 and recurrentgemma at their reduced state
+and window) with the same weights in both packages (a JAX key, carried
+across as numpy) and the same numpy inputs:
 
   * prefill and decode-step logits through each package's ``get_model``
     (1e-4 of max |logit|: float32 sums in another order, as the dense
-    LM's parity tests hold them), with a frontend batch for ``vlm``;
+    LM's parity tests hold them), with a frontend batch for ``vlm`` and
+    ``audio``;
   * ``param_count`` and ``active_param_count`` of the full configs, equal;
-  * greedy ``static_generate`` tokens identical for reduced olmoe, kimi
-    and internvl2 (the last with a frontend), float and a4-packed;
+  * greedy ``static_generate`` tokens identical for reduced olmoe, kimi,
+    internvl2 (with a frontend), mamba2, recurrentgemma and seamless (with
+    frames), float and a4-packed; for the last three also
+    ``QuantizedModel.generate`` (a4 codes, float activations, the only
+    scheme the reference serves them with: ``act="static"`` and
+    ``act="dynamic"`` are refused in both packages);
   * the port's ``ServeEngine`` tokens identical to the JAX engine's for
     reduced olmoe, on the dense cache and on the paged static-int8 one;
   * ``lm_token_energy`` equal (float and packed trees);
@@ -47,7 +54,9 @@ from repro_torch.serve.engine import ServeEngine, ServeSetup, static_generate  #
 
 B, S, N_NEW = 2, 12, 5
 REL = 1e-4
-GENERATED = ("olmoe_1b_7b", "kimi_k2_1t_a32b", "internvl2_26b")
+GENERATED = ("olmoe_1b_7b", "kimi_k2_1t_a32b", "internvl2_26b", "mamba2_780m",
+             "recurrentgemma_2b", "seamless_m4t_large_v2")
+RECURRENT_ENCDEC = ("mamba2_780m", "recurrentgemma_2b", "seamless_m4t_large_v2")
 
 
 def _close(got, want, rel=REL):
@@ -74,17 +83,21 @@ def trees():
 
 
 def _batch(cfg, seed=0, b=B, s=S):
-    """Numpy token ids and, for a frontend config, patch embeddings."""
+    """Numpy token ids and, for a frontend config, patch embeddings (an enc-dec
+    config: one frame embedding a token, as ``repro.data.pipeline`` gives them)."""
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
-    if cfg.frontend_tokens:
+    if cfg.family in ("encdec", "audio"):
+        batch["frontend"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    elif cfg.frontend_tokens:
         batch["frontend"] = rng.standard_normal(
             (b, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
     return batch
 
 
 def _prompt_len(cfg, batch):
-    return batch["tokens"].shape[1] + (batch["frontend"].shape[1] if "frontend" in batch else 0)
+    """Cache positions a prompt fills: only a ``vlm`` frontend sits in the decoder's cache."""
+    return batch["tokens"].shape[1] + (batch["frontend"].shape[1] if cfg.family == "vlm" else 0)
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -129,6 +142,35 @@ def test_greedy_static_generate_matches_reference(trees, arch, packed):
     got = static_generate(ServeSetup(cfg=tc, mesh=None, max_len=max_len, batch=B), tparams,
                           {k: torch.from_numpy(v) for k, v in batch.items()}, N_NEW)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ENCDEC)
+def test_quantized_generate_matches_reference_and_refuses_act_quant(trees, arch):
+    """``api.quantize`` (a4 codes, float activations) then ``QuantizedModel.generate``
+    (through ``batch_generate``, which takes ``static_generate`` for these
+    families): the same tokens as the JAX package's. Static and dynamic
+    activations are refused where the reference refuses them."""
+    jc, tc, jp, tparams, _, _ = trees(arch)
+    kw = dict(fmt="elp_bsd_a4", act="float")
+    jq = japi.quantize(jc, jp, japi.QuantScheme(**kw))
+    tq = tapi.quantize(tc, tparams, tapi.QuantScheme(**kw), device="cpu")
+    batch = _batch(jc, seed=6)
+    want = jq.generate({k: jnp.asarray(v) for k, v in batch.items()}, N_NEW)
+    got = tq.generate(batch, N_NEW)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert tq.adapter.forward(tq.params, batch).shape == (B, 1, tc.vocab)
+    calib = np.zeros((1, 2, 8), np.int32)
+    for quant, scheme, err in ((japi.quantize, japi.QuantScheme, NotImplementedError),
+                               (tapi.quantize, tapi.QuantScheme, NotImplementedError)):
+        params = jp if quant is japi.quantize else tparams
+        extra = {} if quant is japi.quantize else {"device": "cpu"}
+        with pytest.raises(err, match="tap contract"):
+            quant(jc if quant is japi.quantize else tc, params, scheme(act="static"),
+                  calib_data=calib, **extra)
+        with pytest.raises(ValueError, match="dynamic"):
+            quant(jc if quant is japi.quantize else tc, params, scheme(act="dynamic"), **extra)
+    with pytest.raises(NotImplementedError, match="activation taps"):
+        tq.adapter.tapped_forward(tq.params)
 
 
 @pytest.mark.parametrize("layout", ["dense", "paged_int8"])

@@ -381,3 +381,91 @@ def test_lm_artifact_reads_across_packages(lm_models, arch, saved_by, tmp_path):
     want = np.asarray(jq.forward({k: jnp.asarray(v) for k, v in batch.items()}))
     got = tq.forward(batch).numpy()
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# The recurrent and enc-dec families: a4 codes, float activations
+# ---------------------------------------------------------------------------
+RECURRENT_ENCDEC = ("mamba2_780m", "recurrentgemma_2b", "seamless_m4t_large_v2")
+# the float32 leaves of a bfloat16 model
+F32_LEAVES = {"mamba2_780m": ("blocks", ("A_log", "D", "dt_bias")),
+              "recurrentgemma_2b": ("rec", ("lam", "ba", "bx")),
+              "seamless_m4t_large_v2": ("decoder", ())}
+
+
+def _recurrent_batch(jc, seed=9):
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, jc.vocab, (2, 10)).astype(np.int32)}
+    if jc.family in ("encdec", "audio"):
+        batch["frontend"] = rng.standard_normal((2, 10, jc.d_model)).astype(np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ENCDEC)
+@pytest.mark.parametrize("saved_by", ["jax", "port"])
+def test_recurrent_encdec_artifact_reads_across_packages(arch, saved_by, tmp_path):
+    """An a4 artifact (float activations) of reduced mamba2, recurrentgemma or
+    seamless saved by either package loads in the other: every leaf
+    bit-identical, and greedy ``generate`` gives the saving package's tokens."""
+    import torch_parity as tp
+    from repro.configs import get_config as jget
+    from repro_torch.configs import get_config as tget
+
+    jc, tc = jget(arch).reduced(), tget(arch).reduced()
+    jp, tparams = tp.lm_params(jc)
+    kw = dict(fmt="elp_bsd_a4", act="float")
+    path = str(tmp_path / "lm")
+    batch = _recurrent_batch(jc)
+    if saved_by == "jax":
+        jq = japi.quantize(jc, jp, japi.QuantScheme(**kw))
+        jq.save(path)
+        tq = tapi.load(path, device="cpu")
+    else:
+        tq = tapi.quantize(tc, tparams, tapi.QuantScheme(**kw), device="cpu")
+        tq.save(path)
+        jq = japi.load(path)
+        _assert_same_tree(tapi.load(path, device="cpu").params, tq.params)
+    assert tq.adapter.cfg == tc
+    _lm_leaves_equal(tq.params, jq.params)
+    want = np.asarray(jq.generate({k: jnp.asarray(v) for k, v in batch.items()}, 4))
+    np.testing.assert_array_equal(tq.generate(batch, 4).numpy(), want)
+
+
+@pytest.mark.parametrize("arch", RECURRENT_ENCDEC)
+def test_bf16_model_keeps_float32_leaves_across_packages(arch, tmp_path):
+    """A bfloat16 model's float32 leaves stay float32, and its bfloat16 leaves stay
+    bfloat16 bit for bit: carried across by ``params_from_numpy``, through the port's
+    save and load, and as the JAX package reads the port's artifact."""
+    import dataclasses
+
+    from repro.configs import get_config as jget
+    from repro.models import get_model as jget_model
+    from repro_torch.configs import get_config as tget
+    from repro_torch.interop import params_from_numpy
+
+    jc = dataclasses.replace(jget(arch).reduced(), dtype_str="bfloat16")
+    tc = dataclasses.replace(tget(arch).reduced(), dtype_str="bfloat16")
+    jp = jget_model(jc).init_params(jc, jax.random.PRNGKey(1))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    want = jmgr._flatten(jp)[0]
+    for key, leaf in tmgr._flatten(tparams).items():
+        ref = np.asarray(want[key])
+        if ref.dtype.name == "bfloat16":
+            ref = ref.view(np.int16)  # leaf_to_numpy's view of a bfloat16 tensor
+        np.testing.assert_array_equal(tmgr.leaf_to_numpy(leaf), ref, err_msg=key)
+    group, names = F32_LEAVES[arch]
+    for name, leaf in tparams[group].items():
+        assert leaf.dtype == (torch.float32 if name in names else torch.bfloat16), name
+    tq = tapi.quantize(tc, tparams, tapi.QuantScheme(fmt="elp_bsd_a4"), device="cpu")
+    path = str(tmp_path / "bf16")
+    tq.save(path)
+    back = tapi.load(path, device="cpu")
+    _assert_same_tree(back.params, tq.params)
+    jq = japi.load(path)
+    for key, leaf in jmgr._flatten(jq.params)[0].items():
+        got = tmgr._flatten(back.params)[key]
+        assert str(got.dtype).removeprefix("torch.") == str(leaf.dtype), key
+    if arch == "mamba2_780m":
+        from repro_torch.models import mamba2
+
+        assert mamba2.init_state(tc, 2, device="cpu")[1].dtype == torch.float32

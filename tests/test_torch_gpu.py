@@ -495,6 +495,12 @@ FLASH_WGMMA_CASES = [
     # group 6, 256 frontend embeddings + 128 text tokens
     (16, 16, 16, 128, 128, 128, 0, 128, True, True),
     (4, 48, 8, 384, 384, 128, 0, 128, True, True),
+    # seamless-m4t-large-v2 (hd 64, 16 heads) at 16 x 200 frames + 128 tokens:
+    # the encoder's self-attention (queries padded to 256, the 200 keys at their
+    # true count), cross-attention at prefill, the decoder's causal self-attention
+    (16, 16, 16, 256, 200, 64, 0, 128, False, True),
+    (16, 16, 16, 128, 200, 64, 0, 128, False, True),
+    (16, 16, 16, 128, 128, 64, 0, 128, True, True),
 ]
 
 
@@ -875,3 +881,89 @@ def test_olmoe_block_on_card_matches_cpu(cuda):
     assert len(ids["cpu"]) == len(ids["cuda"]) == 4
     for a, b in zip(ids["cpu"], ids["cuda"]):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The recurrent and enc-dec slice: mamba2-780m, recurrentgemma-2b, seamless
+# ---------------------------------------------------------------------------
+# (M, K, N) on the tiled wgmma route at 16 x 128 tokens (seamless's encoder
+# and its cross-attention xk/xv at 16 x 200 frames): mamba2's in_proj (N =
+# 6448 = 16 x 403, ragged against the 128-column tile) and out_proj;
+# recurrentgemma's w_gate/w_rec/w_out/wq/wo, MQA wk/wv, w1/w3 and w2;
+# seamless's 1024-wide projections and its 8192-wide GELU MLP
+RECURRENT_TILED_SHAPES = [(2048, 1536, 6448), (2048, 3072, 1536), (2048, 2560, 2560),
+                          (2048, 2560, 256), (2048, 2560, 7680), (2048, 7680, 2560),
+                          (3200, 1024, 1024), (3200, 1024, 8192), (3200, 8192, 1024),
+                          (2048, 1024, 1024)]
+# and on the decode-step route at M = 16 (lockstep)
+RECURRENT_DECODE_SHAPES = [(16, 1536, 6448), (16, 3072, 1536), (16, 2560, 256),
+                           (16, 2560, 7680), (16, 7680, 2560), (16, 1024, 1024),
+                           (16, 1024, 8192), (16, 8192, 1024)]
+
+
+@pytest.mark.parametrize("m,k,n", RECURRENT_TILED_SHAPES)
+def test_wgmma_route_matches_plain_at_recurrent_shapes(cuda, m, k, n):
+    test_wgmma_route_matches_plain_at_moe_vlm_shapes(cuda, m, k, n)
+
+
+@pytest.mark.parametrize("m,k,n", RECURRENT_DECODE_SHAPES)
+def test_decode_wgmma_route_matches_plain_at_recurrent_shapes(cuda, m, k, n):
+    _decode_wgmma_case(cuda, "elp_bsd_a4", True, m, k, n)
+
+
+# Per family: (config, depth overrides, frontend frames, tiled launches a
+# prefill, flash launches a prefill, decode-step and tiled launches a step)
+RECURRENT_CARD_CASES = {
+    "mamba2_780m": (dict(n_layers=2), 0, 4, 0, 4, 0),
+    "recurrentgemma_2b": (dict(n_layers=3), 0, 6 * 2 + 7, 0, 6 * 2 + 7, 0),
+    "seamless_m4t_large_v2": (dict(n_layers=2, n_dec_layers=2), 200, 1 + 2 * 6 + 2 * 10, 6,
+                              2 * 8, 2 * 2),
+}
+
+
+@pytest.mark.parametrize("arch", sorted(RECURRENT_CARD_CASES))
+def test_recurrent_encdec_on_card_match_cpu(cuda, arch):
+    """Full width, depth cut (mamba2 2 layers; recurrentgemma one period: rec,
+    rec, attn; seamless 2 + 2), float32, vocab cut to 4096, packed a4 on the card
+    and copied to the CPU: prefill and three decode steps on the card against the
+    same packed model on the CPU within 1e-4 * max |logit| (float32 sums in
+    another order), with the launches of each call per kernel."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import get_model
+
+    over, frames, tiled, flash, step_fused, step_tiled = RECURRENT_CARD_CASES[arch]
+    cfg = dataclasses.replace(get_config(arch), vocab=4096, dtype_str="float32", **over)
+    model = get_model(cfg)
+    qg = api.quantize(cfg, model.init_params(cfg, 0, device=cuda), api.QuantScheme(fmt="elp4"),
+                      device=cuda)
+    qc = qg.to("cpu")
+    rng = np.random.default_rng(11)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (4, 80)))}
+    if frames:
+        batch["frontend"] = torch.from_numpy(
+            rng.standard_normal((4, frames, cfg.d_model)).astype(np.float32))
+
+    def counts():
+        return (elp_bsd_matmul.launches, fused_decode_matmul.launches, flash_attention.launches)
+
+    cache_c = model.init_cache(cfg, 4, 84, device="cpu")
+    cache_g = model.init_cache(cfg, 4, 84, device=cuda)
+    before = counts()
+    want, cache_c = model.prefill(qc.params, cfg, batch, cache_c)
+    got, cache_g = model.prefill(qg.params, cfg, {k: v.to(cuda) for k, v in batch.items()},
+                                 cache_g)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (tiled, 0, flash)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    tok = want.argmax(-1)
+    for i in range(3):
+        before = counts()
+        want, cache_c = model.decode_step(qc.params, cfg, tok, cache_c, 80 + i)
+        got, cache_g = model.decode_step(qg.params, cfg, tok.to(cuda), cache_g, 80 + i)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == (step_tiled, step_fused, 0)
+        assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item(), i
+        tok = want.argmax(-1)

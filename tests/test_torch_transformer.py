@@ -144,7 +144,9 @@ def test_model_api_and_unported_inputs():
         api.loss_fn(params, tc, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttr.prefill(params, tc, torch.zeros(1, 4, dtype=torch.long), cache, pctx=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(type(tc)(**{**tc.__dict__, "family": "ssm"}))
+    with pytest.raises(ValueError, match="unknown model family"):
+        get_model(type(tc)(**{**tc.__dict__, "family": "rnn"}))
+    with pytest.raises(ValueError, match="get_model"):  # the ssm family has its own tree
+        ttr.init_params(type(tc)(**{**tc.__dict__, "family": "ssm"}), 0, device="cpu")
     with pytest.raises(ValueError, match="exclusive"):
         api.init_cache(tc, 1, 8, quant=True, kv_scales=(np.ones((2, 2)),) * 2, device="cpu")

@@ -75,10 +75,10 @@ def lm_params(jcfg, seed: int = 0):
     """JAX LM params from a fixed key, and the same tree carried across to the port (CPU)."""
     import jax
 
-    from repro.models import transformer as jtr
+    from repro.models import get_model
     from repro_torch.interop import params_from_numpy
 
-    jp = jtr.init_params(jcfg, jax.random.PRNGKey(seed))
+    jp = get_model(jcfg).init_params(jcfg, jax.random.PRNGKey(seed))
     return jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
 
 
@@ -117,3 +117,34 @@ def jax_trained_mini(spec_name: str, steps: int, results_dir) -> dict:
     finally:
         common.RESULTS = saved
     return {k: np.asarray(v) for k, v in params.items()}
+
+
+# ---------------------------------------------------------------------------
+# Non-causal flash attention at a ragged key count
+# ---------------------------------------------------------------------------
+def check_noncausal_ragged_flash(seed: int, b: int, h: int, kvh: int, sq: int, sk: int, hd: int,
+                                 block_k: int):
+    """Non-causal ``flash_attention`` on the CPU (the plain version) with ``sk`` keys,
+    a count that does not tile by the port's 128-row block, against the JAX Pallas
+    kernel in interpret mode (heads repeated for it; ``block_k`` divides ``sk``)
+    within 2e-5 (float32 sums in another order). Then the control: the same keys
+    padded with zero rows to the block give a result far off, so what the check
+    holds is the key mask."""
+    import jax.numpy as jnp
+    import torch
+
+    from repro.kernels.flash_attention import flash_attention as jflash
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, h, sq, hd)).astype(np.float32)
+    k, v = (rng.normal(size=(b, kvh, sk, hd)).astype(np.float32) for _ in range(2))
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=False)
+    rep = lambda t: jnp.repeat(jnp.asarray(t), h // kvh, axis=1)  # noqa: E731
+    want = np.asarray(jflash(jnp.asarray(q), rep(k), rep(v), causal=False, block_q=sq,
+                             block_k=block_k, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    pad = (-sk) % 128
+    kp, vp = (torch.cat([torch.from_numpy(t), torch.zeros(b, kvh, pad, hd)], 2) for t in (k, v))
+    padded = flash_attention(torch.from_numpy(q), kp, vp, causal=False)
+    assert (padded - got).abs().max().item() > 100 * 2e-5 * got.abs().max().item()
