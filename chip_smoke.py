@@ -91,7 +91,25 @@ stays held and timed).
   tokens teacher-forced against the plain versions under the LM gate beside
   each model's controls (float64 sums, a bf16 step, the decode-step K-tail
   skip, and for seamless non-causal flash attending zero-padded keys), and
-  every kernel shape of the generate held against its plain version.
+  every kernel shape of the generate held against its plain version;
+* the paper's second network, full-width VGG16 (``vgg16_phase``, after
+  the LM phases): seeded weights, ``api.quantize`` (a4, static 8-bit activations
+  calibrated on seeded images) and ``QuantizedModel.forward`` at batch 64,
+  13 tiled + 3 decode-step bf16x3 launches a forward, every kernel shape
+  held against its plain version on the run's own inputs beside cuDNN /
+  ``torch.matmul``, forward time and peak memory, card against CPU at
+  batch 2;
+* the paper's remaining results on the minis mini_phase trained
+  (``paper_results_phase``): Sec. VI-D ``caxcnn_compare`` (card and CPU),
+  ``calib_bench`` (dynamic against static activations on the packed
+  forward: 0 range reductions static, one a site dynamic, launches exact)
+  and ``table2_energy``, each printing the JAX scripts' rows;
+* LM training on one card (``train_phase``, last): lm-100m (the JAX
+  package's ``examples/train_lm.py`` config) straight, checkpointed and
+  resumed (the resumed losses held to the straight run's) and with each
+  gradient codec; lm-ptq's first steps card against CPU; qwen3-8b at full
+  width, 4 of 36 layers, bf16 with float32 masters; no kernel launched in
+  any training step; then ``lm_ptq`` as the script runs it.
 
     python3 chip_smoke.py
 
@@ -101,7 +119,7 @@ holds the card's name and power limit, and before that one JSON object
 with each kernel route's numbers: ``launches`` counts its launches on the
 main paths (one AlexNet forward, the Sec. V phases, one generate, the
 engine phase, the MoE and VLM phases, one generate of each recurrent and
-enc-dec model), and
+enc-dec model, one VGG16 forward, the paper-results phase), and
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are the per-shape
 times of those launches, each shape weighted by its launches (a Sec. V shape
 is timed once per format, an engine shape at the inputs of its first call). The three ``/f32`` routes have no
@@ -1221,11 +1239,14 @@ class KernelTap:
         return False
 
 
-def hold_tapped(torch, dev, label, tap, rows, failures) -> None:
+def hold_tapped(torch, dev, label, tap, rows, failures, library_for=None) -> None:
     """Each kernel shape of a run (``tap``), its output from the run held against
     the plain version on the same inputs (matmuls at REL_TOL, flash at
     FLASH_TOL); then the kernel timed at that shape beside the plain version and
-    one library call, each row weighted by the shape's calls in the run."""
+    one library call, each row weighted by the shape's calls in the run. A
+    matmul's library call is ``torch.matmul`` on the dequantized weight, or
+    ``library_for(x, wq)`` where that gives one (a conv's cuDNN call); its bound
+    takes its route's arithmetic (bf16x3: three bf16 passes)."""
     import torch.nn.functional as F
 
     from repro_torch.device import full_f32
@@ -1265,11 +1286,13 @@ def hold_tapped(torch, dev, label, tap, rows, failures) -> None:
             n = codes.shape[-1]
             wq = ops.dequantize(ops.PackedWeight(codes, sf, fmt.name, kw["nibble"],
                                                  (kdim, n))).to(x.dtype)
-            library = lambda: torch.matmul(x, wq)  # noqa: E731
+            library = library_for(x, wq) if library_for else None
+            if library is None:
+                library = lambda: torch.matmul(x, wq)  # noqa: E731
             tol = (0.0, REL_TOL)
             shape = f"M={m} K={kdim} N={n}"
             cost = bound(2.0 * m * kdim * n, x.numel() * x.element_size() + codes.numel() + 4
-                         + m * n * 4, x.dtype)
+                         + m * n * 4, "bf16x3" if name.endswith("/bf16x3") else x.dtype)
         want = ref()
         got = rec["out"]
         err, w = (got.float() - want.float()).abs().max().item(), _worst(got, want, tol)
@@ -2267,10 +2290,12 @@ def bf16x3_k_sweep(torch, dev, gen, failures) -> None:
     """Both bf16x3 routes' distance from the product summed in float64, at each K
     of BF16X3_KS, for the kernel (three terms) and the plain arithmetic with 1, 2
     and 3 bf16 terms of x and in float32 (cuBLAS, no TF32); a4 nibble codes,
-    N = 256, M = 2048 (tiled) and 64 (decode step). Gated: the kernel under
-    BF16X3_K_GATE of the REL_TOL limit at every K (the tiled route's float32
-    register sum; a whole K split summed on the tensor cores read 1.04 at K =
-    25088), and the one-term control over 1, so the gate sees a real fault."""
+    N = 256, M = 2048 (tiled) and 64 (decode step), x zero-mean and post-ReLU
+    (products that do not cancel in sign, as an fc layer gets them). Gated: the
+    kernel under BF16X3_K_GATE of the REL_TOL limit at every K (both routes'
+    float32 register sums; a whole K split summed on the tensor cores read 1.04
+    at K = 25088 on the tiled route, 0.756 on the decode-step route at VGG16's
+    fc0), and the one-term control over 1, so the gate sees a real fault."""
     from repro_torch.core.elp_bsd import PRESET_FORMATS
     from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul, elp_bsd_matmul_plain
     from repro_torch.kernels.fused_decode import fused_decode_matmul
@@ -2282,9 +2307,14 @@ def bf16x3_k_sweep(torch, dev, gen, failures) -> None:
         codes = torch.randint(0, 256, ((kdim + 1) // 2, n), device=dev, generator=gen,
                               dtype=torch.uint8)
         sf = torch.tensor([1.0 / kdim ** 0.5], device=dev)
-        for name, kernel, m in (("elp_bsd_matmul/bf16x3", elp_bsd_matmul, 2048),
-                                ("fused_decode_matmul/bf16x3", fused_decode_matmul, 64)):
+        for name, kernel, m, x_kind in (
+                ("elp_bsd_matmul/bf16x3", elp_bsd_matmul, 2048, "normal"),
+                ("elp_bsd_matmul/bf16x3", elp_bsd_matmul, 2048, "relu"),
+                ("fused_decode_matmul/bf16x3", fused_decode_matmul, 64, "normal"),
+                ("fused_decode_matmul/bf16x3", fused_decode_matmul, 64, "relu")):
             x = torch.randn(m, kdim, device=dev, generator=gen)
+            if x_kind == "relu":
+                x = torch.relu(x)
             want = _f64_sum(x, codes, sf, fmt, nibble=True)
             limit = REL_TOL * want.abs().max().item()
             dist = {"kernel": kernel(x, codes, sf, fmt, nibble=True)}
@@ -2293,15 +2323,15 @@ def bf16x3_k_sweep(torch, dev, gen, failures) -> None:
                                                            terms=t)
             dist["float32"] = elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=True)
             ratio = {k: (v - want).abs().max().item() / limit for k, v in dist.items()}
-            print(f"[bf16x3-k] {name} K={kdim} M={m} N={n}: max |out - f64| / limit ("
+            print(f"[bf16x3-k] {name} K={kdim} M={m} N={n} x {x_kind}: max |out - f64| / limit ("
                   + ", ".join(f"{k} {v:.4f}" for k, v in ratio.items())
                   + f"); limit {REL_TOL:g} * max|f64| = {limit:.3e}; gate kernel < "
                   f"{BF16X3_K_GATE:g}, one term > 1")
             if not ratio["kernel"] < BF16X3_K_GATE:
-                failures.append(f"[bf16x3-k] {name} K={kdim}: kernel {ratio['kernel']:.4f} of "
-                                "the limit")
+                failures.append(f"[bf16x3-k] {name} K={kdim} x {x_kind}: kernel "
+                                f"{ratio['kernel']:.4f} of the limit")
             if not ratio["1 terms"] > 1:
-                failures.append(f"[bf16x3-k] {name} K={kdim}: the one-term control reads "
+                failures.append(f"[bf16x3-k] {name} K={kdim} x {x_kind}: the one-term control reads "
                                 f"{ratio['1 terms']:.4f}, under the limit")
             del x, want, dist
 
@@ -2514,6 +2544,407 @@ def full_search_phase(torch, dev, failures, forwards) -> tuple:
         failures.append(f"full-width launches {c}")
     shutil.rmtree(path)
     return c
+
+
+# The paper's second network at full width: VGG16 (13 convs, 3 fc layers;
+# 15.5 GMAC an image), seeded weights, a4 nibble codes, static 8-bit
+# activations calibrated on VGG_CALIB seeded images, batch 64 through
+# api.quantize, as the AlexNet path. Card against CPU at batch VGG_CPU_BATCH
+# (the full forward on the host's CPU is too slow for the script).
+VGG_CALIB = (2, 8)
+VGG_CPU_BATCH = 2
+
+
+def vgg16_phase(torch, dev, failures, rows) -> dict:
+    """Full-width VGG16 on the card. Returns the launches of its counted forward."""
+    import torch.nn.functional as F
+
+    from repro_torch import api
+    from repro_torch.device import full_f32
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.conv import pad_nhwc
+    from repro_torch.models import cnn
+
+    spec = cnn.VGG16
+    hw, n_classes = spec.input_hw, spec.layers[-1].out
+    t0 = time.perf_counter()
+    params = cnn.init_params(spec, seed=0, device=dev)
+    img_gen = torch.Generator(device=dev).manual_seed(2)
+    calib = torch.randn(*VGG_CALIB, hw, hw, spec.input_ch, device=dev, generator=img_gen)
+    batch = torch.randn(BATCH, hw, hw, spec.input_ch, device=dev, generator=img_gen)
+    torch.cuda.synchronize()
+    print(f"[vgg16] seeded VGG16 params ({sum(v.numel() for v in params.values())} weights) and "
+          f"images in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    qm = api.quantize(spec, params, api.QuantScheme(fmt="elp_bsd_a4", act="static", act_bits=8),
+                      calib_data=calib, device=dev)
+    torch.cuda.synchronize()
+    print(f"[vgg16] api.quantize (calibrate {VGG_CALIB[0]}x{VGG_CALIB[1]} images, fold, pack): "
+          f"{time.perf_counter() - t0:.2f} s; packed {qm.report.packed_bytes} B (raw "
+          f"{qm.report.raw_bytes} B, {qm.report.compression:.2f}x), Table II energy "
+          f"{qm.report.energy_nj:.4g} nJ")
+    del params, calib
+    torch.cuda.empty_cache()
+
+    # One counted forward, its kernel shapes tapped, each conv's input kept for
+    # the cuDNN yardstick (keyed by its im2col shape).
+    conv_inputs = {}
+    real_conv = cnn.quantized_conv2d
+
+    def keep_conv_input(x, pw, *, stride=1, **kw):
+        kh, kw_, cin, cout = pw.source_shape
+        b, h, w_, _ = x.shape
+        key = (b * (-(-h // stride)) * (-(-w_ // stride)), kh * kw_ * cin, cout)
+        conv_inputs.setdefault(key, (x.clone(), pw.source_shape, stride))
+        return real_conv(x, pw, stride=stride, **kw)
+
+    tap = KernelTap()
+    cnn.quantized_conv2d = keep_conv_input
+    try:
+        _zero_counts()
+        with tap:
+            logits = qm.forward(batch)
+        torch.cuda.synchronize()
+        c = _counts()
+    finally:
+        cnn.quantized_conv2d = real_conv
+    n_conv = sum(isinstance(layer, cnn.Conv) for layer in spec.layers)
+    n_fc = sum(isinstance(layer, cnn.Fc) for layer in spec.layers)
+    want = _expected({"elp_bsd_matmul/bf16x3": n_conv, "fused_decode_matmul/bf16x3": n_fc})
+    print(f"[vgg16] launches in one forward at batch {BATCH}: {dict(zip(KERNEL_ROUTES, c))} "
+          f"(expected {n_conv} tiled + {n_fc} decode-step bf16x3)")
+    if c != want:
+        failures.append(f"vgg16 launches {c}")
+    if tuple(logits.shape) != (BATCH, n_classes) or not bool(torch.isfinite(logits).all()):
+        failures.append(f"vgg16 logits shape {tuple(logits.shape)} or non-finite values")
+
+    def cudnn_conv(x, wq):
+        hit = conv_inputs.get((x.shape[0], x.shape[1], wq.shape[1]))
+        if hit is None:
+            return None
+        img, (kh, kw_, cin, cout), stride = hit
+        xi = pad_nhwc(img, kh, kw_, stride, "SAME").permute(0, 3, 1, 2).contiguous()
+        wc = wq.reshape(kh, kw_, cin, cout).permute(3, 2, 0, 1).contiguous()
+        return lambda: F.conv2d(xi, wc, stride=stride).permute(0, 2, 3, 1)
+
+    _hold_f64(torch, tap, failures)
+    with full_f32():
+        hold_tapped(torch, dev, "vgg16 forward", tap, rows, failures, library_for=cudnn_conv)
+    conv_inputs.clear()
+    torch.cuda.empty_cache()
+
+    fwd = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(5):
+        t0 = time.perf_counter()
+        qm.forward(batch)
+        torch.cuda.synchronize()
+        fwd.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[vgg16] forward at batch {BATCH}: median {statistics.median(fwd):.2f} ms (runs "
+          f"{[round(t, 2) for t in fwd]}), max_memory_allocated {peak} B")
+
+    t0 = time.perf_counter()
+    qm_cpu = qm.to("cpu")
+    few = batch[:VGG_CPU_BATCH].cpu()
+    with torch.no_grad():
+        float_card = cnn.forward(qm.params, spec, batch[:VGG_CPU_BATCH]).cpu()
+        float_cpu = cnn.forward(qm_cpu.params, spec, few)
+    pairs = [("static 8-bit activations", logits[:VGG_CPU_BATCH].cpu(), qm_cpu.forward(few),
+              STATIC_LOGIT_REL_TOL),
+             ("float activations", float_card, float_cpu, FLOAT_LOGIT_REL_TOL)]
+    for label, card, cpu, rel in pairs:
+        diff = (card - cpu).abs().max().item()
+        limit = rel * cpu.abs().max().item()
+        same_argmax = bool((card.argmax(-1) == cpu.argmax(-1)).all())
+        print(f"[vgg16] card vs CPU logits, {label}, same packed params, {VGG_CPU_BATCH} images: "
+              f"max_abs_diff {diff:.3e} ({diff / cpu.abs().max().item():.3e} of max |logit|, "
+              f"limit {rel:g}), argmax identical {same_argmax}")
+        if not (diff <= limit and same_argmax):
+            failures.append(f"vgg16 card logits ({label}) differ from the CPU port")
+    print(f"[vgg16] CPU reference runs took {time.perf_counter() - t0:.1f} s")
+    del qm, qm_cpu, batch, logits
+    torch.cuda.empty_cache()
+    return dict(zip(KERNEL_ROUTES, c))
+
+
+def _hold_f64(torch, tap, failures) -> None:
+    """Each tapped matmul's output from the run, and its plain version, against
+    the product summed in float64; the kernel gated at BF16X3_K_GATE of the
+    REL_TOL limit, as in [bf16x3-k]."""
+    for rec in sorted(tap.calls.values(), key=lambda r: r["args"][0].shape):
+        _hold_one_f64(torch, rec, failures)
+
+
+def _hold_one_f64(torch, rec, failures) -> None:
+    """One tapped matmul against float64, in row chunks (VGG16's conv1_2 patches
+    are 7.4 GB in float32)."""
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul_plain
+
+    x, codes, sf, fmt = rec["args"]
+    nibble = rec["kw"]["nibble"]
+    err, top = {"kernel": 0.0, "plain": 0.0}, 0.0
+    for i in range(0, x.shape[0], 1 << 18):
+        rows_i = slice(i, i + (1 << 18))
+        want = _f64_sum(x[rows_i], codes, sf, fmt, nibble=nibble, out_dtype=torch.float32)
+        plain = elp_bsd_matmul_plain(x[rows_i], codes, sf, fmt, nibble=nibble,
+                                     out_dtype=torch.float32)
+        top = max(top, want.abs().max().item())
+        for k, got in (("kernel", rec["out"][rows_i]), ("plain", plain)):
+            err[k] = max(err[k], (got.float() - want).abs().max().item())
+    ratio = {k: v / (REL_TOL * top) for k, v in err.items()}
+    print(f"[vgg16] {rec['name']} M={x.shape[0]} K={x.shape[1]} N={codes.shape[1]}: max |out - "
+          f"f64| / limit: kernel {ratio['kernel']:.4f} (gate {BF16X3_K_GATE:g}), plain "
+          f"{ratio['plain']:.4f} (reported)")
+    if not ratio["kernel"] < BF16X3_K_GATE:
+        failures.append(f"vgg16 {rec['name']} K={x.shape[1]}: kernel {ratio['kernel']:.4f} of "
+                        "the limit against float64")
+
+
+def paper_results_phase(torch, dev, trained, failures, forwards) -> tuple:
+    """The paper's remaining results on the minis that mini_phase trained on the
+    card: Sec. VI-D (``caxcnn_compare``, also on the CPU with the same weights),
+    dynamic against static activations (``calib_bench``, packed c6 forwards on
+    the kernels, counted) and Table II (``table2_energy``), each printing the
+    JAX scripts' ``name,us,derived`` rows. Returns the launches."""
+    from repro_torch.experiments import calib_bench, caxcnn_compare, table2_energy
+    from repro_torch.models import cnn
+
+    t0 = time.perf_counter()
+    params = trained["ALEXNET_MINI"]
+    _zero_counts()
+    card = caxcnn_compare.run(cnn.ALEXNET_MINI, params=params, device=dev)
+    torch.cuda.synchronize()
+    if _counts() != (0,) * len(KERNEL_ROUTES):  # float weights: no packed matmul
+        failures.append(f"caxcnn_compare launched kernels {_counts()}")
+    cpu = caxcnn_compare.run(cnn.ALEXNET_MINI, params={k: v.cpu() for k, v in params.items()},
+                             device="cpu")
+    worst = max(abs(card[k] - cpu[k]) for k in ("baseline", "caxcnn_5b", "conlocnn_4b"))
+    print(f"[paper] caxcnn_compare on the card ({time.perf_counter() - t0:.1f} s with the CPU "
+          f"run); card vs CPU accuracy, largest difference {worst:.4f} (limit {AC}); logit MSE "
+          f"card {card['mse_cax']:.6g} / {card['mse_conlo']:.6g}, CPU {cpu['mse_cax']:.6g} / "
+          f"{cpu['mse_conlo']:.6g}")
+    if worst > AC:
+        failures.append(f"caxcnn_compare card vs CPU accuracy {worst}")
+    caxcnn_compare.report(card)
+
+    launches = (0,) * len(KERNEL_ROUTES)
+    for spec_name in MINI_SPECS:
+        spec = getattr(cnn, spec_name)
+        t0 = time.perf_counter()
+        _zero_counts()
+        r = calib_bench.run(spec, params=trained[spec_name], device=dev)
+        torch.cuda.synchronize()
+        c = _counts()
+        # 3 forwards (float, dynamic, static) x (1 warm-up + 5 timed), then the
+        # dynamic and static forwards under the range-reduction counter
+        n_fwd = 3 * 6 + 2
+        forwards[(spec.name, EVAL_BATCH, "elp_bsd_c6")] += n_fwd
+        want = _times(per_forward(spec), n_fwd)
+        n_conv = sum(isinstance(layer, cnn.Conv) for layer in spec.layers)
+        n_fc = sum(isinstance(layer, cnn.Fc) for layer in spec.layers)
+        sites = 1 + n_conv + n_fc - 1
+        print(f"[paper] calib_bench {spec.name} on the card: {time.perf_counter() - t0:.1f} s; "
+              f"range reductions static {r['reduce_max_static']} (must be 0), dynamic "
+              f"{r['reduce_max_dynamic']} (one a site: {sites}); launches "
+              f"{dict(zip(KERNEL_ROUTES, c))} (expected {want})")
+        if r["reduce_max_static"] != 0 or r["reduce_max_dynamic"] != sites:
+            failures.append(f"calib_bench {spec.name} range reductions {r['reduce_max_static']} / "
+                            f"{r['reduce_max_dynamic']}")
+        if c != want:
+            failures.append(f"calib_bench {spec.name} launches {c}")
+        launches = tuple(a + b for a, b in zip(launches, c))
+        calib_bench.report(spec, r)
+    table2_energy.main()
+    sys.stdout.flush()
+    return launches
+
+
+# LM training on one card. (1) lm-100m, the config of the JAX package's
+# examples/train_lm.py (float32, 16 layers, d 512, vocab 32000, about 96 M
+# parameters) at batch TRAIN_BATCH x TRAIN_SEQ, remat on: a straight run of
+# TRAIN_STEPS steps; a run of TRAIN_RESUME_AT steps with a checkpoint every
+# TRAIN_CKPT_EVERY, then train(steps=TRAIN_STEPS) on the same directory, its
+# steps held to the straight run's losses (TRAIN_RESUME_REL_TOL); then each
+# gradient codec for TRAIN_COMPRESS_STEPS steps. (2) lm-ptq, the first
+# TRAIN_CPU_STEPS steps on the card against the port on the host's CPU, TF32
+# off. (3) qwen3-8b at full width, depth cut to TRAIN_QWEN_LAYERS of 36 (full
+# depth's bf16 params, float32 masters and moments and bf16 gradients are
+# about 131 GB, over one 80 GB card), bf16 params, remat on.
+TRAIN_BATCH, TRAIN_SEQ = 8, 256
+TRAIN_STEPS, TRAIN_RESUME_AT, TRAIN_CKPT_EVERY = 80, 60, 20
+TRAIN_COMPRESS_STEPS = 10
+TRAIN_RESUME_REL_TOL = 1e-6
+TRAIN_CPU_STEPS = 3
+TRAIN_CPU_REL_TOL = 1e-4
+TRAIN_QWEN_LAYERS, TRAIN_QWEN_STEPS = 4, 6
+
+
+def _no_kernel_launches(label, failures) -> None:
+    """The training forward and backward run no kernel (the flash counter among them)."""
+    c = dict(zip(KERNEL_ROUTES, _counts()))
+    print(f"[train] {label}: kernel launches during training {sum(c.values())} (flash "
+          f"{c['flash_attention/wgmma'] + c['flash_attention/f32']}; must be 0)")
+    if any(c.values()):
+        failures.append(f"{label}: kernels launched during training {c}")
+
+
+def train_phase(torch, dev, failures) -> None:
+    """The three training runs above."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LmDataset, shard_batch
+    from repro_torch.device import full_f32
+    from repro_torch.experiments import lm_ptq, train_lm
+    from repro_torch.kernels.ops import tree_leaves, tree_map
+    from repro_torch.models import get_model
+    from repro_torch.obs.metrics import Registry
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainSetup, make_train_step, train
+
+    # (1) lm-100m: straight, checkpointed and resumed, compressed
+    cfg = train_lm.CFG
+    setup = TrainSetup(cfg=cfg, lr_peak=6e-4, warmup=50, total_steps=TRAIN_STEPS, remat=True)
+    kw = dict(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=20, device=dev,
+              log_fn=lambda line: print(f"[train] lm-100m {line}"))
+    reg = Registry(enabled=True)
+    _zero_counts()
+    t0 = time.perf_counter()
+    straight = train(setup, steps=TRAIN_STEPS, metrics=reg, **kw)
+    wall = time.perf_counter() - t0
+    want = straight["losses"]
+    hist, rep = reg.histogram("train.step_s"), straight["straggler_report"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    first10, last10 = statistics.mean(want[:10]), statistics.mean(want[-10:])
+    n_params = sum(t.numel() for t in tree_leaves(straight["params"]))
+    print(f"[train] lm-100m ({n_params} parameters, float32, remat) {TRAIN_STEPS} steps at "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} in {wall:.1f} s: step median {rep['median_s'] * 1e3:.2f} ms "
+          f"(last {min(TRAIN_STEPS, 50)}), mean {hist.mean * 1e3:.2f} ms, max "
+          f"{rep['max_s'] * 1e3:.2f} ms; {tokens / rep['median_s']:.0f} tokens/s at the median; "
+          f"loss first10 {first10:.4f} last10 {last10:.4f}; obs train.steps_total "
+          f"{reg.counter('train.steps_total').value:.0f}, train.lr {reg.gauge('train.lr').value:.3g}")
+    _no_kernel_launches("lm-100m straight", failures)
+    if not last10 < first10 or not all(math.isfinite(v) for v in want):
+        failures.append(f"lm-100m loss did not fall: {first10} -> {last10}")
+    del straight
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as ckpt:
+        _zero_counts()
+        first = train(setup, steps=TRAIN_RESUME_AT, ckpt_dir=ckpt, ckpt_every=TRAIN_CKPT_EVERY,
+                      **kw)
+        resumed = train(setup, steps=TRAIN_STEPS, ckpt_dir=ckpt, ckpt_every=TRAIN_CKPT_EVERY,
+                        **kw)
+        _no_kernel_launches("lm-100m checkpointed and resumed", failures)
+    before = max(abs(a - b) / abs(b) for a, b in zip(first["losses"], want[:TRAIN_RESUME_AT]))
+    after = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], want[TRAIN_RESUME_AT:]))
+    print(f"[train] lm-100m resume: {len(first['losses'])} steps with a checkpoint every "
+          f"{TRAIN_CKPT_EVERY}, then train(steps={TRAIN_STEPS}) ran {len(resumed['losses'])} "
+          f"steps from step {TRAIN_STEPS - len(resumed['losses'])}; largest relative loss "
+          f"difference to the straight run {before:.3e} before the checkpoint, {after:.3e} after "
+          f"(limit {TRAIN_RESUME_REL_TOL:g})")
+    if len(resumed["losses"]) != TRAIN_STEPS - TRAIN_RESUME_AT or not after <= TRAIN_RESUME_REL_TOL:
+        failures.append(f"lm-100m resume: {len(resumed['losses'])} steps, {after:.3e}")
+    del first, resumed
+    for codec in ("int8", "elp4"):
+        _zero_counts()
+        out = train(dataclasses.replace(setup, compress=codec), steps=TRAIN_COMPRESS_STEPS,
+                    **{**kw, "log_every": TRAIN_STEPS})
+        losses = out["losses"]
+        print(f"[train] lm-100m compress={codec}: {len(losses)} steps, losses {losses[0]:.4f} .. "
+              f"{losses[-1]:.4f}, step median {out['straggler_report']['median_s'] * 1e3:.2f} ms")
+        _no_kernel_launches(f"lm-100m compress={codec}", failures)
+        if not all(math.isfinite(v) for v in losses):
+            failures.append(f"lm-100m compress={codec}: non-finite loss")
+        del out
+    torch.cuda.empty_cache()
+
+    # (2) lm-ptq: the first steps on the card against the host's CPU, TF32 off.
+    # AdamW's first steps move a weight by about lr * g / (|g| + eps); at the
+    # default eps of 1e-8 a gradient of that size turns float32 noise into a
+    # difference of order lr, so these steps run at eps 1e-3.
+    cfg = lm_ptq.CFG
+    setup = TrainSetup(cfg=cfg, adamw_cfg=adamw.AdamWConfig(eps=1e-3), lr_peak=3e-3, warmup=0,
+                       total_steps=200, remat=False)
+    ds = LmDataset(cfg, seq_len=64, batch=16, seed=0)
+    init = get_model(cfg).init_params(cfg, 0, device="cpu")
+    runs = {}
+    _zero_counts()
+    with full_f32():
+        for where in ("cpu", dev):
+            p = tree_map(lambda t: t.to(where), init)
+            opt, step, losses = adamw.init_state(p), make_train_step(setup), []
+            for i in range(TRAIN_CPU_STEPS):
+                p, opt, _, m = step(p, opt, None, shard_batch(ds.np_batch(i), device=where))
+                losses.append(float(m["loss"]))
+            runs[str(where)] = (losses, p)
+    _no_kernel_launches("lm-ptq card vs CPU", failures)
+    (lc, pc), (lg, pg) = runs["cpu"], runs[str(dev)]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+    w_rel = max((a.cpu() - b).abs().max().item() / b.abs().max().item()
+                for a, b in zip(tree_leaves(pg), tree_leaves(pc)))
+    print(f"[train] lm-ptq card vs CPU, {TRAIN_CPU_STEPS} steps (TF32 off, eps 1e-3): losses card "
+          f"{[round(v, 6) for v in lg]}, CPU {[round(v, 6) for v in lc]}; largest relative loss "
+          f"difference {loss_rel:.3e}, parameters after the last step {w_rel:.3e} of each leaf's "
+          f"max |w| (limit {TRAIN_CPU_REL_TOL:g} for both)")
+    if not (loss_rel <= TRAIN_CPU_REL_TOL and w_rel <= TRAIN_CPU_REL_TOL):
+        failures.append(f"lm-ptq train card vs CPU: loss {loss_rel:.3e}, params {w_rel:.3e}")
+    del runs, pc, pg
+
+    # (3) qwen3-8b at full width, TRAIN_QWEN_LAYERS layers, bf16 params
+    cfg = dataclasses.replace(get_config("qwen3_8b"), n_layers=TRAIN_QWEN_LAYERS)
+    setup = TrainSetup(cfg=cfg, lr_peak=3e-4, warmup=2, total_steps=TRAIN_QWEN_STEPS, remat=True)
+    t0 = time.perf_counter()
+    params = get_model(cfg).init_params(cfg, 0, device=dev)
+    opt = adamw.init_state(params)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"[train] qwen3-8b, {TRAIN_QWEN_LAYERS} of 36 layers: {n_params} parameters (bf16), "
+          f"float32 masters and moments, in {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated()} B allocated")
+    ds = LmDataset(cfg, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    step = make_train_step(setup)
+    times, losses, gnorms = [], [], []
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_QWEN_STEPS):
+        batch = shard_batch(ds.np_batch(i), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, _, m = step(params, opt, None, batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["gnorm"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(times[1:])
+    print(f"[train] qwen3-8b {TRAIN_QWEN_LAYERS} layers, {TRAIN_QWEN_STEPS} steps at "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ}, remat: step ms {[round(t, 1) for t in times]}, median of "
+          f"the last {TRAIN_QWEN_STEPS - 1} {med:.1f} ms, {TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} "
+          f"tokens/s; losses {[round(v, 4) for v in losses]}; grad norms "
+          f"{[round(v, 3) for v in gnorms]}; max_memory_allocated {peak} B")
+    _no_kernel_launches("qwen3-8b", failures)
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        failures.append("qwen3-8b training: non-finite loss or grad norm")
+    del params, opt, step
+    torch.cuda.empty_cache()
+
+
+def lm_ptq_phase(torch, dev, failures) -> None:
+    """``lm_ptq`` on the card as the script runs it (200 training steps), its rows."""
+    from repro_torch.experiments import lm_ptq
+
+    t0 = time.perf_counter()
+    _zero_counts()
+    base, out = lm_ptq.run(device=dev)
+    torch.cuda.synchronize()
+    print(f"[lm_ptq] trained {lm_ptq.STEPS} steps and quantized on the card in "
+          f"{time.perf_counter() - t0:.1f} s; float eval loss {base:.4f}")
+    _no_kernel_launches("lm_ptq", failures)
+    losses = [base] + [v for r in out.values() for v in r.values()]
+    if not all(math.isfinite(v) for v in losses):
+        failures.append("lm_ptq: non-finite eval loss")
+    lm_ptq.report(base, out)
 
 
 def main() -> int:
@@ -2830,6 +3261,10 @@ def main() -> int:
     c = quickstart_phase(torch, dev, trained["ALEXNET_MINI"], failures, forwards)
     sec5_launches = tuple(a + b for a, b in zip(sec5_launches, c))
     print(f"[time] phase 4b(b), the quickstart flow: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    paper_launches = dict(zip(KERNEL_ROUTES, paper_results_phase(torch, dev, trained, failures,
+                                                                 forwards)))
+    print(f"[time] phase 4b(d), the paper's remaining results: {time.perf_counter() - t0:.1f} s")
     del trained
     t0 = time.perf_counter()
     c = full_search_phase(torch, dev, failures, forwards)
@@ -2870,6 +3305,20 @@ def main() -> int:
 
     # -- phase 8: the reduced LM on the card against the CPU -----------------------
     lm_card_vs_cpu(torch, dev, failures)
+
+    # -- phase 8b: full-width VGG16, the paper's second network --------------------
+    # (after the engine phase, whose check counts every tapped row so far)
+    t0 = time.perf_counter()
+    vgg_launches = vgg16_phase(torch, dev, failures, rows)
+    print(f"[time] phase 8b, VGG16: {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 9: LM training on one card, and lm_ptq ------------------------------
+    t0 = time.perf_counter()
+    train_phase(torch, dev, failures)
+    print(f"[time] phase 9, training: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    lm_ptq_phase(torch, dev, failures)
+    print(f"[time] phase 9b, lm_ptq: {time.perf_counter() - t0:.1f} s")
     print(f"[time] total {time.perf_counter() - t_start:.1f} s")
 
     if failures:
@@ -2906,7 +3355,7 @@ def main() -> int:
             "replaces": sources[name][1],
             "launches": (cnn_launches.get(name, 0) + lm_launches[name] + sec5_launches[name]
                          + engine_launches[name] + moe_launches[name] + vlm_launches[name]
-                         + family_launches[name]),
+                         + family_launches[name] + vgg_launches[name] + paper_launches[name]),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": wsum("ms"),
             "plain_ms": wsum("plain_ms"),

@@ -40,8 +40,9 @@ artifact raises :class:`ArtifactError`. Entry points run on the card
 unless the caller passes ``device="cpu"``; with no card and no explicit
 CPU request they raise.
 
-Not ported yet: ``block_sizes="auto"`` (no autotune cache; ROADMAP.md,
-queue 1 item 7) raises ``NotImplementedError``.
+Not ported yet: ``block_sizes="auto"`` (no autotune cache; it comes with
+the port of ``bench/``, ROADMAP.md queue 1 item 2) raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -56,7 +57,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
-from repro_torch.api_schemes import NOT_PORTED, CnnAdapter, LmAdapter, QuantScheme, as_adapter
+from repro_torch.api_schemes import CnnAdapter, LmAdapter, QuantScheme, as_adapter
 from repro_torch.calib.policy import CalibrationTable
 from repro_torch.checkpoint.manager import (
     CheckpointManager,
@@ -215,7 +216,9 @@ def quantize(
     adapter = as_adapter(model)
     scheme = scheme if scheme is not None else QuantScheme()
     if scheme.block_sizes == "auto":
-        raise NotImplementedError(f'block_sizes="auto" (the autotune cache) is {NOT_PORTED}')
+        raise NotImplementedError(
+            'block_sizes="auto" (the autotune cache) is not ported to repro_torch yet: it comes '
+            "with the port of bench/; see ROADMAP.md (queue 1 item 2)")
     device = resolve_device(device)
     params = _tree_to_device(params, device)
     raw_bytes = packed_tree_bytes(params)

@@ -14,9 +14,16 @@ arrays, Python scalars or :class:`~repro_torch.kernels.ops.PackedWeight`
 (two leaves, ``.codes`` and ``.sf``); ``None`` holds no leaf. Leaf keys
 are the strings the JAX package derives from ``jax.tree_util`` paths:
 dict keys in sorted order, list and tuple indices, and ``.codes`` /
-``.sf`` for a packed weight, joined by ``/``. Saves are synchronous: the
-JAX package's writer thread serves its training loop, which is not
-ported yet (ROADMAP.md, queue 1 item 6).
+``.sf`` for a packed weight, joined by ``/``.
+
+With ``async_save`` (the training loop's choice; the JAX package's default,
+not this one's, so other callers find a step on disk when save returns) a
+save takes host copies of every leaf on the calling thread, then hands
+them to one writer thread and returns, so the training loop keeps
+stepping while the step is written; the next save, and
+:meth:`CheckpointManager.wait`, first join the writer and raise what it
+raised. The copies are the writer's own, so an optimizer step that updates
+the tensors in place cannot race the write.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import dataclasses
 import json
 import os
 import shutil
+import threading
 import zipfile
 from typing import Any
 
@@ -85,11 +93,14 @@ def _dtype_name(v) -> str:
 
 class CheckpointManager:
     """Numbered checkpoints of one tree under ``directory``, the newest ``keep`` kept
-    (``keep=0`` keeps all)."""
+    (``keep=0`` keeps all); written by a writer thread with ``async_save``."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, async_save: bool = False):
         self.dir = directory
         self.keep = keep
+        self.async_save = async_save
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
         os.makedirs(directory, exist_ok=True)
 
     # -- save ---------------------------------------------------------------
@@ -104,7 +115,33 @@ class CheckpointManager:
                 arr = v.detach().cpu().to(torch.float32).numpy()
             else:
                 arr = leaf_to_numpy(v)
+                if self.async_save and not (isinstance(v, torch.Tensor) and v.is_cuda):
+                    arr = np.array(arr)  # a host leaf's own memory: the writer's copy
             host[k.replace("/", "__")] = arr
+        self.wait()
+        if self.async_save:
+            self._thread = threading.Thread(target=self._write_reporting, args=(step, host, meta),
+                                            name=f"checkpoint-{step}")
+            self._thread.start()
+        else:
+            self._write(step, host, meta)
+
+    def _write_reporting(self, step: int, host: dict, meta: dict) -> None:
+        try:
+            self._write(step, host, meta)
+        except BaseException as e:  # handed to the caller by wait()
+            self._error = e
+
+    def wait(self) -> None:
+        """Join the writer thread, if one runs, and raise what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _write(self, step: int, host: dict, meta: dict) -> None:
         tmp = os.path.join(self.dir, f"tmp.{step}")
         final = os.path.join(self.dir, f"step_{step:010d}")
         os.makedirs(tmp, exist_ok=True)

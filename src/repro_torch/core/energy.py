@@ -33,8 +33,9 @@ TABLE2: dict[tuple[str, int], MacPoint] = {
     ("conventional_fp", 8): MacPoint(1179, 83.56, 3.56, 297.47),
 }
 
-# DRAM access energy (pJ/byte) charged per weight byte; PDP covers compute only.
+# DRAM and SRAM access energy (pJ/byte) charged per weight byte; PDP covers compute only.
 DRAM_PJ_PER_BYTE = 20.0
+SRAM_PJ_PER_BYTE = 1.0
 
 _DTYPE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
 

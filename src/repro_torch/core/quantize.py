@@ -125,6 +125,19 @@ def fake_quant_dynamic(x: torch.Tensor, bits: int) -> torch.Tensor:
     return fake_quant_uniform(x, bits, torch.max(torch.abs(x)))
 
 
+def ca_levels(n_shift_bits: int = 3, include_zero: bool = True) -> np.ndarray:
+    """Canonical-approximate levels of the CAxCNN baseline (Sec. VI-D):
+    ``{0} U {+-2^s : s in 0 .. 2^n_shift_bits - 1}``, sorted float64.
+
+    With ``n_shift_bits=3`` these are the 17 levels (5 bits a weight) of the
+    one-non-zero-digit CA representation; its exhaustive-search conversion
+    is nearest-neighbour search on this table.
+    """
+    mags = np.exp2(np.arange(0, 2 ** n_shift_bits).astype(np.float64))
+    lv = np.concatenate([-mags, mags, [0.0]] if include_zero else [-mags, mags])
+    return np.unique(lv)
+
+
 @dataclasses.dataclass
 class QuantizedTensor:
     """A weight tensor quantized against a per-layer TQL.

@@ -42,14 +42,21 @@
 // stage still costs a consumer about 1800 cycles of a serial chain: the
 // wait, 550-870 cycles of dependent shared-memory loads to decode, the
 // wgmmas and their wait; so the codes stream at 0.3-1 TB/s, not 3.35.
-// Float32 activations (AlexNet's fc layers, M = 64) take the bf16x3 route:
-// a first launch splits x exactly into three bf16 terms x = hi + mid + lo
-// (split_bf16x3 in hopper.cuh; [3, M, K] bf16, 4.8 MB for fc0), and the
-// kernel's TERMS = 3 instance walks the K stages in threes, one x term
-// each, the codes riding with the first. The three terms' wgmmas share one
-// A fragment set, decoded once per K block, and one float32 accumulator:
-// each term's products with a bf16-exact weight are exact in float32, so
-// the sum is the float32 reference's up to the order of its additions.
+// Float32 activations (AlexNet's and VGG16's fc layers, M = 64) take the
+// bf16x3 route: a first launch splits x exactly into three bf16 terms
+// x = hi + mid + lo (split_bf16x3 in hopper.cuh; [3, M, K] bf16, 4.8 MB for
+// AlexNet's fc0), and the kernel's TERMS = 3 instance walks the K stages in
+// threes, one x term each, the codes riding with the first. The three
+// terms' wgmmas share one A fragment set, decoded once per K block, and one
+// wgmma accumulator, which the consumer adds into a float32 register sum
+// every PROMOTE K blocks, as the tiled bf16x3 kernel does: each term's
+// products with a bf16-exact weight are exact in float32, so the sum is the
+// float32 reference's up to the order of its additions. (A whole split
+// summed on the tensor cores drifts with K where the products do not cancel
+// in sign: VGG16's fc0, post-ReLU x at K = 25088, read 0.756 of the 2e-5
+// limit against float64, the plain float32 product 0.062; PERF.md.) The
+// second sum leaves no registers for NT = 256, so this route runs the
+// NT <= 64 instances on x rows 64 at a time, one launch each.
 // Measured (PERF.md): a K block costs a consumer about 1500 cycles at fc0,
 // the same decode chain as above with twelve m64n64k16 wgmmas behind it.
 // Split-K needs no second launch: every split writes its partial sums to a
@@ -69,6 +76,11 @@ constexpr int CONSUMERS = 2;  // warpgroups
 constexpr int CONSUMER_THREADS = CONSUMERS * 128;
 constexpr int PRODUCER_WARP = CONSUMERS * 4;  // issues every TMA load
 constexpr int MAX_M = 256;
+constexpr int X3_ROWS = 64;  // bf16x3: x rows a launch takes (NT <= 64)
+// bf16x3: K blocks (of TERMS stages) the wgmma accumulator sums before the
+// consumer adds it into its float32 register sum (PROMOTE * BK * TERMS =
+// 768 products, as the tiled bf16x3 kernel).
+constexpr int PROMOTE = 4;
 constexpr int MAX_STAGES = 12;
 constexpr int MAX_SPLITS = 32;
 constexpr int MAX_STRIPS = 16384;
@@ -204,9 +216,22 @@ fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int strip = item / splits, split = item % splits;
     const int s0 = split * steps, n_st = min(nk, s0 + steps) - s0;
-    float d[NT / 2];
+    // bf16x3: d holds the last few K blocks' wgmma sums, acc their float32 sum.
+    float d[NT / 2], acc[TERMS == 3 ? NT / 2 : 1];
 #pragma unroll
     for (int r = 0; r < NT / 2; ++r) d[r] = 0.f;
+#pragma unroll
+    for (int r = 0; r < (TERMS == 3 ? NT / 2 : 1); ++r) acc[r] = 0.f;
+    auto promote = [&] {
+      if constexpr (TERMS == 3) {
+#pragma unroll
+        for (int r = 0; r < NT / 2; ++r) {
+          fence_operand(d[r]);
+          acc[r] += d[r];
+          d[r] = 0.f;
+        }
+      }
+    };
     uint32_t fa[16], fb[16];
     // Two fragment sets: the next K block is decoded while this one's wgmmas run.
     decode(fa, i);
@@ -220,10 +245,16 @@ fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       if (j + 2 < n_st) decode(fa, i + TERMS * (j + 2));
       wgmma_wait<0>();
       release(i + TERMS * (j + 1));
+      if ((j + 2) % PROMOTE == 0) promote();
     }
     i += TERMS * n_st;
+    promote();
 #pragma unroll
     for (int r = 0; r < NT / 2; ++r) fence_operand(d[r]);
+    if constexpr (TERMS == 3) {
+#pragma unroll
+      for (int r = 0; r < NT / 2; ++r) d[r] = acc[r];
+    }
 
     // d[4j + {0, 1}]: column col at x rows 8j + 2q + {0, 1}; d[4j + {2, 3}]:
     // column col + 1 at the same rows.
@@ -329,11 +360,12 @@ bool plan(int M, int N, int K, int* grid, int* splits, int* steps) {
   return true;
 }
 
-// x is bf16 [M, K] (TERMS = 1) or [3, M, K] (TERMS = 3), rows x_ld elements apart.
+// x is bf16 [M, K] (TERMS = 1) or three planes [M, K] (TERMS = 3) plane_ld
+// elements apart, rows x_ld elements apart.
 template <int NT, bool NIBBLE, int TERMS>
 int launch(const void* x, const uint8_t* codes, const float* sf, float* out, int M, int N, int K,
-           float* work, const DecodeTable& tab, long long x_ld, long long codes_ld, int grid,
-           int splits, int steps, cudaStream_t stream) {
+           float* work, const DecodeTable& tab, long long x_ld, long long plane_ld,
+           long long codes_ld, int grid, int splits, int steps, cudaStream_t stream) {
   using S = Shape<NT, NIBBLE>;
   auto kernel = fused_decode_wgmma_kernel<NT, NIBBLE, TERMS>;
   // All of the SM's memory as shared memory, so BLOCKS blocks fit on one.
@@ -346,7 +378,7 @@ int launch(const void* x, const uint8_t* codes, const float* sf, float* out, int
   CUtensorMap x_map, c_map;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M), TERMS};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(x_ld * 2),
-                                 static_cast<cuuint64_t>(x_ld * 2 * M)};
+                                 static_cast<cuuint64_t>(plane_ld * 2)};
   const cuuint32_t box[3] = {BK, NT, 1};
   if (!make_map_nd(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, TERMS == 1 ? 2 : 3, x, dims, strides,
                    box) ||
@@ -358,18 +390,22 @@ int launch(const void* x, const uint8_t* codes, const float* sf, float* out, int
   return static_cast<int>(cudaGetLastError());
 }
 
+// TERMS = 3 takes M <= X3_ROWS: its NT = 256 instance is never built.
 template <bool NIBBLE, int TERMS>
 int launch_nt(const void* x, const uint8_t* codes, const float* sf, float* out, int M, int N,
-              int K, float* work, const DecodeTable& tab, long long x_ld, long long codes_ld,
-              int grid, int splits, int steps, cudaStream_t st) {
+              int K, float* work, const DecodeTable& tab, long long x_ld, long long plane_ld,
+              long long codes_ld, int grid, int splits, int steps, cudaStream_t st) {
   if (M <= 16)
-    return launch<16, NIBBLE, TERMS>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
-                                     splits, steps, st);
-  if (M <= 64)
-    return launch<64, NIBBLE, TERMS>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
-                                     splits, steps, st);
-  return launch<256, NIBBLE, TERMS>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
-                                    splits, steps, st);
+    return launch<16, NIBBLE, TERMS>(x, codes, sf, out, M, N, K, work, tab, x_ld, plane_ld,
+                                     codes_ld, grid, splits, steps, st);
+  if (TERMS == 3 && M > X3_ROWS) return -1;
+  if constexpr (TERMS == 1) {
+    if (M > 64)
+      return launch<256, NIBBLE, 1>(x, codes, sf, out, M, N, K, work, tab, x_ld, plane_ld,
+                                    codes_ld, grid, splits, steps, st);
+  }
+  return launch<64, NIBBLE, TERMS>(x, codes, sf, out, M, N, K, work, tab, x_ld, plane_ld,
+                                   codes_ld, grid, splits, steps, st);
 }
 
 // The bf16x3 route's first launch: float32 x [M, K] (rows x_ld apart) into
@@ -406,6 +442,20 @@ int padded_k(int K) { return (K + 7) / 8 * 8; }
 long long partial_floats(int M, int N, int splits) {
   return splits > 1 ? (static_cast<long long>(splits) * M * N + 3) / 4 * 4 : 0;
 }
+// The bf16x3 route's split-K partial sums: the most one of its launches (x
+// rows X3_ROWS at a time) needs, or -1 for a shape the kernel cannot take.
+long long x3_partial_floats(int M, int N, int K) {
+  if (M <= 0 || M > MAX_M) return -1;
+  long long most = 0;
+  for (int m0 = 0; m0 < M; m0 += X3_ROWS) {
+    int grid, splits, steps;
+    const int mc = M - m0 < X3_ROWS ? M - m0 : X3_ROWS;
+    if (!plan(mc, N, K, &grid, &splits, &steps)) return -1;
+    const long long p = partial_floats(mc, N, splits);
+    if (p > most) most = p;
+  }
+  return most;
+}
 
 }  // namespace
 
@@ -440,22 +490,21 @@ extern "C" int fused_decode_wgmma_bf16(const void* x, const uint8_t* codes, cons
   DecodeTable tab;
   for (int i = 0; i < 256; ++i) tab.v[i] = table[i];
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return nibble ? launch_nt<true, 1>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
-                                     splits, steps, st)
-                : launch_nt<false, 1>(x, codes, sf, out, M, N, K, work, tab, x_ld, codes_ld, grid,
-                                      splits, steps, st);
+  return nibble ? launch_nt<true, 1>(x, codes, sf, out, M, N, K, work, tab, x_ld, 0, codes_ld,
+                                     grid, splits, steps, st)
+                : launch_nt<false, 1>(x, codes, sf, out, M, N, K, work, tab, x_ld, 0, codes_ld,
+                                      grid, splits, steps, st);
 }
 
 // The bf16x3 route, with the signatures of the two above: float32 x [M, K]
 // (M <= 256) with rows x_ld elements apart, codes as above. Its workspace
 // holds the split-K partial sums and, after them, the split of x
-// ([3, M, K rounded up to 8] bf16). Two launches on `stream`: the split,
-// then the TERMS = 3 kernel; returns the first failing launch's
-// cudaError_t (0 on success), or -1 as above.
+// ([3, M, K rounded up to 8] bf16). Launches on `stream`: the split, then
+// the TERMS = 3 kernel on x rows X3_ROWS at a time; returns the first
+// failing launch's cudaError_t (0 on success), or -1 as above.
 extern "C" long long fused_decode_wgmma_bf16x3_workspace(int M, int N, int K) {
-  int grid, splits, steps;
-  if (!plan(M, N, K, &grid, &splits, &steps)) return -1;
-  return partial_floats(M, N, splits) + 3LL * M * padded_k(K) / 2;
+  const long long part = x3_partial_floats(M, N, K);
+  return part < 0 ? -1 : part + 3LL * M * padded_k(K) / 2;
 }
 
 extern "C" int fused_decode_wgmma_bf16x3(const void* x, const uint8_t* codes, const float* sf,
@@ -463,12 +512,11 @@ extern "C" int fused_decode_wgmma_bf16x3(const void* x, const uint8_t* codes, co
                                          float* work, long long work_floats,
                                          const uint32_t* table, long long x_ld,
                                          long long codes_ld, void* stream) {
-  int grid, splits, steps;
-  if (!plan(M, N, K, &grid, &splits, &steps) || table == nullptr || x_ld < K || codes_ld < N ||
-      codes_ld % 16 != 0 || reinterpret_cast<uintptr_t>(codes) % 16 != 0 || work == nullptr ||
+  const long long part = x3_partial_floats(M, N, K);
+  if (part < 0 || table == nullptr || x_ld < K || codes_ld < N || codes_ld % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0 || work == nullptr ||
       reinterpret_cast<uintptr_t>(work) % 16 != 0)
     return -1;
-  const long long part = partial_floats(M, N, splits);
   const int kp = padded_k(K);
   if (work_floats < part + 3LL * M * kp / 2) return -1;
   uint4* x3 = reinterpret_cast<uint4*>(work + part);
@@ -481,8 +529,20 @@ extern "C" int fused_decode_wgmma_bf16x3(const void* x, const uint8_t* codes, co
   if (err != 0) return err;
   DecodeTable tab;
   for (int i = 0; i < 256; ++i) tab.v[i] = table[i];
-  return nibble ? launch_nt<true, 3>(x3, codes, sf, out, M, N, K, work, tab, kp, codes_ld, grid,
-                                     splits, steps, st)
-                : launch_nt<false, 3>(x3, codes, sf, out, M, N, K, work, tab, kp, codes_ld, grid,
-                                      splits, steps, st);
+  // Launches of one stream run in order, so each reuses the partial sums'
+  // space and the strips' counters (reset by each launch's last splits).
+  for (int m0 = 0; m0 < M; m0 += X3_ROWS) {
+    int grid, splits, steps;
+    const int mc = M - m0 < X3_ROWS ? M - m0 : X3_ROWS;
+    plan(mc, N, K, &grid, &splits, &steps);
+    const uint16_t* xm = reinterpret_cast<const uint16_t*>(x3) + static_cast<long long>(m0) * kp;
+    float* om = out + static_cast<long long>(m0) * N;
+    const long long plane = static_cast<long long>(M) * kp;
+    const int e = nibble ? launch_nt<true, 3>(xm, codes, sf, om, mc, N, K, work, tab, kp, plane,
+                                              codes_ld, grid, splits, steps, st)
+                         : launch_nt<false, 3>(xm, codes, sf, om, mc, N, K, work, tab, kp, plane,
+                                               codes_ld, grid, splits, steps, st);
+    if (e != 0) return e;
+  }
+  return 0;
 }

@@ -11,6 +11,8 @@ quantizes the same baseline model.
 from __future__ import annotations
 
 import os
+import statistics
+import time
 
 import numpy as np
 import torch
@@ -21,7 +23,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import cnn
 
 __all__ = ["BATCH", "CnnDataset", "EVAL_BATCHES", "N_CLASSES", "RESULTS", "calib_images",
-           "emit", "make_eval_fn", "train_mini_cnn"]
+           "emit", "make_eval_fn", "timed", "train_mini_cnn"]
 
 RESULTS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))),
@@ -128,6 +130,29 @@ def calib_images(
     ds = CnnDataset(spec.input_hw, spec.input_ch, N_CLASSES, batch, seed=seed)
     images = np.stack([ds.np_batch(20_000 + i)[0] for i in range(n_batches)])
     return torch.from_numpy(images).to(resolve_device(device))
+
+
+def timed(fn, *args, device=None, warmup: int = 1, iters: int = 5) -> float:
+    """Median microseconds per call of ``fn(*args)`` after ``warmup`` calls: CUDA
+    events around each call on the card, the host clock on the CPU."""
+    device = resolve_device(device)
+    for _ in range(warmup):
+        fn(*args)
+    ts = []
+    for _ in range(iters):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(*args)
+            b.record()
+            torch.cuda.synchronize()
+            ts.append(a.elapsed_time(b) * 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            ts.append((time.perf_counter() - t0) * 1e6)
+    return float(statistics.median(ts))
 
 
 def emit(name: str, us: float, derived: str) -> None:

@@ -44,7 +44,8 @@ build or launch raises: nothing retries on another route.
 :func:`elp_bsd_matmul` takes the plain version (:func:`elp_bsd_matmul_plain`)
 only for tensors on the CPU; on a CUDA tensor it launches the routed kernel
 or raises. ``elp_bsd_matmul.launches`` counts every route's launches and
-``elp_bsd_matmul.launches_by_route[route]`` each one's.
+``elp_bsd_matmul.launches_by_route[route]`` each one's. An input that
+requires grad, with grad mode on, raises (:func:`refuse_grad`).
 """
 from __future__ import annotations
 
@@ -80,6 +81,18 @@ def elp_bsd_matmul_plain(
     w = decode_values_shift_add(unpack_nibbles_k(codes) if nibble else codes, fmt)
     out = torch.matmul(x.to(torch.float32), w[: x.shape[1]]) * sf.reshape(())
     return out.to(out_dtype or x.dtype)
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input requires grad: the kernels write
+    fresh tensors outside autograd and have no backward (neither have the JAX
+    package's), so a gradient would drop silently. The plain version of the
+    CPU path is refused alike, so both devices behave the same. The training
+    forward takes the reference's torch ops instead."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: call it under torch.no_grad() or on inputs that do not "
+            "require grad (the training forward does not run the kernels)")
 
 
 def check_kernel_args(name: str, x, codes, nibble: bool) -> int:
@@ -217,6 +230,7 @@ def elp_bsd_matmul(
     float32 scale factor. On the card the kernel is :func:`route`'s.
     """
     check_kernel_args("elp_bsd_matmul", x, codes, nibble)
+    refuse_grad("elp_bsd_matmul", x)
     out_dtype = out_dtype or x.dtype
     sf = as_scale(sf, x.device)
     if x.device.type == "cpu":

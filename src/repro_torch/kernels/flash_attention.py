@@ -45,7 +45,8 @@ without it each zero key would add ``exp(0 - m)`` to every row's softmax.
 (:func:`flash_attention_plain`) only for tensors on the CPU; on a CUDA
 tensor it launches the routed kernel or raises. ``flash_attention.launches``
 counts both kernels' launches and ``flash_attention.launches_by_route[route]``
-each one's.
+each one's. Inputs that require grad, with grad mode on, raise (the kernels
+have no backward).
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.elp_bsd_matmul import refuse_grad
 from repro_torch.models.layers import NEG_INF
 
 F32 = torch.float32
@@ -184,6 +186,7 @@ def flash_attention(
     ``q_offset`` is the absolute position of the first query (causal mask).
     """
     group, _ = _check(q, k, v, block_q, block_k)
+    refuse_grad("flash_attention", q, k, v)
     q_offset = int(q_offset)
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")

@@ -37,7 +37,8 @@ or launch raises: nothing retries on another route.
 a second name: the product is the same) only for tensors on the CPU; on a
 CUDA tensor it launches the routed kernel or raises.
 ``fused_decode_matmul.launches`` counts every route's launches and
-``fused_decode_matmul.launches_by_route[route]`` each one's.
+``fused_decode_matmul.launches_by_route[route]`` each one's. An input
+that requires grad, with grad mode on, raises.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from repro_torch.kernels.elp_bsd_matmul import (
     check_kernel_args,
     launch_checked,
     launch_wgmma,
+    refuse_grad,
     route,
 )
 from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul_plain as fused_decode_matmul_plain
@@ -75,6 +77,7 @@ def fused_decode_matmul(
     On the card the kernel is :func:`route`'s.
     """
     check_kernel_args("fused_decode_matmul", x, codes, nibble)
+    refuse_grad("fused_decode_matmul", x)
     m = x.shape[0]
     if m > MAX_FUSED_M:
         raise ValueError(

@@ -170,11 +170,12 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a (nested) params dict, PackedWeights whole."""
+def tree_map(fn, tree, *rest):
+    """``fn`` applied to every leaf of a (nested) params dict, PackedWeights whole;
+    with ``rest``, to the leaves at the same keys of those dicts too."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def packed_tree_bytes(tree: dict, *, packed_only: bool = False) -> int:

@@ -215,6 +215,37 @@ def forward(
     return x
 
 
+def quantize_params(
+    params: dict,
+    fmt,
+    *,
+    compensate: bool = True,
+    granularity: str = "per_tensor",
+    nibble: bool | None = None,
+) -> dict:
+    """Deprecated wrapper: pack every conv/fc weight as a PackedWeight.
+
+    Use :func:`repro_torch.api.quantize`, which drives the same packing walk
+    (:func:`repro_torch.api_schemes.pack_cnn_params`) from a ``QuantScheme``
+    and returns a servable, saveable ``QuantizedModel``.
+    """
+    import warnings
+
+    warnings.warn("models.cnn.quantize_params is deprecated; use repro_torch.api.quantize",
+                  DeprecationWarning, stacklevel=2)
+    from repro_torch.api_schemes import pack_cnn_params
+
+    return pack_cnn_params(params, fmt, compensate=compensate, granularity=granularity,
+                           nibble=nibble)
+
+
+def packed_weight_bytes(params: dict) -> int:
+    """Code plus scale-factor bytes of the packed weights (the float leaves not counted)."""
+    from repro_torch.kernels.ops import packed_tree_bytes
+
+    return packed_tree_bytes(params, packed_only=True)
+
+
 def weight_group_axes(params: dict) -> dict[str, tuple[int, ...]]:
     """Algorithm 1 groups per weight (paper Sec. III-B.4): the spatial dims of
     a conv, the contracting rows of an fc layer."""

@@ -18,7 +18,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import dense_init, matmul, rms_norm
+from repro_torch.models.layers import cross_entropy, dense_init, matmul, rms_norm
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
@@ -38,12 +38,14 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     }
 
 
-def encode(params, cfg: ArchConfig, src) -> torch.Tensor:
+def encode(params, cfg: ArchConfig, src, *, remat: bool = False,
+           attn_impl: str = "flash") -> torch.Tensor:
     """``src``: precomputed frame embeddings ``[B, S_enc, D]`` (the stub frontend)
-    -> the normed encoder output ``[B, S_enc, D]``."""
+    -> the normed encoder output ``[B, S_enc, D]``. ``remat`` and ``attn_impl`` as
+    in :func:`repro_torch.models.transformer.stack_apply`."""
     src = torch.as_tensor(src).to(params["embed"].device).to(cfg.dtype)
     x, _ = T.stack_apply(params["encoder"], cfg, matmul(src, params["frontend_proj"]),
-                         causal=False)
+                         causal=False, remat=remat, attn_impl=attn_impl)
     return rms_norm(x, params["enc_norm"])
 
 
@@ -54,6 +56,17 @@ def forward(params, cfg: ArchConfig, tokens, *, frontend, **_) -> torch.Tensor:
         x, _ = T.stack_apply(params["decoder"], cfg, T.embed_tokens(params, cfg, tokens),
                              causal=True, enc_out=enc_out)
         return T.unembed(params, cfg, x)
+
+
+def loss_fn(params, cfg: ArchConfig, tokens, labels, *, frontend, remat: bool = True,
+            **_) -> torch.Tensor:
+    """Mean next-token cross entropy of the decoder over the encoded ``frontend``,
+    differentiable: attention in the reference's torch ops in both stacks, each
+    block recomputed in the backward pass with ``remat``."""
+    enc_out = encode(params, cfg, frontend, remat=remat, attn_impl="reference")
+    x, _ = T.stack_apply(params["decoder"], cfg, T.embed_tokens(params, cfg, tokens),
+                         causal=True, enc_out=enc_out, remat=remat, attn_impl="reference")
+    return cross_entropy(T.unembed(params, cfg, x), labels)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None) -> dict:

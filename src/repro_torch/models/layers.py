@@ -210,6 +210,20 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy over every position, in float32: the
+    log-sum-exp about the row max (held constant for the gradient, as the JAX
+    package's ``stop_gradient``) minus the gold logit."""
+    lf = logits.to(F32)
+    m = torch.amax(lf, dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(lf - m), dim=-1))
+    gold = torch.gather(lf, -1, labels.to(lf.device).long()[..., None])[..., 0]
+    return torch.mean(lse - gold)
+
+
+# ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
 def dense_init(

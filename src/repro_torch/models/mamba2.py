@@ -34,7 +34,14 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import full_f32, resolve_device
-from repro_torch.models.layers import causal_conv, dense_init, matmul, rms_norm, softplus
+from repro_torch.models.layers import (
+    causal_conv,
+    cross_entropy,
+    dense_init,
+    matmul,
+    rms_norm,
+    softplus,
+)
 
 F32 = torch.float32
 
@@ -215,15 +222,29 @@ def _layers(params):
     return [layer_params(blocks, i) for i in range(blocks["ln"].shape[0])]
 
 
-def forward(params, cfg: ArchConfig, tokens, **_) -> torch.Tensor:
-    """Cache-less forward: float32 logits ``[B, S, V]``."""
-    from repro_torch.models.transformer import embed_tokens, unembed
+def _logits(params, cfg: ArchConfig, tokens, remat: bool = False) -> torch.Tensor:
+    from repro_torch.models.transformer import embed_tokens, remat_call, unembed
 
+    def block(lp, x):
+        return block_apply(lp, cfg, x)[0]
+
+    x = embed_tokens(params, cfg, tokens)
+    for lp in _layers(params):
+        x = remat_call(block, lp, x) if remat else block(lp, x)
+    return unembed(params, cfg, x)
+
+
+def forward(params, cfg: ArchConfig, tokens, **_) -> torch.Tensor:
+    """Cache-less forward without gradients: float32 logits ``[B, S, V]``."""
     with torch.no_grad():
-        x = embed_tokens(params, cfg, tokens)
-        for lp in _layers(params):
-            x, _ = block_apply(lp, cfg, x)
-        return unembed(params, cfg, x)
+        return _logits(params, cfg, tokens)
+
+
+def loss_fn(params, cfg: ArchConfig, tokens, labels, *, remat: bool = True, **_) -> torch.Tensor:
+    """Mean next-token cross entropy of the cache-less forward, differentiable (the
+    chunked SSD writes no tensor in place); ``remat`` recomputes each block in the
+    backward pass."""
+    return cross_entropy(_logits(params, cfg, tokens, remat), labels)
 
 
 def prefill(params, cfg: ArchConfig, tokens, state, **_):

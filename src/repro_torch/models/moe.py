@@ -15,12 +15,13 @@ activation scale is not applied, as in the reference.
 Products keep the reference's rounding: operands in the activation
 dtype, float32 results (``preferred_element_type=F32``) — on the card
 ``torch.bmm(..., out_dtype=torch.float32)`` for bfloat16 operands, on the
-host a float32 product of the same values — and the SwiGLU/GELU output
-rounded to the activation dtype before the down projection.
+host (and wherever an operand takes a gradient) a float32 product of the
+same values — and the SwiGLU/GELU output rounded to the activation dtype
+before the down projection. :func:`load_balance_loss` is the reference's
+auxiliary loss (defined there, and not on its loss path).
 
 Not ported: the expert-parallel form (``moe_ep``: ``shard_map`` and
-``all_to_all`` over a device mesh) and ``load_balance_loss`` (it serves
-training); both wait for ROADMAP.md queue 1 item 6.
+``all_to_all`` over a device mesh); it waits for ROADMAP.md queue 1 item 4.
 """
 from __future__ import annotations
 
@@ -60,11 +61,14 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == F32:
         with full_f32():
             return torch.bmm(a, b)
-    if a.is_cuda:
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
+    if a.is_cuda and not grad:
         return torch.bmm(a, b, out_dtype=F32)
-    # the host has no float32-result product of bfloat16 operands: the same
+    # the host has no float32-result product of bfloat16 operands, and the
+    # training forward does not rely on that product's backward: the same
     # products of the same (exactly widened) values, summed in float32
-    return torch.bmm(a.to(F32), b.to(F32))
+    with full_f32():
+        return torch.bmm(a.to(F32), b.to(F32))
 
 
 def _expert_ffn(h: torch.Tensor, w1, w3, w2, kind: str) -> torch.Tensor:
@@ -104,6 +108,18 @@ def moe_apply(p: dict, x2d: torch.Tensor, cfg: ArchConfig, pctx=None) -> torch.T
     if pctx is not None:
         raise NotImplementedError(
             "MoE over a device mesh (pctx; the reference's expert-parallel moe_ep) is not "
-            "ported to repro_torch yet; see ROADMAP.md (queue 1 item 6)"
+            "ported to repro_torch yet; see ROADMAP.md (queue 1 item 4)"
         )
     return moe_dense(p, x2d, cfg)
+
+
+def load_balance_loss(x2d: torch.Tensor, router: torch.Tensor, topk: int,
+                      n_experts: int) -> torch.Tensor:
+    """Switch-style auxiliary load-balancing loss: ``n_experts * sum(f * P) / topk``,
+    ``f`` the fraction of top-k choices per expert, ``P`` the mean router probability."""
+    with full_f32():
+        logits = torch.matmul(x2d.to(F32), router.to(F32))
+    probs = torch.softmax(logits, dim=-1)
+    topi = torch.sort(logits, dim=-1, descending=True, stable=True)[1][:, :topk]
+    f = torch.mean(F.one_hot(topi, n_experts).to(F32).sum(1), dim=0)
+    return n_experts * torch.sum(f * torch.mean(probs, dim=0)) / topk

@@ -42,6 +42,7 @@ from repro_torch.models.layers import (
     attention_chunked,
     attention_dot,
     causal_conv,
+    cross_entropy,
     dense_init,
     matmul,
     mlp_apply,
@@ -236,9 +237,10 @@ def _ring_decode(lp: dict, cfg: ArchConfig, xn: torch.Tensor, kv_cache: tuple, p
 
 
 def attn_block(lp: dict, cfg: ArchConfig, x: torch.Tensor, *, rope, kv_cache=None,
-               cache_pos=None):
+               cache_pos=None, attn_impl: str = "flash"):
     """Local-attention block + MLP. A cache no longer than the window is a ring;
-    any other cache (or none) takes the transformer's attention with the window."""
+    any other cache (or none) takes the transformer's attention with the window
+    (``attn_impl`` as in :func:`repro_torch.models.transformer._attention`)."""
     ring = kv_cache is not None and cfg.window > 0 and kv_cache[0].shape[1] <= cfg.window
     xn = rms_norm(x, lp["ln1"])
     if ring:
@@ -248,7 +250,8 @@ def attn_block(lp: dict, cfg: ArchConfig, x: torch.Tensor, *, rope, kv_cache=Non
             out, new_cache = _ring_prefill(lp, cfg, xn, kv_cache)
     else:
         out, new_cache = T._attention(lp, cfg, xn, rope=rope, causal=True, window=cfg.window,
-                                      kv_cache=kv_cache, cache_pos=cache_pos)
+                                      kv_cache=kv_cache, cache_pos=cache_pos,
+                                      attn_impl=attn_impl)
     x = x + out
     return x + mlp_apply(lp, rms_norm(x, lp["ln2"]), cfg.mlp_kind), new_cache
 
@@ -256,8 +259,12 @@ def attn_block(lp: dict, cfg: ArchConfig, x: torch.Tensor, *, rope, kv_cache=Non
 # ---------------------------------------------------------------------------
 # Stack
 # ---------------------------------------------------------------------------
-def _run(params, cfg: ArchConfig, x: torch.Tensor, cache: dict | None = None, cache_pos=None):
-    """Every layer in its order; with ``cache`` each block's state is written in place."""
+def _run(params, cfg: ArchConfig, x: torch.Tensor, cache: dict | None = None, cache_pos=None,
+         *, remat: bool = False, attn_impl: str = "flash"):
+    """Every layer in its order; with ``cache`` each block's state is written in place.
+    Without a cache, ``remat`` recomputes each block in the backward pass."""
+    if remat and cache is not None:
+        raise ValueError("remat is for the cache-less forward")
     s = x.shape[1]
     ar = torch.arange(s, device=x.device)
     positions = (ar if cache_pos is None else T._as_pos(cache_pos) + ar)[None, :]
@@ -267,15 +274,19 @@ def _run(params, cfg: ArchConfig, x: torch.Tensor, cache: dict | None = None, ca
     for kind in _layer_kinds(cfg):
         if kind == "rec":
             lp = T.layer_params(params["rec"], ri)
-            state = (cache["conv"][ri], cache["h"][ri]) if cache is not None else None
-            x, new = rec_block(lp, cfg, x, state=state)
-            if cache is not None:
+            if cache is None:
+                block = lambda lp_, x_: rec_block(lp_, cfg, x_)[0]  # noqa: E731
+                x = T.remat_call(block, lp, x) if remat else block(lp, x)
+            else:
+                x, new = rec_block(lp, cfg, x, state=(cache["conv"][ri], cache["h"][ri]))
                 cache["conv"][ri], cache["h"][ri] = new
             ri += 1
         else:
             lp = T.layer_params(params["attn"], ai)
             kvc = (cache["k"][ai], cache["v"][ai]) if cache is not None else None
-            x, _ = attn_block(lp, cfg, x, rope=rope, kv_cache=kvc, cache_pos=cache_pos)
+            block = lambda lp_, x_: attn_block(lp_, cfg, x_, rope=rope, kv_cache=kvc,  # noqa: E731
+                                               cache_pos=cache_pos, attn_impl=attn_impl)[0]
+            x = T.remat_call(block, lp, x) if remat else block(lp, x)
             ai += 1
     return x, cache
 
@@ -304,10 +315,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None) -> dic
 
 
 def forward(params, cfg: ArchConfig, tokens, **_) -> torch.Tensor:
-    """Cache-less forward: float32 logits ``[B, S, V]``."""
+    """Cache-less forward without gradients: float32 logits ``[B, S, V]``."""
     with torch.no_grad():
         x, _ = _run(params, cfg, T.embed_tokens(params, cfg, tokens))
         return T.unembed(params, cfg, x)
+
+
+def loss_fn(params, cfg: ArchConfig, tokens, labels, *, remat: bool = True, **_) -> torch.Tensor:
+    """Mean next-token cross entropy of the cache-less forward, differentiable:
+    attention in the reference's torch ops, each block recomputed in the backward
+    pass with ``remat``."""
+    x, _ = _run(params, cfg, T.embed_tokens(params, cfg, tokens), remat=remat,
+                attn_impl="reference")
+    return cross_entropy(T.unembed(params, cfg, x), labels)
 
 
 def prefill(params, cfg: ArchConfig, tokens, cache: dict, **_):

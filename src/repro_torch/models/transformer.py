@@ -37,7 +37,7 @@ same dict. A ``vlm`` model's frontend is the reference's stub: the caller
 hands over precomputed patch embeddings ``[B, F, D]``, which
 ``frontend_proj`` maps and prepends to the token embeddings. Not ported:
 the ``pctx`` multi-device context and flash-decode (ROADMAP.md, queue 1
-item 6); inputs that select them raise ``NotImplementedError``.
+item 4); inputs that select them raise ``NotImplementedError``.
 
 Prefill-shaped attention without a window goes through
 :func:`repro_torch.kernels.flash_attention.flash_attention`, the CUDA
@@ -50,6 +50,16 @@ dropped; keys go in at their true count, which the kernel masks
 (one query a row against a cache, or a cross-attention step) and windowed
 attention stay :func:`~repro_torch.models.layers.attention_dot` in torch
 ops, as the JAX package leaves them to XLA.
+
+Training (:func:`loss_fn`) differentiates the cache-less forward. The
+kernels have no backward (the JAX package's have none either), so the
+loss forward runs with ``attn_impl="reference"``: prefill-shaped attention
+as the JAX package computes it in training, ``attention_dot`` or, from
+``CHUNKED_ATTN_THRESHOLD`` keys, ``attention_chunked``, in torch ops.
+The caller picks ``attn_impl``; nothing falls back from the kernel. With
+``remat`` each block's activations are recomputed in the backward pass
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of the
+scan body).
 """
 from __future__ import annotations
 
@@ -67,6 +77,7 @@ from repro_torch.models.layers import (
     apply_rope,
     attention_chunked,
     attention_dot,
+    cross_entropy,
     dense_init,
     matmul,
     mlp_apply,
@@ -83,6 +94,9 @@ F32 = torch.float32
 CHUNKED_ATTN_THRESHOLD = 4096
 ATTN_CHUNK = 1024
 FLASH_BLOCK = 128  # the flash kernel's sequence block (callers pad to it)
+# Prefill-shaped attention: on the flash kernel, or the reference's torch ops
+# (the training forward, which the kernel's lack of a backward rules out).
+ATTN_IMPLS = ("flash", "reference")
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -405,6 +419,7 @@ def _attention(
     pctx=None,
     acts: dict | None = None,
     tap_kv: bool = False,
+    attn_impl: str = "flash",
 ) -> tuple[torch.Tensor, tuple | None]:
     """GQA attention, optionally reading and updating a KV cache (write before attend).
 
@@ -420,12 +435,16 @@ def _attention(
     no RoPE, no QK-norm.
     ``acts`` records the attention mix entering the output projection
     under ``"attn_mix"``; ``tap_kv`` also records the post-RoPE k/v under
-    ``"k_cache"``/``"v_cache"``.
+    ``"k_cache"``/``"v_cache"``. ``attn_impl`` (:data:`ATTN_IMPLS`) picks
+    where prefill-shaped attention runs: ``"flash"`` on the kernel,
+    ``"reference"`` in the JAX package's torch ops (the training forward).
     """
     if pctx is not None:
-        raise _not_ported("the multi-device ParallelCtx (pctx)", 6)
+        raise _not_ported("the multi-device ParallelCtx (pctx)", 4)
     if kv_layout not in _CACHE_KEYS:
         raise ValueError(f"unknown KV-cache layout {kv_layout!r}")
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     kv_src = x if kv_override is None else kv_override
@@ -489,13 +508,14 @@ def _attention(
     # with more than one query a row, not.
     decode = kv_cache is not None and (s == 1 or isinstance(cache_pos, torch.Tensor)
                                        or kv_layout.startswith("paged"))
+    flash = attn_impl == "flash" and not window
     if decode:
         out = attention_dot(q, repeat_kv(k, h // kv), repeat_kv(v, h // kv), causal=causal,
                             window=window, q_offset=q_offset)
-    elif causal and not window:
+    elif flash and causal:
         n = q_offset + s  # the written key prefix
         out = _flash_prefill(q, k[:, :n], v[:, :n], q_offset)
-    elif not causal and not window and s > 1:
+    elif flash and s > 1:
         out = _flash_prefill(q, k, v, 0, causal=False)
     else:
         kf, vf = repeat_kv(k, h // kv), repeat_kv(v, h // kv)
@@ -523,10 +543,11 @@ def block_apply(
     pctx=None,
     acts: dict | None = None,
     tap_kv: bool = False,
+    attn_impl: str = "flash",
 ) -> tuple[torch.Tensor, tuple | None]:
     """Pre-norm transformer block: attention, cross-attention over ``enc_out``
     (when given; the block then holds ``ln_x`` and ``xq``/``xk``/``xv``/``xo``),
-    then the MLP or MoE.
+    then the MLP or MoE. ``attn_impl`` as in :func:`_attention`, for both.
 
     ``acts`` records the inputs of the block's matmuls: ``"attn_in"``
     (post-ln1, feeds wq/wk/wv), ``"attn_mix"`` (feeds wo), ``"ffn_in"``
@@ -539,11 +560,12 @@ def block_apply(
     attn_out, new_cache = _attention(
         lp, cfg, attn_in, rope=rope, causal=causal, window=window, kv_cache=kv_cache,
         kv_layout=kv_layout, cache_pos=cache_pos, pctx=pctx, acts=acts, tap_kv=tap_kv,
+        attn_impl=attn_impl,
     )
     x = x + attn_out
     if enc_out is not None:
         xa_out, _ = _attention(lp, cfg, rms_norm(x, lp["ln_x"]), rope=None, causal=False,
-                               prefix="x", kv_override=enc_out)
+                               prefix="x", kv_override=enc_out, attn_impl=attn_impl)
         x = x + xa_out
     ffn_in = rms_norm(x, lp["ln2"])
     if acts is not None:
@@ -580,6 +602,8 @@ def stack_apply(
     pctx=None,
     collect: bool = False,
     tap_kv: bool = False,
+    remat: bool = False,
+    attn_impl: str = "flash",
 ) -> tuple[torch.Tensor, dict | None]:
     """Run the block stack over its layers.
 
@@ -587,10 +611,14 @@ def stack_apply(
     the stacked per-layer activations: ``"block_out"`` (``[L, B, S, D]``)
     plus each block's matmul inputs, and with ``tap_kv`` the post-RoPE
     ``"k_cache"``/``"v_cache"`` (``[L, B, S, KV, hd]``). With a cache the
-    second slot is the cache dict, written in place.
+    second slot is the cache dict, written in place. ``remat`` (cache-less,
+    not with ``collect``) recomputes each block in the backward pass;
+    ``attn_impl`` as in :func:`_attention`.
     """
     if collect and cache is not None:
         raise ValueError("collect=True is for the cache-less forward")
+    if remat and (collect or cache is not None):
+        raise ValueError("remat is for the cache-less forward without collect")
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
@@ -609,8 +637,13 @@ def stack_apply(
                                kv_layout=layout, cache_pos=cache_pos, enc_out=enc_out, pctx=pctx)
             continue
         acts: dict | None = {} if (collect or tap_kv) else None
-        x, _ = block_apply(lp, cfg, x, rope=rope, causal=causal, window=window, enc_out=enc_out,
-                           pctx=pctx, acts=acts, tap_kv=tap_kv)
+
+        def block(lp_, x_):
+            return block_apply(lp_, cfg, x_, rope=rope, causal=causal, window=window,
+                               enc_out=enc_out, pctx=pctx, acts=acts, tap_kv=tap_kv,
+                               attn_impl=attn_impl)[0]
+
+        x = remat_call(block, lp, x) if remat else block(lp, x)
         if collect:
             ys.append({"block_out": x, **acts})
     if cache is not None:
@@ -647,9 +680,34 @@ def unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
         return torch.matmul(x.to(F32), head.to(x.dtype).to(F32))
 
 
+def remat_call(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward pass instead of
+    kept (``jax.checkpoint`` in the JAX package)."""
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _logits(params, cfg: ArchConfig, tokens, *, frontend=None, pctx=None, tap=None,
+            tap_kv: bool = False, remat: bool = False, attn_impl: str = "flash"):
+    x = embed_tokens(params, cfg, tokens, frontend)
+    if tap is not None:
+        x = tap("embed", x)
+    x, ys = stack_apply(params["blocks"], cfg, x, causal=True, window=cfg.window, pctx=pctx,
+                        collect=tap is not None, tap_kv=tap_kv, remat=remat,
+                        attn_impl=attn_impl)
+    if tap is not None:
+        tap("blocks", ys.pop("block_out"))
+        for site, act in ys.items():
+            tap(site, act)
+        x = tap("final", x)
+    return unembed(params, cfg, x)
+
+
 def forward(params, cfg: ArchConfig, tokens, *, frontend=None, pctx=None, tap=None,
             tap_kv: bool = False) -> torch.Tensor:
-    """Cache-less forward: logits ``[B, S(+F), V]`` (float32).
+    """Cache-less forward without gradients: logits ``[B, S(+F), V]`` (float32),
+    prefill-shaped attention on the flash kernel.
 
     ``tap`` is the activation-tap hook of the calibration contract: sites
     ``"embed"``, ``"blocks"`` (stacked block outputs ``[L, B, S, D]``), the
@@ -658,17 +716,20 @@ def forward(params, cfg: ArchConfig, tokens, *, frontend=None, pctx=None, tap=No
     ``"k_cache"``/``"v_cache"`` sites (``[L, B, S, KV, hd]``).
     """
     with torch.no_grad():
-        x = embed_tokens(params, cfg, tokens, frontend)
-        if tap is not None:
-            x = tap("embed", x)
-        x, ys = stack_apply(params["blocks"], cfg, x, causal=True, window=cfg.window, pctx=pctx,
-                            collect=tap is not None, tap_kv=tap_kv)
-        if tap is not None:
-            tap("blocks", ys.pop("block_out"))
-            for site, act in ys.items():
-                tap(site, act)
-            x = tap("final", x)
-        return unembed(params, cfg, x)
+        return _logits(params, cfg, tokens, frontend=frontend, pctx=pctx, tap=tap, tap_kv=tap_kv)
+
+
+def loss_fn(params, cfg: ArchConfig, tokens, labels, *, frontend=None, pctx=None,
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross entropy (labels already shifted by the data pipeline),
+    differentiable: the cache-less forward with the reference's attention
+    (``attn_impl="reference"``), each block recomputed in the backward pass with
+    ``remat``. Frontend positions (if any) are left out of the loss."""
+    logits = _logits(params, cfg, tokens, frontend=frontend, pctx=pctx, remat=remat,
+                     attn_impl="reference")
+    if frontend is not None:
+        logits = logits[:, frontend.shape[1]:]
+    return cross_entropy(logits, labels)
 
 
 def prefill(params, cfg: ArchConfig, tokens, cache: dict, *, frontend=None, pctx=None):

@@ -15,8 +15,8 @@ What gets encoded: the matmul leaves named in :data:`QUANTIZABLE`, the
 MoE expert stacks ``we1``/``we3``/``we2`` ``[L, E, K, N]`` among them (one
 scale factor per ``[K, N]`` slice). Embeddings, the LM head, routers,
 norms and biases stay in the model dtype.
-The JAX package's deprecated ``quantize_params_for_serving`` is not
-ported: :func:`repro_torch.api.quantize` is the entry point.
+The JAX package's deprecated ``quantize_params_for_serving`` is kept as a
+wrapper: :func:`repro_torch.api.quantize` is the entry point.
 """
 from __future__ import annotations
 
@@ -76,6 +76,24 @@ def quantize_stacked(
         sf[i] = pw.sf.reshape(1, 1)
     return PackedWeight(codes=codes.reshape(*lead, *codes.shape[1:]), sf=sf.reshape(*lead, 1, 1),
                         fmt_name=first.fmt_name, nibble=first.nibble, shape=first.shape)
+
+
+def quantize_params_for_serving(params: dict, cfg, fmt, *, compensate: bool = True,
+                                calib=None) -> dict:
+    """Deprecated wrapper: every quantizable matmul leaf replaced by a stacked
+    PackedWeight (:func:`repro_torch.api_schemes.pack_lm_params`).
+
+    Use :func:`repro_torch.api.quantize`, which drives the same packing walk
+    from a ``QuantScheme`` and returns a servable, saveable ``QuantizedModel``.
+    """
+    import warnings
+
+    from repro_torch.api_schemes import pack_lm_params
+    from repro_torch.core.elp_bsd import resolve_format
+
+    warnings.warn("runtime.quantized_params.quantize_params_for_serving is deprecated; "
+                  "use repro_torch.api.quantize", DeprecationWarning, stacklevel=2)
+    return pack_lm_params(params, cfg, resolve_format(fmt), compensate=compensate, calib=calib)
 
 
 def packed_bytes(params) -> int:

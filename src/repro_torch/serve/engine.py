@@ -55,7 +55,7 @@ model through the dense MoE form, :func:`repro_torch.models.moe.moe_dense`,
 as the JAX package serves it without a mesh); frontend (``vlm``) prompts
 and the recurrent and enc-dec families (``ssm``, ``hybrid``, ``encdec``,
 ``audio``: their state is not a KV cache of slot rows) take
-:func:`static_generate`, as in the JAX package. Not ported (ROADMAP.md, queue 1 item 6):
+:func:`static_generate`, as in the JAX package. Not ported (ROADMAP.md, queue 1 item 4):
 device meshes (``mesh`` is None, or ``"auto"``, which resolves to None on
 one card) and flash-decode; they raise ``NotImplementedError``.
 """
@@ -82,7 +82,7 @@ from repro_torch.serve.scheduler import Request, SlotScheduler
 # families take static_generate).
 ENGINE_FAMILIES = ("dense", "moe", "vlm")
 
-_NOT_PORTED = "not ported to repro_torch yet; see ROADMAP.md (queue 1 item 6)"
+_NOT_PORTED = "not ported to repro_torch yet; see ROADMAP.md (queue 1 item 4)"
 
 
 def _resolve_mesh(mesh):

@@ -760,6 +760,35 @@ def test_bf16x3_tiled_route_long_k_against_float64(cuda):
     assert (got - want).abs().max().item() < 0.5 * REL_TOL * want.abs().max().item()
 
 
+# (M, K): VGG16's fc0 at batch 64 and AlexNet's at 128 (two 64-row launches),
+# and a ragged M over four launches.
+X3_DECODE_LONG_K = [(64, 25088), (128, 12544), (200, 4608)]
+
+
+@pytest.mark.parametrize("x_kind", ["normal", "relu"])
+@pytest.mark.parametrize("m,k", X3_DECODE_LONG_K)
+def test_bf16x3_decode_route_long_k_against_float64(cuda, m, k, x_kind):
+    """The decode-step bf16x3 route's distance from the float64 sum stays under
+    half the 2e-5 limit at long K, for zero-mean x and for post-ReLU x (whose
+    products do not cancel in sign: a whole split summed in the wgmma
+    accumulator read 0.756 of the limit at VGG16's fc0)."""
+    from repro_torch.kernels.ref import decode_values_shift_add, unpack_nibbles_k
+
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    n = 1024
+    g = torch.Generator(device=cuda).manual_seed(k)
+    codes = torch.randint(0, 256, ((k + 1) // 2, n), device=cuda, generator=g, dtype=torch.uint8)
+    sf = torch.tensor([1.0 / k ** 0.5], device=cuda)
+    x = torch.randn(m, k, device=cuda, generator=g)
+    if x_kind == "relu":
+        x = torch.relu(x)
+    got = _routed(fused_decode_matmul, "bf16x3",
+                  lambda: fused_decode_matmul(x, codes, sf, fmt, nibble=True))
+    w = decode_values_shift_add(unpack_nibbles_k(codes), fmt)[:k].double()
+    want = (x.double() @ w * sf.double()).float()
+    assert (got - want).abs().max().item() < 0.5 * REL_TOL * want.abs().max().item()
+
+
 # ---------------------------------------------------------------------------
 # The serving engine on the card against the CPU
 # ---------------------------------------------------------------------------
@@ -967,3 +996,77 @@ def test_recurrent_encdec_on_card_match_cpu(cuda, arch):
         assert tuple(a - b for a, b in zip(counts(), before)) == (step_tiled, step_fused, 0)
         assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item(), i
         tok = want.argmax(-1)
+
+
+# ---------------------------------------------------------------------------
+# The paper's remaining results and training: VGG16 at batch 64, and the
+# training path on the card
+# ---------------------------------------------------------------------------
+# (M, K, N) of VGG16's distinct im2col GEMMs at batch 64 on the tiled bf16x3
+# route (conv1_1's K = 27 and N = 64 ragged against the tiles; conv1_2's
+# patches 3 211 264 x 576 float32, 7.4 GB), and its fc0 (K = 25088) on the
+# decode-step one; fc1 and fc2 are AlexNet's shapes above.
+VGG16_CONVS = [(3211264, 27, 64), (3211264, 576, 64), (802816, 576, 128), (802816, 1152, 128),
+               (200704, 1152, 256), (200704, 2304, 256), (50176, 2304, 512),
+               (50176, 4608, 512), (12544, 4608, 512)]
+VGG16_FCS = [(64, 25088, 4096)]
+
+
+@pytest.mark.parametrize("m,k,n", VGG16_CONVS)
+def test_bf16x3_tiled_route_matches_plain_at_vgg16_shapes(cuda, m, k, n):
+    test_bf16x3_tiled_route_matches_plain(cuda, m, k, n)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("m,k,n", VGG16_FCS)
+def test_bf16x3_decode_route_matches_plain_at_vgg16_shapes(cuda, m, k, n):
+    test_bf16x3_decode_route_matches_plain(cuda, m, k, n)
+
+
+def test_kernel_wrappers_refuse_inputs_that_require_grad(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    x, codes, sf = _case(cuda, "elp_bsd_a4", True, 64, 256, 128)
+    fmt = PRESET_FORMATS["elp_bsd_a4"]
+    q = torch.randn(1, 2, 128, 64, device=cuda, dtype=torch.bfloat16)
+    calls = {
+        "elp_bsd_matmul": lambda t: elp_bsd_matmul(t, codes, sf, fmt, nibble=True),
+        "fused_decode_matmul": lambda t: fused_decode_matmul(t, codes, sf, fmt, nibble=True),
+        "flash_attention": lambda t: flash_attention(t, q, q),
+    }
+    for name, call in calls.items():
+        t = (q if name == "flash_attention" else x).clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            call(t)
+        with torch.no_grad():
+            assert bool(torch.isfinite(call(t)).all())
+        assert bool(torch.isfinite(call(t.detach())).all())
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One train step of ``lm-ptq`` (float32, TF32 off) on the card against the port
+    on the CPU from the same weights: loss within 1e-4 relative, each parameter
+    leaf within 1e-4 of its max |w| (AdamW's first step moves a weight by about
+    ``lr``, ``eps`` 1e-3 as in the CPU parity test)."""
+    from repro_torch.data.pipeline import LmDataset, shard_batch
+    from repro_torch.device import full_f32
+    from repro_torch.experiments.lm_ptq import CFG
+    from repro_torch.kernels.ops import tree_leaves, tree_map
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainSetup, make_train_step
+
+    setup = TrainSetup(cfg=CFG, adamw_cfg=adamw.AdamWConfig(eps=1e-3), lr_peak=1e-2, warmup=0,
+                       total_steps=10)
+    params = get_model(CFG).init_params(CFG, 0, device="cpu")
+    batch = LmDataset(CFG, seq_len=64, batch=16, seed=0).np_batch(0)
+    out = {}
+    with full_f32():
+        for dev in ("cpu", cuda):
+            p = tree_map(lambda t: t.to(dev), params)
+            out[str(dev)] = make_train_step(setup)(p, adamw.init_state(p), None,
+                                                   shard_batch(batch, device=dev))
+    cpu, card = out["cpu"], out[str(cuda)]
+    assert abs(float(card[3]["loss"]) - float(cpu[3]["loss"])) <= 1e-4 * float(cpu[3]["loss"])
+    for a, b in zip(tree_leaves(card[0]), tree_leaves(cpu[0])):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * b.abs().max().item()

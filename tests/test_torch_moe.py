@@ -122,7 +122,7 @@ def test_moe_dense_matches_reference(packed, n_experts, topk):
 
 def test_moe_over_a_mesh_raises():
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         tmoe.moe_apply({}, torch.zeros(T, D), tc, pctx=object())
 
 

@@ -140,8 +140,11 @@ def test_model_api_and_unported_inputs():
     logits, cache = api.prefill(params, tc, {"tokens": torch.zeros(1, 4, dtype=torch.long)},
                                 cache)
     assert tuple(logits.shape) == (1, 1, tc.vocab)
+    toks = torch.zeros(1, 4, dtype=torch.long)
+    loss = api.loss_fn(params, tc, {"tokens": toks, "labels": toks})
+    assert loss.ndim == 0 and bool(torch.isfinite(loss))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.loss_fn(params, tc, {})
+        api.loss_fn(params, tc, {"tokens": toks, "labels": toks}, pctx=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttr.prefill(params, tc, torch.zeros(1, 4, dtype=torch.long), cache, pctx=object())
     with pytest.raises(ValueError, match="unknown model family"):
