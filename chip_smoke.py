@@ -109,7 +109,24 @@ stays held and timed).
   resumed (the resumed losses held to the straight run's) and with each
   gradient codec; lm-ptq's first steps card against CPU; qwen3-8b at full
   width, 4 of 36 layers, bf16 with float32 masters; no kernel launched in
-  any training step; then ``lm_ptq`` as the script runs it.
+  any training step; then ``lm_ptq`` as the script runs it;
+* the mesh layer on one card (the mesh phase): ``elastic.make_mesh()`` starts
+  a one-rank NCCL group and lays the (1, 1) ("data", "model") mesh over it
+  before the LM path; (a) inside the LM path, qwen3-8b on the engine with the
+  mesh and ``flash_decode=True`` (dense and paged int8, the first 8 engine
+  requests) beside the meshless engine: launches exact per call and equal,
+  the meshed tokens under the teacher-forced gate, ``flash_decode_attention``
+  against ``attention_dot`` in float32 on the run's own first decode-step
+  cache; (b) inside the MoE phase, olmoe-1b-7b ``static_generate`` through
+  ``moe_ep`` at its capacity factor (launches exact, the dropped share), and
+  ``moe_ep`` against ``moe_dense`` and the partial sum of the kept choices on
+  the run's own layer-0 input, placed by the same products in float64; (c)
+  after training, lm-100m on the mesh with and without int8 compression
+  (losses equal to the meshless run's) and a mesh checkpoint resumed without
+  one; (d) ``compressed_mean`` on the NCCL group against the codec's round
+  trip; (e) the collectives each part issued by kind (0 where the path has
+  one fails the run). Their kernel shapes are the meshless runs' shapes,
+  held there; their launches join the kernels line.
 
     python3 chip_smoke.py
 
@@ -119,7 +136,7 @@ holds the card's name and power limit, and before that one JSON object
 with each kernel route's numbers: ``launches`` counts its launches on the
 main paths (one AlexNet forward, the Sec. V phases, one generate, the
 engine phase, the MoE and VLM phases, one generate of each recurrent and
-enc-dec model, one VGG16 forward, the paper-results phase), and
+enc-dec model, one VGG16 forward, the paper-results phase, the mesh phase), and
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are the per-shape
 times of those launches, each shape weighted by its launches (a Sec. V shape
 is timed once per format, an engine shape at the inputs of its first call). The three ``/f32`` routes have no
@@ -585,12 +602,13 @@ def _skip_k_tail(x, codes, sf, fmt, *, nibble=False, out_dtype=None):
                                      nibble=nibble, out_dtype=out_dtype)
 
 
-def lm_main_path(torch, dev, failures, rows) -> tuple:
+def lm_main_path(torch, dev, failures, rows, mesh=None, mesh_report=None) -> tuple:
     """Full-width qwen3-8b: seeded params, api.quantize, static_generate (the
     lockstep loop, comparable with earlier runs); then the same packed model with
     each kernel swapped for its plain version; greedy QuantizedModel.generate
-    through batch_generate and the engine; then the serving engine's phase.
-    Returns the launches of the static generate and of the engine phase."""
+    through batch_generate and the engine; then the serving engine's phase, and
+    with ``mesh`` the mesh phase's part (a). Returns the launches of the static
+    generate and of the engine phase."""
     import repro_torch.kernels.ops as ops_mod
     import repro_torch.models.transformer as transformer
     import repro_torch.serve.engine as engine_mod
@@ -812,6 +830,8 @@ def lm_main_path(torch, dev, failures, rows) -> tuple:
     del kernel_logits, plain_logits
     torch.cuda.empty_cache()
     engine_launches = engine_phase(torch, dev, qm, cfg, calib, failures, tap, rows)
+    if mesh is not None:
+        mesh_serve_phase(torch, dev, qm, cfg, calib, failures, mesh, mesh_report)
     engine_launches = {k: engine_launches[k] + v for k, v in zip(KERNEL_ROUTES, gen_launches)}
     del qm, p
     torch.cuda.empty_cache()
@@ -1701,14 +1721,14 @@ def _moe_profile(torch, transformer, params, cfg, prompts, tokens, steps: int = 
             "bmm_calls": avg["moe._bmm_f32"].count // steps if "moe._bmm_f32" in avg else 0}
 
 
-def moe_phase(torch, dev, failures, rows) -> dict:
+def moe_phase(torch, dev, failures, rows, mesh=None, mesh_report=None) -> dict:
     """Full-width olmoe-1b-7b: seeded params, api.quantize, static_generate
     (launches per prefill and decode step exact), teacher-forced kernels vs
     plain with the routing-flip gate and its controls, the expert dequantize and
     bmm under torch.profiler, then the engine (a) dense and (b) paged int8, each
     run's launches exact per call and its tokens held against the teacher-forced
-    logits; every kernel shape of the phase held against its plain version.
-    Returns the phase's launches."""
+    logits; every kernel shape of the phase held against its plain version; with
+    ``mesh`` the mesh phase's part (b). Returns the phase's launches."""
     import repro_torch.models.transformer as transformer
     import repro_torch.serve.engine as engine_mod
     from repro_torch import api
@@ -1909,6 +1929,8 @@ def moe_phase(torch, dev, failures, rows) -> dict:
         print(f"[moe] {label}: teacher-forced checks {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
     hold_tapped(torch, dev, "moe engine (a)-(b)", tap, rows, failures)
+    if mesh is not None:
+        mesh_moe_phase(torch, dev, qm, cfg, prompts, new, failures, mesh, mesh_report)
     del qm, p, cache
     torch.cuda.empty_cache()
     print(f"[time] moe phase: {time.perf_counter() - t_phase:.1f} s")
@@ -2947,6 +2969,316 @@ def lm_ptq_phase(torch, dev, failures) -> None:
     lm_ptq.report(base, out)
 
 
+# -- the mesh phase: the mesh layer on a one-rank NCCL group -----------------
+MESH_REQUESTS = 8  # (a): the first 8 of the engine phase's requests, into 8 slots
+MESH_MOE_NEW = 4  # (b): olmoe pays its per-call expert dequantize at every step
+MESH_MOE_TOKENS = 512  # (b): the float64 control over the first 4 prompts' tokens
+MESH_TRAIN_STEPS, MESH_TRAIN_CKPT = 20, 10
+FLASH_DECODE_REL_TOL = 1e-5
+MESH_COLLECTIVE_N = 1 << 24
+
+
+def _issued() -> dict:
+    from repro_torch.runtime import collectives
+
+    return dict(collectives.ISSUED)
+
+
+def _mesh_report(report, label, t0, launches=None) -> None:
+    """Record (and print) one part's collectives by kind, launches and seconds."""
+    report[label] = {"issued": _issued(), "launches": dict(launches or {}),
+                     "s": time.perf_counter() - t0}
+    print(f"[mesh] {label}: collectives issued {report[label]['issued']}, "
+          f"{report[label]['s']:.1f} s")
+
+
+def mesh_serve_phase(torch, dev, qm, cfg, calib, failures, mesh, report) -> None:
+    """(a) qwen3-8b (the LM phase's packed a4, static 8-bit model) on the engine
+    with ``mesh`` and ``flash_decode=True``, dense bf16 and paged int8 caches, on
+    the first MESH_REQUESTS engine requests, each beside the meshless engine on
+    the same requests: launches exact per model call and equal to the meshless
+    run's, the meshed tokens under the teacher-forced gate of the LM phase, and
+    ``flash_decode_attention`` held against ``attention_dot`` in float32 on the
+    run's own first decode-step query and cache."""
+    import contextlib
+
+    import repro_torch.models.transformer as transformer
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.calib.runner import calibrate_kv_cache
+    from repro_torch.models.flash_decode import flash_decode_attention
+    from repro_torch.models.layers import attention_dot, repeat_kv
+    from repro_torch.runtime import collectives
+
+    reqs = engine_requests(cfg.vocab)[:MESH_REQUESTS]
+    scales = calibrate_kv_cache(qm.params, cfg, calib)
+    geom = dict(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN)
+    first = []
+    real_fd = transformer.flash_decode_attention
+
+    def tapped_fd(q, k, v, pos, **kw):
+        if not first and q.shape[1] == 1:
+            first.append((q.clone(), k.clone(), v.clone(), pos, kw))
+        return real_fd(q, k, v, pos, **kw)
+
+    for label, paged in (("dense", {}), ("paged int8", dict(kv_cache="paged",
+                                                           page_size=ENGINE_PAGE,
+                                                           kv_scales=scales))):
+        runs = {}
+        for meshed in (False, True):
+            t0 = time.perf_counter()
+            collectives.reset()
+            transformer.flash_decode_attention = tapped_fd
+            try:
+                outs, eng, launches = _serve_run(
+                    torch, f"[mesh] (a) {label}, {'mesh (1, 1), flash-decode' if meshed else 'no mesh'}",
+                    lambda reg, log, m=meshed: engine_mod.ServeEngine(
+                        cfg, qm.params, metrics=reg, trace=log, mesh=mesh if m else None,
+                        flash_decode=m, **geom, **paged).serve(reqs),
+                    reqs, failures, contextlib.nullcontext(), paged=bool(paged))
+            finally:
+                transformer.flash_decode_attention = real_fd
+            runs[meshed] = (outs, launches)
+            if meshed:
+                st = eng.stats()
+                print(f"[mesh] (a) {label}: engine mesh {st['mesh']}, moe_impl "
+                      f"{eng.setup.pctx().moe_impl}, flash_decode {eng.setup.flash_decode}")
+                _mesh_report(report, f"(a) qwen3-8b engine, {label}", t0, launches)
+                if not _issued()["all_reduce"]:
+                    failures.append(f"[mesh] (a) {label}: no all_reduce issued")
+            elif _issued()["all_reduce"]:
+                failures.append(f"[mesh] (a) {label}: the meshless run issued collectives")
+            del eng
+        (plain_outs, plain_l), (mesh_outs, mesh_l) = runs[False], runs[True]
+        same = sum(int((a == b).all()) for a, b in zip(plain_outs, mesh_outs))
+        print(f"[mesh] (a) {label}: launches with the mesh {mesh_l}, without {plain_l}; "
+              f"requests with tokens identical to the meshless engine's {same}/{len(reqs)}")
+        if mesh_l != plain_l:
+            failures.append(f"[mesh] (a) {label}: launches {mesh_l} against {plain_l}")
+        kv = scales if paged else None
+        _engine_held(torch, f"[mesh] (a) {label}, meshed tokens",
+                     _forced_pair(torch, qm.params, cfg, reqs, mesh_outs, kv, failures),
+                     mesh_outs, failures)
+        torch.cuda.empty_cache()
+    if not first:
+        failures.append("[mesh] (a): flash_decode_attention was never called")
+        return
+    q, k, v, pos, kw = first[0]
+    pctx, window = kw["pctx"], kw.get("window", 0)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    n_rep = q.shape[2] // k.shape[2]
+    fd = lambda: flash_decode_attention(qf, kf, vf, pos, pctx=pctx, window=window)  # noqa: E731
+    dot = lambda: attention_dot(qf, repeat_kv(kf, n_rep), repeat_kv(vf, n_rep),  # noqa: E731
+                                causal=True, window=window, q_offset=pos)
+    got, want = fd(), dot()
+    err = (got - want).abs().max().item()
+    limit = FLASH_DECODE_REL_TOL * want.abs().max().item()
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    fd_ms, dot_ms = timed_ms(fd, torch, flush), timed_ms(dot, torch, flush)
+    del flush
+    print(f"[mesh] (a) flash_decode_attention on the run's first decode-step q {tuple(q.shape)} "
+          f"and cache {tuple(k.shape)} (pos {pos if isinstance(pos, int) else pos.tolist()}), "
+          f"float32, against attention_dot: max_abs_err {err:.3e} (limit {limit:.3e}); "
+          f"{fd_ms:.4f} ms against {dot_ms:.4f} ms (device time, one layer)")
+    if not err <= limit:
+        failures.append(f"[mesh] (a) flash_decode_attention vs attention_dot {err:.3e}")
+
+
+def mesh_moe_phase(torch, dev, qm, cfg, prompts, meshless, failures, mesh, report) -> None:
+    """(b) olmoe-1b-7b (the MoE phase's packed model) through ``static_generate``
+    with ``mesh`` and ``moe_impl="ep"`` (the expert exchange, capacity factor
+    ``cfg.moe_capacity_factor``): launches per prefill and step exact, the
+    dropped share of the run's (token, choice) pairs, and on the run's own
+    first-layer prefill input ``moe_ep`` held against ``moe_dense`` at a
+    capacity that drops nothing and, at the config's, against the partial sum
+    of the kept choices, both beside the same products summed in float64."""
+    import repro_torch.models.moe as moe_lib
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.kernels.ops import dequantize
+    from repro_torch.runtime import collectives
+
+    t0 = time.perf_counter()
+    setup = engine_mod.ServeSetup(cfg=cfg, mesh=mesh, max_len=LM_PROMPT + MESH_MOE_NEW,
+                                  batch=LM_BATCH, moe_impl="ep")
+    seen, drops = [], collections.Counter()
+    real_ep = moe_lib.moe_ep
+
+    def tapped_ep(p, x2d, cfg_, pctx):
+        # the first call's input kept for the holds below; every call's drops counted
+        seen.append((p, x2d.clone() if not seen else None, pctx))
+        d = moe_lib.ep_dispatch(x2d, p["router"], cfg_, pctx.model_size)["dropped"]
+        kind = "prefill" if x2d.shape[0] > LM_BATCH else "decode"
+        drops[kind, "dropped"] += d.sum()  # on the device: no sync inside the run
+        drops[kind, "pairs"] += d.numel()
+        return real_ep(p, x2d, cfg_, pctx)
+
+    collectives.reset()
+    _zero_counts()
+    moe_lib.moe_ep = tapped_ep
+    try:
+        new, phases = _phased(torch, lambda: engine_mod.static_generate(
+            setup, qm.params, {"tokens": prompts}, MESH_MOE_NEW))
+    finally:
+        moe_lib.moe_ep = real_ep
+    launches = dict(zip(KERNEL_ROUTES, _counts()))
+    n_layers = cfg.n_layers
+    want = ([("prefill", _expected({"elp_bsd_matmul/wgmma": n_layers * MOE_PER_LAYER,
+                                    "flash_attention/wgmma": n_layers}))]
+            + [("decode", _expected({"fused_decode_matmul/wgmma": n_layers * MOE_PER_LAYER}))]
+            * (MESH_MOE_NEW - 1))
+    same = int((new == meshless[:, :MESH_MOE_NEW]).all(dim=1).sum())
+    print(f"[mesh] (b) {cfg.name} static_generate, mesh (1, 1), moe_ep at capacity factor "
+          f"{cfg.moe_capacity_factor}: {LM_BATCH} x {LM_PROMPT} prompts, {MESH_MOE_NEW} new "
+          f"tokens in {time.perf_counter() - t0:.1f} s; launches by phase exact "
+          f"{phases == want}; {len(seen)} moe_ep calls; rows identical to the meshless dense "
+          f"MoE's first {MESH_MOE_NEW} tokens {same}/{LM_BATCH} (drops change the function)")
+    if phases != want:
+        failures.append(f"[mesh] (b) launch counts by phase {phases}")
+    if (tuple(new.shape) != (LM_BATCH, MESH_MOE_NEW) or int(new.min()) < 0
+            or int(new.max()) >= cfg.vocab):
+        failures.append(f"[mesh] (b) tokens of shape {tuple(new.shape)} or out of the vocab")
+    if len(seen) != n_layers * MESH_MOE_NEW:
+        failures.append(f"[mesh] (b) {len(seen)} moe_ep calls, expected {n_layers * MESH_MOE_NEW}")
+    _mesh_report(report, f"(b) {cfg.name} static_generate, expert parallel", t0, launches)
+    if not _issued()["all_to_all"]:
+        failures.append("[mesh] (b): no all_to_all issued")
+
+    # the dropped share: every call's (token, choice) pairs at the config's capacity
+    p, x, pctx = seen[0]
+    caps = {kind: max(8, math.ceil(t * cfg.topk / cfg.n_experts * cfg.moe_capacity_factor))
+            for kind, t in (("prefill", x.shape[0]), ("decode", LM_BATCH))}
+    print(f"[mesh] (b) dropped share at capacity factor {cfg.moe_capacity_factor}: "
+          + "; ".join(f"{kind} {int(drops[kind, 'dropped']) / drops[kind, 'pairs']:.4f} of "
+                      f"{drops[kind, 'pairs']} (token, choice) pairs over {cfg.n_layers} layers"
+                      f"{'' if kind == 'prefill' else f' x {MESH_MOE_NEW - 1} steps'} (capacity "
+                      f"{caps[kind]} a bucket)" for kind in ("prefill", "decode")))
+
+    # moe_ep against moe_dense on the run's own layer-0 input (its first
+    # MESH_MOE_TOKENS tokens), each against the same products in float64
+    x = x[:MESH_MOE_TOKENS]
+    e, k = cfg.n_experts, cfg.topk
+    ample = dataclasses.replace(cfg, moe_capacity_factor=e / k)  # capacity = tokens: no drops
+    ep_ample = moe_lib.moe_ep(p, x, ample, pctx).float()
+    ep_cfg = moe_lib.moe_ep(p, x, cfg, pctx).float()
+    dense = moe_lib.moe_dense(p, x, cfg).float()
+    gates, topi = moe_lib.router_gates(x, p["router"], k)
+    kept = ~moe_lib.ep_dispatch(x, p["router"], cfg, 1)["dropped"].reshape(-1, k)
+    w1, w3, w2 = (dequantize(p[n]).to(x.dtype).double() for n in ("we1", "we3", "we2"))
+    xd = x.double()
+    full64 = torch.zeros(x.shape, dtype=torch.float64, device=dev)
+    part64 = torch.zeros_like(full64)
+    mag = torch.zeros(x.shape[0], dtype=torch.float64, device=dev)
+    for j in range(e):
+        z = (torch.nn.functional.silu(xd @ w1[j]) * (xd @ w3[j])).to(x.dtype).double()
+        y = (z @ w2[j]).to(x.dtype).double()  # the expert's output, rounded as the model does
+        g = (gates.double() * (topi == j)).sum(1)  # this expert's gate per token (0 if unrouted)
+        gk = (gates.double() * ((topi == j) & kept)).sum(1)
+        full64 += g[:, None] * y
+        part64 += gk[:, None] * y
+        mag += g * y.abs().amax(1)
+    # ep rounds each of the k gated contributions to bf16 and adds them in bf16:
+    # at most k + 2 half-ulp roundings of a partial sum no larger than mag
+    limit = (k + 2) * 2.0 ** -9 * mag.max().item()
+    reads = {
+        "moe_ep, no drops, vs float64": (ep_ample - full64).abs().max().item(),
+        "moe_dense vs float64 (the control)": (dense - full64).abs().max().item(),
+        f"moe_ep at {cfg.moe_capacity_factor} vs float64 partial sum of kept": (
+            ep_cfg - part64).abs().max().item(),
+        f"moe_ep at {cfg.moe_capacity_factor} vs float64 full sum (drops must show)": (
+            ep_cfg - full64).abs().max().item(),
+    }
+    print(f"[mesh] (b) layer-0 input, {x.shape[0]} tokens, {int((~kept).sum())} of "
+          f"{kept.numel()} choices dropped at {cfg.moe_capacity_factor}: max |diff| "
+          + "; ".join(f"{name} {v:.3e}" for name, v in reads.items())
+          + f" (limit {limit:.3e} = (k + 2) bf16 half-ulps of the largest gated magnitude; "
+          f"ep vs dense {(ep_ample - dense).abs().max().item():.3e})")
+    names = list(reads)
+    if reads[names[0]] > limit or reads[names[2]] > limit:
+        failures.append(f"[mesh] (b) moe_ep against the float64 sums: {reads}")
+    if (~kept).any() and reads[names[3]] <= limit:
+        failures.append("[mesh] (b) dropped choices do not show against the full sum")
+    del seen, w1, w3, w2, full64, part64
+    torch.cuda.empty_cache()
+
+
+def mesh_train_phase(torch, dev, failures, mesh, report) -> None:
+    """(c) lm-100m through ``launch/train.py``'s ``train()`` with ``mesh``, with and
+    without ``compress="int8"``: the losses equal the meshless run's (limit
+    TRAIN_RESUME_REL_TOL); a checkpoint written on the mesh resumed without one
+    gives the meshless losses; no kernel launched in any step."""
+    import tempfile
+
+    from repro_torch.experiments import train_lm
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime.train_loop import TrainSetup, train
+
+    t0 = time.perf_counter()
+    cfg = train_lm.CFG
+    kw = dict(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=TRAIN_STEPS, device=dev,
+              log_fn=lambda line: print(f"[mesh] (c) lm-100m {line}"))
+    base = TrainSetup(cfg=cfg, lr_peak=6e-4, warmup=50, total_steps=TRAIN_STEPS, remat=True)
+    collectives.reset()
+    for compress in (None, "int8"):
+        setup = dataclasses.replace(base, compress=compress)
+        plain = train(setup, steps=MESH_TRAIN_STEPS, **kw)
+        _zero_counts()
+        meshed = train(dataclasses.replace(setup, mesh=mesh), steps=MESH_TRAIN_STEPS, **kw)
+        _no_kernel_launches(f"mesh lm-100m compress={compress}", failures)
+        want, got = plain["losses"], meshed["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"[mesh] (c) lm-100m compress={compress}, {MESH_TRAIN_STEPS} steps on the (1, 1) "
+              f"mesh (ZeRO-1 state, gradient mean over the batch group) against the meshless "
+              f"run: largest relative loss difference {rel:.3e} (limit {TRAIN_RESUME_REL_TOL:g}); "
+              f"losses {got[0]:.4f} .. {got[-1]:.4f}; step median "
+              f"{meshed['straggler_report']['median_s'] * 1e3:.2f} ms against "
+              f"{plain['straggler_report']['median_s'] * 1e3:.2f} ms without the mesh")
+        if len(got) != MESH_TRAIN_STEPS or not rel <= TRAIN_RESUME_REL_TOL:
+            failures.append(f"[mesh] (c) compress={compress}: {len(got)} steps, {rel:.3e}")
+        if compress is None:
+            straight = want
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as ckpt:
+        _zero_counts()
+        train(dataclasses.replace(base, mesh=mesh), steps=MESH_TRAIN_CKPT, ckpt_dir=ckpt,
+              ckpt_every=MESH_TRAIN_CKPT, **kw)
+        resumed = train(base, steps=MESH_TRAIN_STEPS, ckpt_dir=ckpt, **kw)["losses"]
+        _no_kernel_launches("mesh lm-100m checkpointed, resumed without the mesh", failures)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight[MESH_TRAIN_CKPT:]))
+    print(f"[mesh] (c) lm-100m: {MESH_TRAIN_CKPT} steps on the mesh with a checkpoint, resumed "
+          f"without a mesh for {len(resumed)} steps: largest relative loss difference to the "
+          f"meshless run {rel:.3e} (limit {TRAIN_RESUME_REL_TOL:g})")
+    if len(resumed) != MESH_TRAIN_STEPS - MESH_TRAIN_CKPT or not rel <= TRAIN_RESUME_REL_TOL:
+        failures.append(f"[mesh] (c) resume without the mesh: {len(resumed)} steps, {rel:.3e}")
+    _mesh_report(report, "(c) lm-100m training", t0)
+    if not _issued()["all_reduce"]:
+        failures.append("[mesh] (c): no all_reduce issued")
+    torch.cuda.empty_cache()
+
+
+def mesh_collective_phase(torch, dev, failures, mesh, report) -> None:
+    """(d) ``compressed_mean`` on the NCCL group of the mesh's batch axes, held
+    against dequantize(quantize(x)) for both codecs."""
+    from repro_torch.models.context import ParallelCtx
+    from repro_torch.optim.compress import compressed_mean, round_trip
+    from repro_torch.runtime import collectives
+
+    t0 = time.perf_counter()
+    collectives.reset()
+    pctx = ParallelCtx(mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(MESH_COLLECTIVE_N, device=dev, generator=gen)
+    for codec in ("int8", "elp4"):
+        got, want = compressed_mean(x, pctx.batch_group, codec), round_trip(x, codec)
+        err = (got - want).abs().max().item()
+        print(f"[mesh] (d) compressed_mean {codec} of {MESH_COLLECTIVE_N} floats on the "
+              f"{torch.distributed.get_backend(pctx.batch_group)} group of "
+              f"{torch.distributed.get_world_size(pctx.batch_group)} rank: max |mean - round "
+              f"trip| {err:.3e} (must be 0)")
+        if err != 0.0:
+            failures.append(f"[mesh] (d) compressed_mean {codec}: {err:.3e}")
+    _mesh_report(report, "(d) compressed_mean", t0)
+    if not _issued()["all_reduce"]:
+        failures.append("[mesh] (d): no all_reduce issued")
+
+
 def main() -> int:
     # One card: the run uses device 0 and its record says so.
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -3292,10 +3624,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 6: the LM main path, and phase 7: its kernels held on the card -----
-    lm_launches, engine_launches = lm_main_path(torch, dev, failures, rows)
+    # -- the mesh phase: a one-rank NCCL group and the (1, 1) mesh over it -----------
+    from repro_torch.runtime.elastic import make_mesh
+
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    mesh_report = {}
+    print(f"[mesh] {mesh} on the {torch.distributed.get_backend()} backend, world "
+          f"{torch.distributed.get_world_size()}, in {time.perf_counter() - t0:.1f} s")
+    lm_launches, engine_launches = lm_main_path(torch, dev, failures, rows, mesh, mesh_report)
 
     # -- phase 7b: the MoE family (olmoe-1b-7b) and the VLM stub (internvl2-26b) ----
-    moe_launches = moe_phase(torch, dev, failures, rows)
+    moe_launches = moe_phase(torch, dev, failures, rows, mesh, mesh_report)
     vlm_launches = vlm_phase(torch, dev, failures, rows)
 
     # -- phase 7c: the recurrent and enc-dec families -------------------------------
@@ -3316,6 +3656,19 @@ def main() -> int:
     t0 = time.perf_counter()
     train_phase(torch, dev, failures)
     print(f"[time] phase 9, training: {time.perf_counter() - t0:.1f} s")
+    mesh_train_phase(torch, dev, failures, mesh, mesh_report)
+    mesh_collective_phase(torch, dev, failures, mesh, mesh_report)
+    # (e) the collectives issued by each part of the mesh phase
+    mesh_launches = collections.Counter()
+    for label, rec in mesh_report.items():
+        mesh_launches.update(rec["launches"])
+        print(f"[mesh] (e) {label}: collectives {rec['issued']}, {rec['s']:.1f} s")
+    print(f"[mesh] (e) launches of the mesh phase by route "
+          f"{ {k: mesh_launches[k] for k in KERNEL_ROUTES} }; "
+          f"{sum(r['s'] for r in mesh_report.values()):.1f} s in all")
+    if len(mesh_report) != 5:
+        failures.append(f"[mesh] parts that ran: {sorted(mesh_report)}")
+    torch.distributed.destroy_process_group()
     t0 = time.perf_counter()
     lm_ptq_phase(torch, dev, failures)
     print(f"[time] phase 9b, lm_ptq: {time.perf_counter() - t0:.1f} s")
@@ -3355,7 +3708,8 @@ def main() -> int:
             "replaces": sources[name][1],
             "launches": (cnn_launches.get(name, 0) + lm_launches[name] + sec5_launches[name]
                          + engine_launches[name] + moe_launches[name] + vlm_launches[name]
-                         + family_launches[name] + vgg_launches[name] + paper_launches[name]),
+                         + family_launches[name] + vgg_launches[name] + paper_launches[name]
+                         + mesh_launches[name]),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": wsum("ms"),
             "plain_ms": wsum("plain_ms"),

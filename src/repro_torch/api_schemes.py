@@ -428,7 +428,7 @@ class LmAdapter:
         ``spec_k`` turns on speculative decoding: ``params`` is then the
         verify tier (it defines the output), drafted against by
         ``draft_params`` (``spec_draft="model"``) or the engine's token
-        history (``"ngram"``).
+        history (``"ngram"``). ``mesh`` and ``flash_decode`` go to the engine.
         """
         import numpy as np
 

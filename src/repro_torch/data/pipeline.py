@@ -11,8 +11,8 @@ something:
     embeddings);
   * CNN task: class templates plus Gaussian noise.
 
-:func:`shard_batch` moves a host batch to one device; a device mesh waits
-for the multi-device port (ROADMAP.md, queue 1 item 4).
+:func:`shard_batch` moves a host batch to one device, or under a mesh
+this rank's block of it (its batch slice, by ``input_spec``).
 """
 from __future__ import annotations
 
@@ -103,11 +103,15 @@ class CnnDataset:
 
 def shard_batch(batch: dict[str, np.ndarray], mesh=None, specs=None, *,
                 device=None) -> dict[str, torch.Tensor]:
-    """A host batch as tensors on ``device`` (default: the card). ``mesh`` must be
-    None: laying a batch out over a device mesh is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "shard_batch over a device mesh is not ported to repro_torch yet; see ROADMAP.md "
-            "(queue 1 item 4)")
+    """A host batch as tensors on ``device`` (default: the card). Under ``mesh``
+    each leaf is this rank's block by its spec in ``specs`` (default:
+    :func:`~repro_torch.runtime.sharding.input_spec` of its shape), cut on the host."""
     device = resolve_device(device)
-    return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
+    out = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    if mesh is not None:
+        from repro_torch.runtime.elastic import local_block
+        from repro_torch.runtime.sharding import input_spec
+
+        out = {k: local_block(v, mesh, specs[k] if specs is not None
+                              else input_spec(tuple(v.shape), mesh)) for k, v in out.items()}
+    return {k: v.to(device) for k, v in out.items()}

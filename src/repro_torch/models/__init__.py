@@ -92,13 +92,14 @@ def _encdec_api() -> ModelApi:
 
     def loss(params, cfg, batch, *, pctx=None, remat=True):
         return encdec.loss_fn(params, cfg, batch["tokens"], batch["labels"],
-                              frontend=batch["frontend"], remat=remat)
+                              frontend=batch["frontend"], pctx=pctx, remat=remat)
 
     def prefill(params, cfg, batch, cache, *, pctx=None):
-        return encdec.prefill(params, cfg, batch["tokens"], cache, frontend=batch["frontend"])
+        return encdec.prefill(params, cfg, batch["tokens"], cache, frontend=batch["frontend"],
+                              pctx=pctx)
 
     def decode(params, cfg, token, cache, pos, *, pctx=None):
-        return encdec.decode_step(params, cfg, token, cache, pos)
+        return encdec.decode_step(params, cfg, token, cache, pos, pctx=pctx)
 
     return ModelApi(encdec.init_params, loss, encdec.init_cache, prefill, decode)
 

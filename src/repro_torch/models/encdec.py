@@ -18,14 +18,20 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.models.layers import cross_entropy, dense_init, matmul, rms_norm
+from repro_torch.models.layers import (
+    cross_entropy,
+    dense_init,
+    init_generator,
+    matmul,
+    rms_norm,
+)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     """Seeded parameters in the JAX package's tree, scales and dtype, on ``device``
     (default: the card). The draws are a ``torch.Generator``'s, not ``jax.random``'s."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = init_generator(device, seed)
     zeros = lambda: torch.zeros((cfg.d_model,), dtype=cfg.dtype, device=device)  # noqa: E731
     return {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.dtype),
@@ -38,34 +44,35 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     }
 
 
-def encode(params, cfg: ArchConfig, src, *, remat: bool = False,
+def encode(params, cfg: ArchConfig, src, *, pctx=None, remat: bool = False,
            attn_impl: str = "flash") -> torch.Tensor:
     """``src``: precomputed frame embeddings ``[B, S_enc, D]`` (the stub frontend)
     -> the normed encoder output ``[B, S_enc, D]``. ``remat`` and ``attn_impl`` as
     in :func:`repro_torch.models.transformer.stack_apply`."""
     src = torch.as_tensor(src).to(params["embed"].device).to(cfg.dtype)
     x, _ = T.stack_apply(params["encoder"], cfg, matmul(src, params["frontend_proj"]),
-                         causal=False, remat=remat, attn_impl=attn_impl)
+                         causal=False, pctx=pctx, remat=remat, attn_impl=attn_impl)
     return rms_norm(x, params["enc_norm"])
 
 
-def forward(params, cfg: ArchConfig, tokens, *, frontend, **_) -> torch.Tensor:
+def forward(params, cfg: ArchConfig, tokens, *, frontend, pctx=None, **_) -> torch.Tensor:
     """Cache-less forward: float32 logits ``[B, S, V]``."""
     with torch.no_grad():
-        enc_out = encode(params, cfg, frontend)
+        enc_out = encode(params, cfg, frontend, pctx=pctx)
         x, _ = T.stack_apply(params["decoder"], cfg, T.embed_tokens(params, cfg, tokens),
-                             causal=True, enc_out=enc_out)
+                             causal=True, enc_out=enc_out, pctx=pctx)
         return T.unembed(params, cfg, x)
 
 
-def loss_fn(params, cfg: ArchConfig, tokens, labels, *, frontend, remat: bool = True,
-            **_) -> torch.Tensor:
+def loss_fn(params, cfg: ArchConfig, tokens, labels, *, frontend, pctx=None,
+            remat: bool = True, **_) -> torch.Tensor:
     """Mean next-token cross entropy of the decoder over the encoded ``frontend``,
     differentiable: attention in the reference's torch ops in both stacks, each
     block recomputed in the backward pass with ``remat``."""
-    enc_out = encode(params, cfg, frontend, remat=remat, attn_impl="reference")
+    enc_out = encode(params, cfg, frontend, pctx=pctx, remat=remat, attn_impl="reference")
     x, _ = T.stack_apply(params["decoder"], cfg, T.embed_tokens(params, cfg, tokens),
-                         causal=True, enc_out=enc_out, remat=remat, attn_impl="reference")
+                         causal=True, enc_out=enc_out, pctx=pctx, remat=remat,
+                         attn_impl="reference")
     return cross_entropy(T.unembed(params, cfg, x), labels)
 
 
@@ -74,17 +81,18 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None) -> dic
     return T.init_cache(cfg, batch, max_len, device=device)
 
 
-def prefill(params, cfg: ArchConfig, tokens, cache: dict, *, frontend, **_):
+def prefill(params, cfg: ArchConfig, tokens, cache: dict, *, frontend, pctx=None, **_):
     """Encode the source and fill the decoder cache with the prompt; returns the last
     position's logits and the serve state ``(cache, enc_out)``."""
     with torch.no_grad():
-        enc_out = encode(params, cfg, frontend)
+        enc_out = encode(params, cfg, frontend, pctx=pctx)
         x, cache = T.stack_apply(params["decoder"], cfg, T.embed_tokens(params, cfg, tokens),
-                                 causal=True, cache=cache, cache_pos=0, enc_out=enc_out)
+                                 causal=True, cache=cache, cache_pos=0, enc_out=enc_out,
+                                 pctx=pctx)
         return T.unembed(params, cfg, x[:, -1:]), (cache, enc_out)
 
 
-def decode_step(params, cfg: ArchConfig, token, state, pos, **_):
+def decode_step(params, cfg: ArchConfig, token, state, pos, *, pctx=None, **_):
     """One token a row at position ``pos`` (a scalar or a ``[B]`` vector) against the
     serve state ``(cache, enc_out)``; returns ``[B, s, V]`` logits and the state."""
     cache, enc_out = state
@@ -92,5 +100,5 @@ def decode_step(params, cfg: ArchConfig, token, state, pos, **_):
         x = T.embed_tokens(params, cfg, token)
         pos, positions = T.step_positions(pos, token.shape[1], x.device)
         x, cache = T.stack_apply(params["decoder"], cfg, x, causal=True, positions=positions,
-                                 cache=cache, cache_pos=pos, enc_out=enc_out)
+                                 cache=cache, cache_pos=pos, enc_out=enc_out, pctx=pctx)
         return T.unembed(params, cfg, x), (cache, enc_out)

@@ -226,17 +226,34 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Initializers
 # ---------------------------------------------------------------------------
+def init_generator(device: torch.device, seed: int) -> torch.Generator | None:
+    """The seeded generator of a parameter init on ``device``; None for a shape-only
+    init on the ``meta`` device, which draws nothing (the sharding rules' input at
+    full size, the counterpart of ``jax.eval_shape``)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def init_device(gen: torch.Generator | None) -> torch.device:
+    """Where an init with ``gen`` (:func:`init_generator`) puts its tensors."""
+    return torch.device("meta") if gen is None else gen.device
+
+
 def dense_init(
-    gen: torch.Generator, shape: tuple[int, ...], dtype: torch.dtype = F32, scale: float = 1.0,
-    device=None,
+    gen: torch.Generator | None, shape: tuple[int, ...], dtype: torch.dtype = F32,
+    scale: float = 1.0, device=None,
 ) -> torch.Tensor:
     """Truncated-normal fan-in init (He-style): N(0, 1) cut at ±2, times ``scale/sqrt(fan_in)``.
 
     ``fan_in`` is ``shape[0]``, as in the JAX package. The draws come from
     ``gen`` on its own device and the result moves to ``device`` (default:
     ``gen``'s), so a host generator gives the same numbers on any device.
-    They are not ``jax.random``'s bits.
+    They are not ``jax.random``'s bits. ``gen=None`` is a shape-only init:
+    an empty ``meta`` tensor.
     """
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
     fan_in = shape[0] if len(shape) >= 2 else 1
     std = scale / math.sqrt(max(fan_in, 1))
     w = torch.empty(shape, dtype=F32, device=gen.device)

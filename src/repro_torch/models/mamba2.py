@@ -38,6 +38,8 @@ from repro_torch.models.layers import (
     causal_conv,
     cross_entropy,
     dense_init,
+    init_device,
+    init_generator,
     matmul,
     rms_norm,
     softplus,
@@ -60,10 +62,12 @@ def init_layer_stack(cfg: ArchConfig, gen: torch.Generator, n_layers: int) -> di
     d = cfg.d_model
     d_in, nh, _, st = dims(cfg)
     conv_ch = d_in + 2 * st
-    dt, device = cfg.dtype, gen.device
+    dt, device = cfg.dtype, init_device(gen)
 
     def stack(shape):
         out = torch.empty((n_layers, *shape), dtype=dt, device=device)
+        if gen is None:
+            return out
         for i in range(n_layers):
             out[i] = dense_init(gen, shape, dt)
         return out
@@ -90,7 +94,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     """Seeded parameters in the JAX package's tree, scales and dtypes, on ``device``
     (default: the card). The draws are a ``torch.Generator``'s, not ``jax.random``'s."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = init_generator(device, seed)
     p = {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.dtype),
         "blocks": init_layer_stack(cfg, gen, cfg.n_layers),

@@ -1,16 +1,26 @@
-"""Mixture-of-Experts FFN: top-k routing over a stack of experts, the dense form.
+"""Mixture-of-Experts FFN: top-k routing with two interchangeable forms.
 
-The port of the JAX package's ``repro/models/moe.py`` on one card. Its
-``moe_dense`` runs every expert on every token and weighs each output by
-the token's gate (zero outside its top-k), so its products cost
-``n_experts / topk`` times those of a routed MoE; the JAX package takes
-it whenever there is no device mesh, as on one card, and this module
-keeps that design. Expert weights may arrive packed (an ``[E, K', N]``
-layer view of an ``[L, E, K', N]`` expert stack): they are dequantized
-whole at every call, as the reference's ``_dq`` does, and the products
-are plain batched matmuls, which the JAX package leaves to XLA (no TPU
-kernel of the reference runs here). A packed expert stack's static
-activation scale is not applied, as in the reference.
+The port of the JAX package's ``repro/models/moe.py``:
+
+* ``moe_dense`` runs every expert on every token and weighs each output
+  by the token's gate (zero outside its top-k), so its products cost
+  ``n_experts / topk`` times those of a routed MoE; the JAX package takes
+  it without a device mesh, and it is the oracle of the routed form.
+* ``moe_ep`` is expert parallelism over the mesh's model axis: tokens are
+  bucketed by destination rank and local expert into a fixed-capacity send
+  buffer (capacity ``max(8, ceil(t * k / E * moe_capacity_factor))``;
+  slots past it are dropped), exchanged with ``all_to_all`` over the model
+  group, run through the rank's local experts as one batched product, sent
+  back the same way and combined by their gates. The JAX package writes it
+  under ``shard_map``; here each rank calls it on its local tokens and
+  its own slice of the experts (:mod:`repro_torch.runtime.collectives`).
+
+Expert weights may arrive packed (an ``[E, K', N]`` layer view of an
+``[L, E, K', N]`` expert stack): they are dequantized whole at every call,
+as the reference's ``_dq`` does, and the products are plain batched
+matmuls, which the JAX package leaves to XLA (no TPU kernel of the
+reference runs here). A packed expert stack's static activation scale is
+not applied, as in the reference.
 
 Products keep the reference's rounding: operands in the activation
 dtype, float32 results (``preferred_element_type=F32``) — on the card
@@ -19,11 +29,10 @@ host (and wherever an operand takes a gradient) a float32 product of the
 same values — and the SwiGLU/GELU output rounded to the activation dtype
 before the down projection. :func:`load_balance_loss` is the reference's
 auxiliary loss (defined there, and not on its loss path).
-
-Not ported: the expert-parallel form (``moe_ep``: ``shard_map`` and
-``all_to_all`` over a device mesh); it waits for ROADMAP.md queue 1 item 4.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +40,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import full_f32
 from repro_torch.kernels.ops import PackedWeight, dequantize
+from repro_torch.runtime import collectives
 
 F32 = torch.float32
 
@@ -99,17 +109,100 @@ def moe_dense(p: dict, x2d: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         return torch.einsum("etd,te->td", y.to(F32), combine).to(x2d.dtype)
 
 
-def moe_apply(p: dict, x2d: torch.Tensor, cfg: ArchConfig, pctx=None) -> torch.Tensor:
-    """The MoE FFN of one layer on ``x2d[T, D]``: :func:`moe_dense` on one card.
+def _ep_slots(e_flat: torch.Tensor) -> torch.Tensor:
+    """Each choice's rank among the choices of the same expert, in token order:
+    a stable argsort and ``searchsorted``, as the reference computes it."""
+    n = e_flat.shape[0]
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    start = torch.searchsorted(e_sorted, e_flat, side="left")
+    rank_sorted = torch.arange(n, device=e_flat.device) - start[order]
+    slot = torch.zeros(n, dtype=torch.int64, device=e_flat.device)
+    slot[order] = rank_sorted
+    return slot
 
-    A ``pctx`` (a device mesh, where the reference may route through
-    ``moe_ep``) raises ``NotImplementedError``.
+
+def ep_dispatch(x_loc: torch.Tensor, router: torch.Tensor, cfg: ArchConfig,
+                n_shards: int) -> dict:
+    """The routing of ``x_loc[t, D]`` for the expert exchange over ``n_shards``
+    ranks, per (token, choice) in token-major order ``[t * k]``: the gate, the
+    token, the destination rank, the local expert there and the slot in its
+    bucket; the capacity; and the drop mask (slots at or past the capacity)."""
+    t = x_loc.shape[0]
+    k, e = cfg.topk, cfg.n_experts
+    e_loc = e // n_shards
+    cap = max(8, int(math.ceil(t * k / e * cfg.moe_capacity_factor)))
+    gates, topi = router_gates(x_loc, router, k)
+    e_flat = topi.reshape(-1)
+    slot = _ep_slots(e_flat)
+    return {"gates": gates.reshape(-1),
+            "token": torch.arange(t, device=x_loc.device).repeat_interleave(k),
+            "dst": e_flat // e_loc, "local": e_flat % e_loc, "slot": slot, "cap": cap,
+            "dropped": slot >= cap}
+
+
+def _moe_ep_local(x_loc: torch.Tensor, router, we1, we3, we2, *, cfg: ArchConfig, group,
+                  n_shards: int) -> torch.Tensor:
+    """The exchange on one rank: ``x_loc[t, D]`` routed, sent to the ranks holding
+    the chosen experts, run through this rank's experts ``we*[E_loc, ...]`` and
+    combined back. Returns ``[t, D]`` in ``x_loc``'s dtype."""
+    d = x_loc.shape[1]
+    e_loc = cfg.n_experts // n_shards
+    r = ep_dispatch(x_loc, router, cfg, n_shards)
+    cap, keep = r["cap"], ~r["dropped"]
+    send = torch.zeros((n_shards, e_loc, cap, d), dtype=x_loc.dtype, device=x_loc.device)
+    send = send.index_put((r["dst"][keep], r["local"][keep], r["slot"][keep]),
+                          x_loc[r["token"][keep]])
+    recv = collectives.all_to_all(send, group)  # [source rank, E_loc, cap, D]
+    h = recv.transpose(0, 1).reshape(e_loc, n_shards * cap, d)
+    y = _expert_ffn(h, we1, we3, we2, cfg.mlp_kind)
+    y = y.reshape(e_loc, n_shards, cap, d).transpose(0, 1)
+    back = collectives.all_to_all(y, group)  # each choice's output at (dst, local, slot)
+    contrib = back[r["dst"], r["local"], torch.clamp(r["slot"], max=cap - 1)]
+    contrib = contrib * r["gates"][:, None].to(x_loc.dtype)
+    contrib = torch.where(keep[:, None], contrib, torch.zeros_like(contrib))
+    return torch.zeros_like(x_loc).index_add(0, r["token"], contrib)
+
+
+def _leading(w) -> int:
+    return (w.codes if isinstance(w, PackedWeight) else w).shape[0]
+
+
+def moe_ep(p: dict, x2d: torch.Tensor, cfg: ArchConfig, pctx) -> torch.Tensor:
+    """Expert-parallel MoE of this rank's tokens ``x2d[T, D]`` (the same on every
+    rank of the model axis) with this rank's expert shard ``p["we*"][E / m, ...]``
+    (``m`` the model axis's size; a packed stack sharded on the expert dim).
+
+    The tokens are split over the model axis when they divide (each rank routes
+    ``T / m`` of them; the outputs are gathered back), else every rank routes
+    all of them, as the reference's divisibility choice does. The reference
+    makes that choice on the global token count over the batch and model axes;
+    the port's tokens are already the rank's batch slice (or all of them where
+    the batch does not divide), so the choice left is the model axis's.
     """
-    if pctx is not None:
-        raise NotImplementedError(
-            "MoE over a device mesh (pctx; the reference's expert-parallel moe_ep) is not "
-            "ported to repro_torch yet; see ROADMAP.md (queue 1 item 4)"
-        )
+    m = pctx.model_size
+    if cfg.n_experts % m:
+        raise ValueError(f"{cfg.n_experts} experts do not divide over a model axis of {m}")
+    if p.get("we3") is None:
+        raise ValueError("the expert-parallel MoE assumes gated (swiglu) experts")
+    for name in ("we1", "we3", "we2"):
+        if _leading(p[name]) * m != cfg.n_experts:
+            raise ValueError(f"{name} holds {_leading(p[name])} experts; this rank's shard "
+                             f"of {cfg.n_experts} over {m} is {cfg.n_experts // m}")
+    group = pctx.model_group
+    t = x2d.shape[0]
+    split = m > 1 and t % m == 0 and t >= m
+    x_loc = x2d.chunk(m, dim=0)[pctx.model_rank] if split else x2d
+    out = _moe_ep_local(x_loc, p["router"], p["we1"], p["we3"], p["we2"], cfg=cfg, group=group,
+                        n_shards=m)
+    return collectives.all_gather(out, 0, group) if split else out
+
+
+def moe_apply(p: dict, x2d: torch.Tensor, cfg: ArchConfig, pctx=None) -> torch.Tensor:
+    """The MoE FFN of one layer on ``x2d[T, D]``: :func:`moe_ep` under a context
+    whose ``moe_impl`` is ``"ep"``, else :func:`moe_dense`."""
+    if pctx is not None and pctx.moe_impl == "ep":
+        return moe_ep(p, x2d, cfg, pctx)
     return moe_dense(p, x2d, cfg)
 
 

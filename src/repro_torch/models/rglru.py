@@ -44,6 +44,8 @@ from repro_torch.models.layers import (
     causal_conv,
     cross_entropy,
     dense_init,
+    init_device,
+    init_generator,
     matmul,
     mlp_apply,
     repeat_kv,
@@ -74,10 +76,12 @@ def _counts(cfg: ArchConfig) -> tuple[int, int, int, list[str]]:
 # ---------------------------------------------------------------------------
 def _init_rec_stack(cfg: ArchConfig, gen: torch.Generator, n: int) -> dict:
     d, lru, ff = cfg.d_model, cfg.lru_width or cfg.d_model, cfg.d_ff
-    dt, device = cfg.dtype, gen.device
+    dt, device = cfg.dtype, init_device(gen)
 
     def stack(shape):
         out = torch.empty((n, *shape), dtype=dt, device=device)
+        if gen is None:
+            return out
         for i in range(n):
             out[i] = dense_init(gen, shape, dt)
         return out
@@ -109,7 +113,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
     (default: the card). The draws are a ``torch.Generator``'s, not ``jax.random``'s."""
     _, n_rec, n_attn, _ = _counts(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = init_generator(device, seed)
     return {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.dtype),
         "rec": _init_rec_stack(cfg, gen, n_rec),

@@ -35,9 +35,22 @@ port writes the new entries into the cache tensors in place (a full-width
 cache is gigabytes, and a copy per step would double it) and returns the
 same dict. A ``vlm`` model's frontend is the reference's stub: the caller
 hands over precomputed patch embeddings ``[B, F, D]``, which
-``frontend_proj`` maps and prepends to the token embeddings. Not ported:
-the ``pctx`` multi-device context and flash-decode (ROADMAP.md, queue 1
-item 4); inputs that select them raise ``NotImplementedError``.
+``frontend_proj`` maps and prepends to the token embeddings.
+
+Under a mesh (``pctx``, :class:`~repro_torch.models.context.ParallelCtx`)
+each rank runs the model on its local tensors: its batch slice, its
+expert shard (the MoE goes through
+:func:`~repro_torch.models.moe.moe_ep` when ``pctx.moe_impl`` is
+``"ep"``) and, with ``pctx.flash_decode``, its sequence slice of the KV
+cache: a decode step (one query a row, or a ``[B]`` position vector) then
+attends through
+:func:`~repro_torch.models.flash_decode.flash_decode_attention`, as in the
+JAX package (the dynamic int8 cache on its codes and scales; the others
+on their float or dequantized, for a paged cache gathered, views).
+Where the JAX package leaves the collectives of the dense and attention
+projections to GSPMD (a model axis larger than 1) the port has none yet:
+that raises ``NotImplementedError`` (ROADMAP.md, queue 1 item 4b), as
+does ``seq_parallel``, the sequence-parallel layout that goes with them.
 
 Prefill-shaped attention without a window goes through
 :func:`repro_torch.kernels.flash_attention.flash_attention`, the CUDA
@@ -73,12 +86,15 @@ from repro_torch.device import full_f32, resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ops import PackedWeight
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.flash_decode import flash_decode_attention
 from repro_torch.models.layers import (
     apply_rope,
     attention_chunked,
     attention_dot,
     cross_entropy,
     dense_init,
+    init_device,
+    init_generator,
     matmul,
     mlp_apply,
     repeat_kv,
@@ -99,9 +115,14 @@ FLASH_BLOCK = 128  # the flash kernel's sequence block (callers pad to it)
 ATTN_IMPLS = ("flash", "reference")
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet; see ROADMAP.md (queue 1 item {item})")
+def check_model_axis(pctx) -> None:
+    """Raise unless ``pctx`` is None or its model axis holds one rank: the
+    tensor-parallel projections of a wider one wait for ROADMAP item 4b."""
+    if pctx is not None and pctx.model_size > 1:
+        raise NotImplementedError(
+            f"tensor-parallel execution of the dense and attention projections on a model "
+            f"axis of {pctx.model_size} ranks is not ported to repro_torch yet; see ROADMAP.md "
+            "(queue 1 item 4b)")
 
 
 # ---------------------------------------------------------------------------
@@ -118,10 +139,12 @@ def init_block_params(
     """
     d, hd, h, kv, ff = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     dt = cfg.dtype
-    device = gen.device
+    device = init_device(gen)
 
     def stack(shape, scale=1.0):
         out = torch.empty((n_layers, *shape), dtype=dt, device=device)
+        if gen is None:
+            return out
         for i in range(n_layers):
             if len(shape) == 3:
                 for j in range(shape[0]):
@@ -177,7 +200,7 @@ def init_params(cfg: ArchConfig, seed: int = 0, *, device=None) -> dict:
         raise ValueError(f"the {cfg.family!r} family has its own parameter tree: "
                          "use repro_torch.models.get_model(cfg).init_params")
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = init_generator(device, seed)
     p = {
         "embed": dense_init(gen, (cfg.vocab, cfg.d_model), cfg.dtype),
         "blocks": init_block_params(cfg, gen, cfg.n_layers),
@@ -439,8 +462,6 @@ def _attention(
     where prefill-shaped attention runs: ``"flash"`` on the kernel,
     ``"reference"`` in the JAX package's torch ops (the training forward).
     """
-    if pctx is not None:
-        raise _not_ported("the multi-device ParallelCtx (pctx)", 4)
     if kv_layout not in _CACHE_KEYS:
         raise ValueError(f"unknown KV-cache layout {kv_layout!r}")
     if attn_impl not in ATTN_IMPLS:
@@ -462,9 +483,13 @@ def _attention(
         acts["k_cache"] = k
         acts["v_cache"] = v
 
-    new_cache = None
+    new_cache, flash_decode = None, False
     if kv_cache is not None:
         cache_pos = _as_pos(cache_pos)
+        # the reference's flash-decode: a decode run (one query a row, or a [B]
+        # position vector) under a context that asks for it
+        flash_decode = (pctx is not None and pctx.flash_decode
+                        and (s == 1 or isinstance(cache_pos, torch.Tensor)))
         if kv_layout == "quant":
             ck, cv, cks, cvs = kv_cache
             kq, ksf = _cache_q(k)
@@ -472,6 +497,10 @@ def _attention(
             for c, u in ((ck, kq), (cv, vq), (cks, ksf), (cvs, vsf)):
                 _cache_set(c, u, cache_pos)
             new_cache = (ck, cv, cks, cvs)
+            if flash_decode:
+                out = flash_decode_attention(q, ck, cv, cache_pos, pctx=pctx, window=window,
+                                             ks=cks, vs=cvs)
+                return matmul(out.reshape(b, s, h * hd), lp[prefix + "o"]), new_cache
             k, v = _cache_dq(ck, cks, x.dtype), _cache_dq(cv, cvs, x.dtype)
         elif kv_layout in ("paged", "paged_static"):
             # Write this step's k/v through the page table, then gather the
@@ -509,7 +538,9 @@ def _attention(
     decode = kv_cache is not None and (s == 1 or isinstance(cache_pos, torch.Tensor)
                                        or kv_layout.startswith("paged"))
     flash = attn_impl == "flash" and not window
-    if decode:
+    if flash_decode:
+        out = flash_decode_attention(q, k, v, cache_pos, pctx=pctx, window=window)
+    elif decode:
         out = attention_dot(q, repeat_kv(k, h // kv), repeat_kv(v, h // kv), causal=causal,
                             window=window, q_offset=q_offset)
     elif flash and causal:
@@ -615,6 +646,7 @@ def stack_apply(
     not with ``collect``) recomputes each block in the backward pass;
     ``attn_impl`` as in :func:`_attention`.
     """
+    check_model_axis(pctx)
     if collect and cache is not None:
         raise ValueError("collect=True is for the cache-less forward")
     if remat and (collect or cache is not None):

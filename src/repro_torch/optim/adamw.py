@@ -58,6 +58,13 @@ def update(grads: Any, state: dict[str, Any], cfg: AdamWConfig, lr: torch.Tensor
     """One AdamW step on the clipped gradients: the state's moments, masters and step
     updated in place; returns (new model parameters in ``param_dtype``, the state)."""
     grads, _ = clip_by_global_norm(grads, cfg.grad_clip)
+    return apply_clipped(grads, state, cfg, lr, param_dtype)
+
+
+def apply_clipped(grads: Any, state: dict[str, Any], cfg: AdamWConfig, lr: torch.Tensor,
+                  param_dtype: torch.dtype) -> tuple[Any, dict[str, Any]]:
+    """:func:`update` after the clipping: gradients already clipped by the global
+    norm (under ZeRO-1, this rank's blocks of them, matching the state's)."""
     with torch.no_grad():
         state["step"] += 1
         s = state["step"].to(F32)

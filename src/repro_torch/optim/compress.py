@@ -11,8 +11,11 @@ injected error tends to zero over the steps. The JAX package's
   * ``elp4``: ELP_BSD FORMAT_A 4-bit per block (16 levels ``+-2^{0..7}``,
     scale ``max|x| / 128``), 8x smaller than float32.
 
-``compressed_mean`` (a ``pmean`` of the dequantized codes over a mesh axis)
-waits for the multi-device port (ROADMAP.md, queue 1 item 4).
+:func:`compressed_mean` is the mean over a mesh axis's process group of
+the codec's round trip: each rank quantizes and dequantizes its tensor
+and the ranks sum the dequantized values (``all_reduce`` of float32, as
+the reference's ``pmean``: no collective sums codes; the wire size the
+codec would give is :func:`compression_ratio`).
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.core.elp_bsd import FORMAT_A
 from repro_torch.core.quantize import nn_quantize_idx
 from repro_torch.kernels.ops import tree_map
+from repro_torch.runtime import collectives
 
 F32 = torch.float32
 
@@ -66,12 +70,7 @@ def quantize_with_feedback(g: torch.Tensor, err: torch.Tensor,
     """Error-feedback quantization of one gradient leaf: ``(g_hat, new error)`` with
     ``x = g + err`` (float32), ``g_hat`` its codec round trip and ``x - g_hat`` carried."""
     x = g.to(F32) + err
-    if codec == "int8":
-        xq = _dequant_int8(*_quant_int8(x), x.shape, x.numel())
-    elif codec == "elp4":
-        xq = _dequant_elp4(*_quant_elp4(x), x.shape, x.numel())
-    else:
-        raise ValueError(f"unknown gradient codec {codec!r} (known: {CODECS})")
+    xq = round_trip(x, codec)
     return xq, x - xq
 
 
@@ -87,11 +86,23 @@ def init_error_state(params: Any) -> Any:
     return tree_map(lambda p: torch.zeros(p.shape, dtype=F32, device=p.device), params)
 
 
-def compressed_mean(x: torch.Tensor, axis_name: str, codec: str = "int8") -> torch.Tensor:
-    """The JAX package's quantize-then-``pmean`` over a mesh axis; needs a device mesh."""
-    raise NotImplementedError(
-        "compressed_mean (a pmean over a device-mesh axis) is not ported to repro_torch yet; "
-        "see ROADMAP.md (queue 1 item 4)")
+def round_trip(x: torch.Tensor, codec: str = "int8") -> torch.Tensor:
+    """``x`` through the codec and back, in float32."""
+    if codec == "int8":
+        return _dequant_int8(*_quant_int8(x), x.shape, x.numel())
+    if codec == "elp4":
+        return _dequant_elp4(*_quant_elp4(x), x.shape, x.numel())
+    raise ValueError(f"unknown gradient codec {codec!r} (known: {CODECS})")
+
+
+def compressed_mean(x: torch.Tensor, group, codec: str = "int8") -> torch.Tensor:
+    """The mean over ``group``'s ranks of each rank's ``x`` through ``codec`` and
+    back (the reference's quantize-then-``pmean`` inside ``shard_map``):
+    ``all_reduce(SUM)`` of the float32 round trip over the group's size."""
+    import torch.distributed as dist
+
+    xq = round_trip(x, codec)
+    return collectives.all_reduce(xq, group) / dist.get_world_size(group)
 
 
 def compression_ratio(codec: str) -> float:

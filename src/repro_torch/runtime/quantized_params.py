@@ -53,8 +53,18 @@ def quantize_stacked(
     stacked codes ``[..., K', N]`` and scale factors ``[..., 1, 1]``,
     identical to converting the whole stack at once at
     ``granularity="per_slice"`` (Algorithm 1 groups the contracting rows of
-    each slice's columns, so no two slices interact).
+    each slice's columns, so no two slices interact). A ``meta`` tensor (a
+    shape-only tree) gives the packed leaf's shapes and nothing else.
     """
+    if w.is_meta:
+        nib = fmt.bits_per_weight <= 4 if nibble is None else bool(nibble)
+        k, n = int(w.shape[-2]), int(w.shape[-1])
+        lead = tuple(w.shape[:-2])
+        return PackedWeight(
+            codes=torch.empty((*lead, (k + 1) // 2 if nib else k, n), dtype=torch.uint8,
+                              device="meta"),
+            sf=torch.empty((*lead, 1, 1), dtype=torch.float32, device="meta"),
+            fmt_name=fmt.name, nibble=nib, shape=(k, n))
     if w.ndim == 2:
         return pack_weight(w.to(torch.float32), fmt, compensate=compensate,
                            granularity="per_slice", nibble=nibble)[0]

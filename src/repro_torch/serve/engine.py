@@ -55,9 +55,24 @@ model through the dense MoE form, :func:`repro_torch.models.moe.moe_dense`,
 as the JAX package serves it without a mesh); frontend (``vlm``) prompts
 and the recurrent and enc-dec families (``ssm``, ``hybrid``, ``encdec``,
 ``audio``: their state is not a KV cache of slot rows) take
-:func:`static_generate`, as in the JAX package. Not ported (ROADMAP.md, queue 1 item 4):
-device meshes (``mesh`` is None, or ``"auto"``, which resolves to None on
-one card) and flash-decode; they raise ``NotImplementedError``.
+:func:`static_generate`, as in the JAX package.
+
+Meshes: ``mesh="auto"`` serves without one (the JAX package's elastic
+mesh over several devices waits for the multi-rank engine below); a
+``DeviceMesh`` is taken as given, such as the one-rank mesh of
+:func:`repro_torch.runtime.elastic.make_mesh`. Under a mesh every model call runs with
+the setup's :class:`~repro_torch.models.context.ParallelCtx`: an MoE
+model through the expert-parallel exchange (``moe_impl`` defaults to
+``"ep"``), and with ``flash_decode=True`` each decode step's attention
+through :func:`~repro_torch.models.flash_decode.flash_decode_attention`
+over the cache laid out sequence-first (``cache_specs_tree(...,
+prefer_seq=True)``). Parameters and cache are resharded by the sharding
+rules at start-up, which on a one-rank mesh leaves every tensor whole.
+The JAX engine is one controller over every device; an engine spread
+over more than one rank (and so any model axis wider than one rank)
+raises ``NotImplementedError`` (ROADMAP.md, queue 1 item 4b). Without a
+mesh ``flash_decode`` has nothing to shard and changes nothing, as in
+the JAX package.
 """
 from __future__ import annotations
 
@@ -72,8 +87,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.energy import lm_token_energy
 from repro_torch.device import host_to_device
 from repro_torch.models import get_model
+from repro_torch.models.context import ParallelCtx
 from repro_torch.obs.metrics import NULL_REGISTRY, Registry
 from repro_torch.obs.trace import ProfileHook, TraceLog
+from repro_torch.runtime import sharding as shr
+from repro_torch.runtime.elastic import reshard
 from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.serve.scheduler import Request, SlotScheduler
 
@@ -82,28 +100,30 @@ from repro_torch.serve.scheduler import Request, SlotScheduler
 # families take static_generate).
 ENGINE_FAMILIES = ("dense", "moe", "vlm")
 
-_NOT_PORTED = "not ported to repro_torch yet; see ROADMAP.md (queue 1 item 4)"
-
 
 def _resolve_mesh(mesh):
-    """``None``, or ``"auto"`` (None: the port serves on one card); anything else raises."""
-    if mesh is None or mesh == "auto":
+    """``"auto"``: no mesh; a mesh or None as given. The JAX package lays an
+    elastic mesh over more than one device here, but an engine spread over
+    more than one rank is not ported (ROADMAP.md, queue 1 item 4b), so until
+    it is every rank of a larger process group serves on its own."""
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f'mesh is "auto", a DeviceMesh or None, got {mesh!r}')
         return None
-    raise NotImplementedError(f"serving on a device mesh is {_NOT_PORTED}")
+    return mesh
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeSetup:
-    """Static serving configuration: the cache geometry and its storage.
+    """Static serving configuration: the mesh, the cache geometry and its storage.
 
     ``page_size=0`` keeps the dense ``[L, B, max_len, KV, hd]`` layout;
     ``kv_bits=8`` stores int8 codes against static per-(layer, head)
-    scales. ``mesh`` must be None and ``flash_decode=True`` raises (not
-    ported). ``moe_impl`` is the JAX package's field: ``"ep"`` (expert
-    parallelism) takes effect only over a mesh, so on one card an MoE
-    model runs the dense form whichever is named; the engine and
-    :func:`batch_generate` name ``"dense"``, as the reference does without
-    a mesh.
+    scales. ``mesh`` (a ``DeviceMesh`` or None) carries the model calls'
+    :meth:`pctx`; ``moe_impl`` (``"ep"`` or ``"dense"``) and
+    ``flash_decode`` take effect only over a mesh, as in the JAX package. A
+    mesh of more than one rank raises ``NotImplementedError`` (ROADMAP.md,
+    queue 1 item 4b: a serving step spread over ranks).
     """
 
     cfg: ArchConfig
@@ -116,14 +136,33 @@ class ServeSetup:
     kv_bits: int = 0
 
     def __post_init__(self) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(f"serving on a device mesh is {_NOT_PORTED}")
-        if self.flash_decode:
-            raise NotImplementedError(f"flash-decode (a sequence-sharded cache) is {_NOT_PORTED}")
+        if self.mesh is not None and self.mesh.size() > 1:
+            raise NotImplementedError(
+                f"serving over a mesh of {self.mesh.size()} ranks "
+                f"({shr.mesh_shape(self.mesh)}): the engine and the lockstep loop run on one "
+                "rank, and a multi-rank serving step (with tensor-parallel projections) is not "
+                "ported to repro_torch yet; see ROADMAP.md (queue 1 item 4b)")
         if self.moe_impl not in ("ep", "dense"):
             raise ValueError(f'moe_impl is "ep" or "dense", got {self.moe_impl!r}')
         if self.kv_bits not in (0, 8):
             raise ValueError(f"kv_bits is 0 (model dtype) or 8 (static int8), got {self.kv_bits}")
+
+    def pctx(self) -> ParallelCtx | None:
+        """The model calls' parallel context: None without a mesh."""
+        if self.mesh is None:
+            return None
+        return ParallelCtx(mesh=self.mesh, batch_axes=shr.batch_axes(self.mesh),
+                           model_axis="model", moe_impl=self.moe_impl,
+                           flash_decode=self.flash_decode)
+
+    def layout(self, params, cache):
+        """``(params, cache)`` resharded onto the mesh by the sharding rules (the
+        cache sequence-first under flash-decode); as given without a mesh."""
+        if self.mesh is None:
+            return params, cache
+        params = reshard(params, self.mesh, shr.param_specs(params, self.mesh))
+        cspecs = shr.cache_specs_tree(cache, self.mesh, prefer_seq=self.flash_decode)
+        return params, reshard(cache, self.mesh, cspecs)
 
 
 # ---------------------------------------------------------------------------
@@ -138,13 +177,13 @@ def build_serve_fns(setup: ServeSetup, api=None):
     positions (continuous batching).
     """
     api = api or get_model(setup.cfg)
-    cfg = setup.cfg
+    cfg, pctx = setup.cfg, setup.pctx()
 
     def prefill_fn(params, batch, cache):
-        return api.prefill(params, cfg, batch, cache)
+        return api.prefill(params, cfg, batch, cache, pctx=pctx)
 
     def decode_fn(params, token, cache, pos):
-        return api.decode_step(params, cfg, token, cache, pos)
+        return api.decode_step(params, cfg, token, cache, pos, pctx=pctx)
 
     return prefill_fn, decode_fn
 
@@ -158,12 +197,12 @@ def build_slot_prefill(setup: ServeSetup, api=None):
     logits ``[1, V]`` and the cache.
     """
     api = api or get_model(setup.cfg)
-    cfg = setup.cfg
+    cfg, pctx = setup.cfg, setup.pctx()
 
     def prefill_slot(params, tokens, cache, slot):
         slot = int(slot)
         row = {k: v[:, slot:slot + 1] for k, v in cache.items()}
-        logits, _ = api.prefill(params, cfg, {"tokens": tokens}, row)
+        logits, _ = api.prefill(params, cfg, {"tokens": tokens}, row, pctx=pctx)
         return logits[:, -1], cache
 
     return prefill_slot
@@ -179,10 +218,10 @@ def build_paged_prefill(setup: ServeSetup, api=None):
     engine puts in ``cache`` for the admitted slot.
     """
     api = api or get_model(setup.cfg)
-    cfg = setup.cfg
+    cfg, pctx = setup.cfg, setup.pctx()
 
     def prefill_slot(params, tokens, cache, pos0):
-        logits, cache = api.decode_step(params, cfg, tokens, cache, pos0)
+        logits, cache = api.decode_step(params, cfg, tokens, cache, pos0, pctx=pctx)
         return logits[:, -1], cache
 
     return prefill_slot
@@ -200,10 +239,10 @@ def build_greedy_decode(setup: ServeSetup, api=None):
     a logits tensor and steps chain without a host sync.
     """
     api = api or get_model(setup.cfg)
-    cfg = setup.cfg
+    cfg, pctx = setup.cfg, setup.pctx()
 
     def decode_greedy(params, token, cache, pos):
-        logits, cache = api.decode_step(params, cfg, token, cache, pos)
+        logits, cache = api.decode_step(params, cfg, token, cache, pos, pctx=pctx)
         return _argmax_tokens(logits[:, -1])[:, None], cache
 
     return decode_greedy
@@ -221,13 +260,13 @@ def build_draft_run(setup: ServeSetup, api=None):
     no hole in the draft cache).
     """
     api = api or get_model(setup.cfg)
-    cfg = setup.cfg
+    cfg, pctx = setup.cfg, setup.pctx()
 
     def draft(params, token, cache, pos, width):
         fed, tok = [], token
         for j in range(int(width)):
             fed.append(tok)
-            logits, cache = api.decode_step(params, cfg, tok, cache, pos + j)
+            logits, cache = api.decode_step(params, cfg, tok, cache, pos + j, pctx=pctx)
             tok = _argmax_tokens(logits[:, -1])[:, None]
         return torch.cat(fed, dim=1), cache
 
@@ -251,10 +290,10 @@ def build_verify_step(setup: ServeSetup, api=None):
     All three stay on the device.
     """
     api = api or get_model(setup.cfg)
-    cfg = setup.cfg
+    cfg, pctx = setup.cfg, setup.pctx()
 
     def verify(params, tokens, cache, pos):
-        logits, cache = api.decode_step(params, cfg, tokens, cache, pos)
+        logits, cache = api.decode_step(params, cfg, tokens, cache, pos, pctx=pctx)
         vtok = _argmax_tokens(logits)  # [B, W]
         match = (tokens[:, 1:] == vtok[:, :-1]).to(torch.int32)
         acc = (1 + torch.cumprod(match, dim=-1).sum(dim=-1)).to(torch.int32)
@@ -295,6 +334,9 @@ def static_generate(
     state; rglru's recurrent state and ring) from the prefill through
     every step. Sampling (``greedy=False`` with a ``generator``)
     draws from the ``torch.Generator``, whose bits are not ``jax.random``'s.
+    Under ``setup.mesh`` the parameters and cache are resharded by the
+    sharding rules (:meth:`ServeSetup.layout`) and every model call runs with
+    the setup's parallel context.
     """
     cfg = setup.cfg
     api = get_model(cfg)
@@ -306,6 +348,7 @@ def static_generate(
     else:
         cache = api.init_cache(cfg, setup.batch, setup.max_len, device=device)
     tokens = torch.as_tensor(batch["tokens"]).to(device)
+    params, cache = setup.layout(params, cache)
     prefill_fn, decode_fn = build_serve_fns(setup, api)
     logits, cache = prefill_fn(params, {**batch, "tokens": tokens}, cache)
     pos = tokens.shape[1] + (
@@ -347,7 +390,8 @@ def batch_generate(
     through :class:`ServeEngine` (one slot per row); sampled generation
     (the whole-batch stream) and frontend batches take
     :func:`static_generate`. ``spec_k`` (speculative decoding) needs the
-    engine. Returns ``[B, max_new_tokens]`` int32 on the params' device.
+    engine. ``mesh`` and ``flash_decode`` go to either. Returns
+    ``[B, max_new_tokens]`` int32 on the params' device.
     """
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -372,7 +416,7 @@ def batch_generate(
         outs = eng.serve([(host[i], max_new_tokens) for i in range(b)])
         return torch.from_numpy(np.stack(outs)).to(device)
     setup = ServeSetup(cfg=cfg, mesh=_resolve_mesh(mesh), max_len=max_len, batch=b,
-                       moe_impl="dense", flash_decode=flash_decode)
+                       flash_decode=flash_decode)
     return static_generate(setup, params, batch, max_new_tokens, greedy=greedy,
                            generator=generator)
 
@@ -392,8 +436,12 @@ class ServeEngine:
       n_slots: concurrent requests = batch rows of the persistent cache.
       max_len: per-slot cache capacity (prompt + generated); a request
         reaching it is finished early and flagged ``truncated``.
-      mesh: ``"auto"`` or ``None`` (one card; a mesh is not ported).
-      flash_decode: not ported (raises when True).
+      mesh: ``"auto"`` (no mesh: an engine over more than one rank is
+        ROADMAP.md queue 1 item 4b), a ``DeviceMesh`` of one rank, or None.
+      flash_decode: under a mesh, decode attention over the sequence-sharded
+        cache (:func:`~repro_torch.models.flash_decode.flash_decode_attention`).
+      moe_impl: under a mesh, ``"ep"`` (the expert exchange, default) or
+        ``"dense"``.
       kv_cache: ``"dense"`` (default) or ``"paged"``, the page pool with
         copy-on-write prefix sharing.
       page_size: tokens per page for ``kv_cache="paged"`` (default 16).
@@ -435,6 +483,7 @@ class ServeEngine:
         page_size: int = 16,
         kv_bits: int = 0,
         kv_scales: Any = None,
+        moe_impl: str = "ep",
         monitor: StragglerMonitor | None = None,
         draft_params: Any = None,
         spec_k: int = 0,
@@ -489,16 +538,15 @@ class ServeEngine:
             raise ValueError('spec_draft="ngram" drafts from the verified token history, not '
                              'a weight tier: drop draft_params or use spec_draft="model"')
         self.cfg = cfg
+        self.device = params["embed"].device
+        dev = self.device
         self.mesh = _resolve_mesh(mesh)
         self.setup = ServeSetup(
             cfg=cfg, mesh=self.mesh, max_len=max_len, batch=n_slots,
-            moe_impl="dense", flash_decode=flash_decode,
+            moe_impl=moe_impl, flash_decode=flash_decode,
             page_size=int(page_size) if self._paged else 0, kv_bits=int(kv_bits),
         )
         self._api = get_model(cfg)
-        self.params = params
-        self.device = params["embed"].device
-        dev = self.device
         if self._paged:
             self._prefill = build_paged_prefill(self.setup, self._api)
         else:
@@ -521,7 +569,7 @@ class ServeEngine:
         else:
             cache = self._api.init_cache(cfg, n_slots, max_len, device=dev)
             self._pager = None
-        self._cache = cache
+        self.params, self._cache = self.setup.layout(params, cache)
         # Speculative state: the verify step runs on the target params. A
         # "model" drafter gets its own prefill/draft pair and its OWN cache
         # (a paged one maps through the same page table); an "ngram" drafter
@@ -534,12 +582,13 @@ class ServeEngine:
             if self.spec_draft == "model":
                 if self._paged:
                     self._draft_prefill = build_paged_prefill(self.setup, self._api)
-                    self._draft_cache = transformer.init_paged_cache(
+                    dcache = transformer.init_paged_cache(
                         cfg, n_slots, max_len, page_size=self.setup.page_size,
                         kv_scales=scales, device=dev)
                 else:
                     self._draft_prefill = build_slot_prefill(self.setup, self._api)
-                    self._draft_cache = self._api.init_cache(cfg, n_slots, max_len, device=dev)
+                    dcache = self._api.init_cache(cfg, n_slots, max_len, device=dev)
+                self.draft_params, self._draft_cache = self.setup.layout(draft_params, dcache)
                 self._draft_run = build_draft_run(self.setup, self._api)
             else:
                 self._ngram = np.full(cfg.vocab, -1, np.int32)
@@ -881,7 +930,7 @@ class ServeEngine:
             "requests_truncated": self._truncated,
             "live_slots": len(self._sched.live),
             "n_slots": self._sched.n_slots,
-            "mesh": None,
+            "mesh": shr.mesh_shape(self.mesh) if self.mesh is not None else None,
             "energy_nj_per_token": self.energy["total_nj"],
             "kernel_dispatch": self.kernel_dispatch(),
             "straggler": self.monitor.report(),

@@ -15,6 +15,8 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+import torch_parity as tp  # noqa: E402
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jops  # noqa: E402
@@ -121,9 +123,21 @@ def test_moe_dense_matches_reference(packed, n_experts, topk):
 
 
 def test_moe_over_a_mesh_raises():
+    """Over a mesh the MoE is expert parallel (``moe_ep``): each rank holds its shard
+    of the experts, and gated ones; whole stacks or GELU experts raise before any
+    collective. (Its results are held in test_torch_distributed.py.)"""
+    from repro_torch.models.context import ParallelCtx
+
     _, tc = _cfgs()
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tmoe.moe_apply({}, torch.zeros(T, D), tc, pctx=object())
+    pctx = ParallelCtx(mesh=tp.TwoRankMesh())
+    whole = {"router": torch.zeros(D, E), "we1": torch.zeros(E, D, FF),
+             "we3": torch.zeros(E, D, FF), "we2": torch.zeros(E, FF, D)}
+    with pytest.raises(ValueError, match="this rank's shard"):
+        tmoe.moe_apply(whole, torch.zeros(T, D), tc, pctx=pctx)
+    with pytest.raises(ValueError, match="gated"):
+        tmoe.moe_apply({**whole, "we3": None}, torch.zeros(T, D), tc, pctx=pctx)
+    with pytest.raises(ValueError, match="do not divide"):
+        tmoe.moe_apply(whole, torch.zeros(T, D), _cfgs(n_experts=3)[1], pctx=pctx)
 
 
 def test_expert_stack_codes_and_sf_bit_identical():

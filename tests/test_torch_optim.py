@@ -27,6 +27,7 @@ from repro.configs.base import ArchConfig as JCfg  # noqa: E402
 from repro.data.pipeline import LmDataset as JLm  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro.optim import compress as jcomp  # noqa: E402
+from torch_parity import cpu_group  # noqa: E402
 from repro_torch.configs import get_config as tget  # noqa: E402
 from repro_torch.configs.base import ArchConfig as TCfg  # noqa: E402
 from repro_torch.data.pipeline import LmDataset as TLm  # noqa: E402
@@ -71,8 +72,19 @@ def test_lm_dataset_batches_bit_identical(which):
     moved = shard_batch(tb, device="cpu")
     for k in tb:
         np.testing.assert_array_equal(moved[k].numpy(), tb[k])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shard_batch(tb, mesh=object())
+    # over a (3, 1) mesh the rank at data index 2 gets the third row
+    third = shard_batch(tb, mesh=_ThirdOfThree(), device="cpu")
+    for k in tb:
+        np.testing.assert_array_equal(third[k].numpy(), tb[k][2:3])
+
+
+class _ThirdOfThree:
+    """The rank at data index 2 of a (3, 1) ("data", "model") mesh, as slicing reads it."""
+
+    mesh_dim_names, shape = ("data", "model"), (3, 1)
+
+    def get_coordinate(self):
+        return [2, 0]
 
 
 def test_warmup_cosine_equal():
@@ -162,5 +174,10 @@ def test_gradient_codecs_bit_identical_with_feedback(codec, size):
     assert tcomp.compression_ratio(codec) == jcomp.compression_ratio(codec)
     with pytest.raises(ValueError, match="codec"):
         tcomp.quantize_with_feedback(torch.zeros(3), torch.zeros(3), "fp8")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tcomp.compressed_mean(torch.zeros(3), "pod", codec)
+    # the mean over a one-rank group is the codec's round trip (4 ranks:
+    # test_torch_distributed.py)
+    dq = {"int8": jcomp._dequant_int8, "elp4": jcomp._dequant_elp4}[codec]
+    want = np.asarray(dq(jq, js, x.shape, x.size))
+    with cpu_group() as group:
+        got = tcomp.compressed_mean(torch.from_numpy(x), group, codec)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-7 * np.abs(x).max())

@@ -22,6 +22,8 @@ import pytest
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 
+import torch_parity as tp  # noqa: E402
+
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.base import ArchConfig as JCfg  # noqa: E402
@@ -256,5 +258,6 @@ def test_engine_validation_errors(params):
                     kv_scales=(np.ones((2, 2)), np.ones((2, 2))))
     with pytest.raises(ValueError, match="kv_cache"):
         ServeEngine(TC, tparams, kv_cache="chunked")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(TC, tparams, kv_cache="paged", flash_decode=True)
+    # a paged engine spread over more than one rank waits for ROADMAP item 4b
+    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+        ServeEngine(TC, tparams, kv_cache="paged", flash_decode=True, mesh=tp.TwoRankMesh())

@@ -260,17 +260,26 @@ def ttr_cache(setup):
 def test_setup_and_engine_reject_unported_options(trees):
     from repro_torch.models.moe import moe_apply
 
+    from repro_torch.models.context import ParallelCtx
+
     tparams = trees[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeSetup(cfg=TC, mesh=object(), max_len=8, batch=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeSetup(cfg=TC, mesh=None, max_len=8, batch=1, flash_decode=True)
-    # MoE models serve (the dense form); MoE over a device mesh does not
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        moe_apply({}, torch.zeros(2, TC.d_model), TCfg(**{**KW, "n_experts": 4, "topk": 2}),
-                  pctx=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(TC, tparams, mesh=object())
+    # serving over more than one rank waits for ROADMAP item 4b; flash-decode
+    # without a mesh has nothing to shard (no context), as in the JAX package
+    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+        ServeSetup(cfg=TC, mesh=tp.TwoRankMesh(), max_len=8, batch=1)
+    assert ServeSetup(cfg=TC, mesh=None, max_len=8, batch=1, flash_decode=True).pctx() is None
+    # MoE models serve (the dense form without a mesh); over a mesh the experts
+    # must be the rank's shard of them
+    with pytest.raises(ValueError, match="this rank's shard"):
+        moe_apply({"router": torch.zeros(TC.d_model, 4), "we1": torch.zeros(4, 1, 1),
+                   "we3": torch.zeros(4, 1, 1), "we2": torch.zeros(4, 1, 1)},
+                  torch.zeros(2, TC.d_model), TCfg(**{**KW, "n_experts": 4, "topk": 2}),
+                  pctx=ParallelCtx(mesh=tp.TwoRankMesh()))
+    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+        ServeEngine(TC, tparams, mesh=tp.TwoRankMesh())
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        ServeEngine(TC, tparams, mesh="everywhere")
+    # "auto" lays a mesh only over a process group of more than one rank
     assert ServeEngine(TC, tparams, mesh="auto").mesh is None
     with pytest.raises(ValueError, match="families"):
         ServeEngine(TCfg(**{**KW, "family": "ssm"}), tparams)

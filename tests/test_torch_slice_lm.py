@@ -125,8 +125,9 @@ def test_report_and_front_door():
         api.quantize(tc, tparams, api.QuantScheme(granularity="per_channel"), device="cpu")
     with pytest.raises(ValueError, match="dynamic"):
         api.quantize(tc, tparams, api.QuantScheme(act="dynamic"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeSetup(cfg=tc, mesh=object(), max_len=8, batch=1)
+    # serving over a mesh of more than one rank waits for ROADMAP item 4b
+    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+        ServeSetup(cfg=tc, mesh=tp.TwoRankMesh(), max_len=8, batch=1)
 
 
 def test_lm_entry_points_raise_without_a_card(monkeypatch):

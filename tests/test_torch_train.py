@@ -162,8 +162,10 @@ def test_train_step_matches_reference(family_case):
         np.testing.assert_allclose(float(tout[3][key]), float(jout[3][key]), rtol=1e-5)
     _close_tree(_flat(tout[0]), _flat(jax.tree.map(np.asarray, jout[0])), 1e-5)
     assert int(tout[1]["step"]) == 1
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        dataclasses.replace(tsetup, mesh=object())
+    # data parallel over a mesh: test_torch_distributed.py; a model axis wider
+    # than one rank (tensor-parallel projections) waits for ROADMAP item 4b
+    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+        dataclasses.replace(tsetup, mesh=tp.TwoRankMesh())
 
 
 def test_train_resume_equals_straight_run(tmp_path):

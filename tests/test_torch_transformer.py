@@ -143,10 +143,15 @@ def test_model_api_and_unported_inputs():
     toks = torch.zeros(1, 4, dtype=torch.long)
     loss = api.loss_fn(params, tc, {"tokens": toks, "labels": toks})
     assert loss.ndim == 0 and bool(torch.isfinite(loss))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.loss_fn(params, tc, {"tokens": toks, "labels": toks}, pctx=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.prefill(params, tc, torch.zeros(1, 4, dtype=torch.long), cache, pctx=object())
+    # over a mesh whose model axis holds more than one rank the projections would be
+    # tensor parallel, which waits for ROADMAP item 4b (one rank: test_torch_mesh_engine.py)
+    from repro_torch.models.context import ParallelCtx
+
+    pctx = ParallelCtx(mesh=tp.TwoRankMesh())
+    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+        api.loss_fn(params, tc, {"tokens": toks, "labels": toks}, pctx=pctx)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+        ttr.prefill(params, tc, torch.zeros(1, 4, dtype=torch.long), cache, pctx=pctx)
     with pytest.raises(ValueError, match="unknown model family"):
         get_model(type(tc)(**{**tc.__dict__, "family": "rnn"}))
     with pytest.raises(ValueError, match="get_model"):  # the ssm family has its own tree

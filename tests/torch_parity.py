@@ -7,6 +7,8 @@ calibration images, then each packed model's forward on the same numpy
 batch. The LM helpers give both packages the same decoder-LM configs and
 the same weights.
 """
+import contextlib
+
 import numpy as np
 
 
@@ -43,6 +45,34 @@ def run_slice(spec_name: str, *, act: str = "static") -> dict:
         "t_float": tcnn.forward(tparams, tspec, torch.from_numpy(x)).numpy(),
     }
 
+
+
+@contextlib.contextmanager
+def cpu_group():
+    """The default process group for a block: a one-rank ``gloo`` group
+    (``elastic.ensure_group``), destroyed on exit when the block started it, so
+    no group outlives its test in the runner's worker."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime.elastic import ensure_group
+
+    ours = not dist.is_initialized()
+    ensure_group("cpu")
+    try:
+        yield dist.group.WORLD
+    finally:
+        if ours:
+            dist.destroy_process_group()
+
+
+class TwoRankMesh:
+    """A (1, 2) ("data", "model") mesh as the port's setups, rules and MoE read it
+    before any collective: its axis names and sizes, and its rank count."""
+
+    mesh_dim_names, shape = ("data", "model"), (1, 2)
+
+    def size(self):
+        return 2
 
 
 # ---------------------------------------------------------------------------
