@@ -126,7 +126,23 @@ stays held and timed).
   one; (d) ``compressed_mean`` on the NCCL group against the codec's round
   trip; (e) the collectives each part issued by kind (0 where the path has
   one fails the run). Their kernel shapes are the meshless runs' shapes,
-  held there; their launches join the kernels line.
+  held there; their launches join the kernels line;
+* tensor parallelism (the TP phase, last but one): two processes share the
+  card over a ``gloo`` group (NCCL refuses two ranks on one device) on a
+  (1, 2) mesh, each loading the checksummed artifacts that the LM and MoE
+  phases saved and resharding them: (a) qwen3-8b through
+  ``ServeSetup(mesh)`` + ``static_generate`` at the lockstep geometry,
+  launches per route per rank exact, collectives by kind exact, the model
+  teacher-forced on the meshless tokens within the LM gate of the meshless
+  kernels' logits, prefill and decode ms and peak memory per rank; (b)
+  olmoe-1b-7b, the prefill and 3 decode steps through ``moe_ep`` (launches
+  and collectives exact, the dropped share), then with the routing forced
+  to the meshless plain run's: the MoE gates; every new sharded kernel
+  shape of (a) and (b) held against its plain version on the run's own
+  inputs; (c) lm-100m 20 steps with and without ``seq_parallel``, the
+  losses within 1e-5 relative of the meshless run's, no kernel launched, a
+  checkpoint of the mesh run resumed on the mesh and without one. Its
+  times are of two ranks sharing one card over a host wire.
 
     python3 chip_smoke.py
 
@@ -136,7 +152,8 @@ holds the card's name and power limit, and before that one JSON object
 with each kernel route's numbers: ``launches`` counts its launches on the
 main paths (one AlexNet forward, the Sec. V phases, one generate, the
 engine phase, the MoE and VLM phases, one generate of each recurrent and
-enc-dec model, one VGG16 forward, the paper-results phase, the mesh phase), and
+enc-dec model, one VGG16 forward, the paper-results phase, the mesh phase, both
+ranks of the TP phase), and
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are the per-shape
 times of those launches, each shape weighted by its launches (a Sec. V shape
 is timed once per format, an engine shape at the inputs of its first call). The three ``/f32`` routes have no
@@ -763,6 +780,8 @@ def lm_main_path(torch, dev, failures, rows, mesh=None, mesh_report=None) -> tup
           f"gap exceeds the limit")
     if max(rels) > LM_LOGIT_REL_TOL:
         failures.append(f"LM logits: kernels vs plain {max(rels):.3e} relative")
+    tp_save(torch, qm, "qwen3_8b", prompts=prompts, tokens=new, logits=kernel_logits,
+            prefill_ms=statistics.median(pre_ms[1:]), decode_ms=statistics.median(later_steps))
 
     # Greedy QuantizedModel.generate routes through batch_generate to the
     # engine: one slot per row, each admission a 128-token prefill (the
@@ -1578,10 +1597,12 @@ class RouteTap:
     ``force[i]`` instead, with gates from its own logits at those ids;
     ``fault`` plants a routing fault in what the router picks:
     ``"off_by_one"`` (every id + 1) or ``"wrong_logits"`` (the top-k of the
-    negated router logits)."""
+    negated router logits). Under tensor parallelism the router's logits
+    arrive gathered, and a rank (``rank``) of the expert exchange routes its
+    share of a call's tokens: it is forced to that share of ``force[i]``."""
 
-    def __init__(self, force=None, fault=None):
-        self.ids, self.force, self.fault = [], force, fault
+    def __init__(self, force=None, fault=None, rank=0):
+        self.ids, self.force, self.fault, self.rank = [], force, fault, rank
 
     def __enter__(self):
         import torch
@@ -1591,16 +1612,22 @@ class RouteTap:
 
         self._real = real = moe.router_gates
 
-        def gates(x2d, router, topk):
-            g, ids = real(x2d, -router if self.fault == "wrong_logits" else router, topk)
+        def gates(x2d, router, topk, logits=None):
+            if logits is None:
+                with full_f32():
+                    logits = torch.matmul(x2d.float(), router.float())
+            if self.fault == "wrong_logits":
+                logits = -logits
+            g, ids = real(None, None, topk, logits)
             if self.fault == "off_by_one":
-                ids = (ids + 1) % router.shape[1]
+                ids = (ids + 1) % logits.shape[1]
             self.ids.append(ids.sort(dim=-1).values)
             if self.force is None:
                 return g, ids
             ids = self.force[len(self.ids) - 1]
-            with full_f32():
-                logits = torch.matmul(x2d.float(), router.float())
+            if ids.shape[0] != logits.shape[0]:  # a tensor-parallel rank's share of the tokens
+                n = logits.shape[0]
+                ids = ids[self.rank * n:(self.rank + 1) * n]
             return logits.gather(1, ids).softmax(dim=-1), ids
 
         moe.router_gates = gates
@@ -1876,6 +1903,9 @@ def moe_phase(torch, dev, failures, rows, mesh=None, mesh_report=None) -> dict:
     if share > ROUTE_FLIP_LIMIT or rel > MOE_LOGIT_REL_TOL:
         failures.append(f"[moe] routing forced, kernels vs plain: routing {share:.3e}, logits "
                         f"{rel:.3e}")
+    n = TP_MOE_STEPS
+    tp_save(torch, qm, "olmoe_1b_7b", prompts=prompts, tokens=new[:, :n],
+            plain_ids=p_ids[:n * n_layers], plain_logits=p_logits[:n], logits=k_logits[:n])
     del k_logits, k_ids
     step_gen = torch.Generator(device=dev).manual_seed(7)
     controls = [
@@ -3200,11 +3230,12 @@ def mesh_moe_phase(torch, dev, qm, cfg, prompts, meshless, failures, mesh, repor
     torch.cuda.empty_cache()
 
 
-def mesh_train_phase(torch, dev, failures, mesh, report) -> None:
+def mesh_train_phase(torch, dev, failures, mesh, report) -> list:
     """(c) lm-100m through ``launch/train.py``'s ``train()`` with ``mesh``, with and
     without ``compress="int8"``: the losses equal the meshless run's (limit
     TRAIN_RESUME_REL_TOL); a checkpoint written on the mesh resumed without one
-    gives the meshless losses; no kernel launched in any step."""
+    gives the meshless losses; no kernel launched in any step. Returns the
+    meshless run's losses."""
     import tempfile
 
     from repro_torch.experiments import train_lm
@@ -3251,6 +3282,7 @@ def mesh_train_phase(torch, dev, failures, mesh, report) -> None:
     if not _issued()["all_reduce"]:
         failures.append("[mesh] (c): no all_reduce issued")
     torch.cuda.empty_cache()
+    return straight
 
 
 def mesh_collective_phase(torch, dev, failures, mesh, report) -> None:
@@ -3277,6 +3309,418 @@ def mesh_collective_phase(torch, dev, failures, mesh, report) -> None:
     _mesh_report(report, "(d) compressed_mean", t0)
     if not _issued()["all_reduce"]:
         failures.append("[mesh] (d): no all_reduce issued")
+
+
+TP_WORLD = 2  # ranks on the one card, a (1, 2) ("data", "model") mesh over gloo
+TP_DIR = os.path.join(ROOT, "build", "tp")
+TP_MOE_STEPS = 4  # olmoe: the prefill and 3 decode steps
+TP_TRAIN_STEPS, TP_TRAIN_CKPT = 20, 10  # lm-100m: the mesh phase's (c) steps
+TP_TRAIN_REL_TOL = 1e-5
+TP_TIMEOUT_S = 900
+
+
+def tp_save(torch, qm, name, **refs) -> None:
+    """One model's input to the TP phase, as a user hands a model over: the
+    checksummed artifact (saved once here, loaded by each rank) and the meshless
+    run's references, on the host."""
+    d = os.path.join(TP_DIR, name)
+    t0 = time.perf_counter()
+    shutil.rmtree(d, ignore_errors=True)
+    qm.save(d)
+    host = {k: [t.cpu() for t in v] if isinstance(v, list)
+            else v.cpu() if hasattr(v, "cpu") else v for k, v in refs.items()}
+    torch.save(host, d + ".refs.pt")
+    size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(d) for f in fs)
+    print(f"[tp] {name}: artifact of {size} B saved for the TP ranks in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def tp_phase(torch, failures, rows, straight) -> dict:
+    """The tensor-parallel phase: TP_WORLD processes share the card (NCCL refuses
+    two ranks on one device, so a ``gloo`` group on a ``FileStore`` carries the
+    card's tensors over the host) on a (1, 2) mesh, each loading the artifacts
+    that the LM and MoE phases saved and resharding them (``tp_rank_main``). A
+    rank that fails (or outlives TP_TIMEOUT_S) fails the run, and the other is
+    stopped. Returns the launches of the ranks' main-path runs, by route; their
+    held kernel shapes join ``rows``."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    os.makedirs(TP_DIR, exist_ok=True)
+    torch.save({"losses": list(straight)}, os.path.join(TP_DIR, "lm100m.refs.pt"))
+    store = os.path.join(TP_DIR, "store")
+    if os.path.exists(store):
+        os.remove(store)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=tp_rank_main, args=(r, TP_WORLD, store)) for r in range(TP_WORLD)]
+    for pr in procs:
+        pr.start()
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    while any(pr.is_alive() for pr in procs):
+        failed = any(pr.exitcode not in (None, 0) for pr in procs)
+        if failed or time.monotonic() > deadline:
+            for pr in procs:
+                if pr.is_alive():
+                    pr.kill()
+            if not failed:
+                failures.append(f"[tp] the ranks outlived {TP_TIMEOUT_S} s")
+        time.sleep(0.5)
+    launches = collections.Counter()
+    for r, pr in enumerate(procs):
+        pr.join()
+        if pr.exitcode != 0:
+            failures.append(f"[tp] rank {r} exited with {pr.exitcode}")
+        path = os.path.join(TP_DIR, f"rank{r}.json")
+        if not os.path.exists(path):
+            failures.append(f"[tp] rank {r} wrote no result")
+            continue
+        with open(path) as f:
+            res = json.load(f)
+        failures.extend(res["failures"])
+        launches.update(res["launches"])
+        for k, rs in res["rows"].items():
+            rows[k].extend(rs)
+        print(f"[tp] rank {r}: {json.dumps(res['report'])}")
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    print(f"[tp] launches of the ranks' main-path runs {dict(launches)}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {k: launches[k] for k in KERNEL_ROUTES}
+
+
+def tp_rank_main(rank: int, world: int, store: str) -> None:
+    """One rank of the TP phase on ``cuda:0``: qwen3-8b (``_tp_qwen3``), olmoe-1b-7b
+    (``_tp_olmoe``) and lm-100m training (``_tp_train``) over the (1, 2) mesh; its
+    failures, launches, held kernel rows and report to TP_DIR/rank<r>.json."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    from repro_torch.runtime.elastic import make_mesh
+
+    dev = torch.device("cuda")
+    mesh = make_mesh(target_model=world, device=dev)
+    out = {"failures": [], "rows": {k: [] for k in KERNEL_ROUTES}, "launches": {},
+           "report": {"mesh": str(mesh), "backend": dist.get_backend()}}
+    try:
+        for part in (_tp_qwen3, _tp_olmoe, _tp_train):
+            part(torch, dev, mesh, rank, out)
+            dist.barrier()
+    except BaseException:
+        out["failures"].append(f"[tp] rank {rank}: {traceback.format_exc()[-3000:]}")
+        raise
+    finally:
+        with open(os.path.join(TP_DIR, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _tp_held(torch, dev, mesh, rank, label, tap, out) -> None:
+    """``hold_tapped`` on each rank in turn, so no two ranks time the card at once."""
+    import torch.distributed as dist
+
+    for r in range(mesh.size()):
+        if r == rank:
+            hold_tapped(torch, dev, f"tp rank {rank}: {label}", tap, out["rows"], out["failures"])
+        dist.barrier()
+
+
+def _tp_issued_ok(label, issued, want, out) -> None:
+    got = {k: issued.get(k, 0) for k in want}
+    print(f"[tp] {label}: collectives by kind {got} (expected {want})")
+    if got != want:
+        out["failures"].append(f"[tp] {label}: collectives {got}, expected {want}")
+
+
+def _tp_qwen3(torch, dev, mesh, rank, out) -> None:
+    """(a) Full-width qwen3-8b, a4 per slice, static 8-bit activations, from the LM
+    phase's artifact: ``static_generate`` through ``ServeSetup(mesh)`` at the
+    lockstep geometry, launches per route per model call exact, collectives by
+    kind exact; the model teacher-forced on the meshless run's tokens within the
+    LM gate of the meshless kernels' logits, this run's tokens parting from the
+    meshless ones only within the gate of the top logit; prefill and decode ms
+    and peak memory; every kernel shape of the run held against its plain
+    version on its own inputs."""
+    import repro_torch.models.transformer as transformer
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import collectives
+
+    tag = f"[tp r{rank}] (a) qwen3-8b"
+    cfg = get_config("qwen3_8b")
+    n_layers, per_layer = cfg.n_layers, 7
+    t0 = time.perf_counter()
+    d = os.path.join(TP_DIR, "qwen3_8b")
+    qm = api.load(d, device=dev)
+    refs = torch.load(d + ".refs.pt")
+    prompts, new = refs["prompts"].to(dev), refs["tokens"].to(dev)
+    ref_logits = [t.to(dev) for t in refs["logits"]]
+    print(f"{tag}: artifact loaded (checksums held) in {time.perf_counter() - t0:.1f} s")
+    setup = engine_mod.ServeSetup(cfg=cfg, mesh=mesh, max_len=LM_PROMPT + LM_NEW, batch=LM_BATCH)
+    tap = KernelTap()
+    collectives.reset()
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tap:
+        got, phases = _phased(torch, lambda: engine_mod.static_generate(
+            setup, qm.params, {"tokens": prompts}, LM_NEW))
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(zip(KERNEL_ROUTES, _counts()))
+    out["launches"] = dict(collections.Counter(out["launches"]) + collections.Counter(launches))
+    prefill_counts = _expected({"elp_bsd_matmul/wgmma": n_layers * per_layer,
+                                "flash_attention/wgmma": n_layers})
+    step_counts = _expected({"fused_decode_matmul/wgmma": n_layers * per_layer})
+    want = [("prefill", prefill_counts)] + [("decode", step_counts)] * (LM_NEW - 1)
+    print(f"{tag}: static_generate over {setup.mesh} ({LM_BATCH} x {LM_PROMPT} prompts, "
+          f"{LM_NEW} new) in {gen_s:.2f} s; launches by phase exact {phases == want} (prefill "
+          f"{phases[0][1] if phases else None}, decode steps "
+          f"{sorted(set(p_[1] for p_ in phases[1:]))}); max_memory_allocated {peak} B")
+    if phases != want:
+        out["failures"].append(f"[tp] (a) rank {rank}: launches by phase {phases}")
+    # a call: the embedding's and each layer's two row-parallel sums, the head's gather
+    _tp_issued_ok(f"r{rank} (a) static_generate", collectives.ISSUED,
+                  {"all_reduce": LM_NEW * (1 + 2 * n_layers), "all_gather": LM_NEW,
+                   "reduce_scatter": 0, "all_to_all": 0}, out)
+    if tuple(got.shape) != (LM_BATCH, LM_NEW) or int(got.min()) < 0 or int(got.max()) >= cfg.vocab:
+        out["failures"].append(f"[tp] (a) tokens of shape {tuple(got.shape)} or out of the vocab")
+
+    # teacher-forced on the meshless tokens, timed per call
+    params, cache = setup.layout(qm.params, transformer.init_cache(
+        cfg, LM_BATCH, LM_PROMPT + LM_NEW, device=dev))
+    pctx = setup.pctx()
+    step_ms = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = transformer.prefill(params, cfg, prompts, cache, pctx=pctx)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    forced = [logits]
+    for i in range(LM_NEW - 1):
+        t0 = time.perf_counter()
+        logits, cache = transformer.decode_step(params, cfg, new[:, i:i + 1], cache,
+                                                LM_PROMPT + i, pctx=pctx)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        forced.append(logits)
+    rel = _rel(forced, ref_logits)
+    parted = _first_partings(got, new, [t[:, -1] for t in ref_logits])
+    same = LM_BATCH - len(parted)
+    print(f"{tag}: teacher-forced on the meshless tokens, max |logit diff| / max |logit| "
+          f"against the meshless kernels' {rel:.3e} (limit {LM_LOGIT_REL_TOL:g}); rows of this "
+          f"run identical to the meshless tokens {same}/{LM_BATCH}, partings (row, position, "
+          f"gap below the meshless top logit / max |logit|) {parted}; prefill ms {pre_ms:.2f}, "
+          f"decode ms a step median {statistics.median(step_ms):.2f} (meshless "
+          f"{refs['prefill_ms']:.2f} and {refs['decode_ms']:.2f}, one process alone)")
+    if not rel <= LM_LOGIT_REL_TOL:
+        out["failures"].append(f"[tp] (a) rank {rank}: logits {rel:.3e} against the meshless")
+    for row, j, gap in parted:
+        if gap > LM_LOGIT_REL_TOL:
+            out["failures"].append(f"[tp] (a) rank {rank}: row {row} parts at {j} by {gap:.3e}")
+    out["report"]["qwen3"] = {"logit_rel": rel, "rows_same": same, "prefill_ms": pre_ms,
+                              "decode_ms_median": statistics.median(step_ms),
+                              "peak_bytes": peak, "generate_s": gen_s}
+    del params, cache, forced, logits
+    _tp_held(torch, dev, mesh, rank, "qwen3-8b static_generate", tap, out)
+    del qm
+    torch.cuda.empty_cache()
+
+
+def _tp_olmoe(torch, dev, mesh, rank, out) -> None:
+    """(b) Full-width olmoe-1b-7b from the MoE phase's artifact through ``moe_ep``
+    on the mesh: ``static_generate`` of the prefill and 3 decode steps (launches
+    per route per call and collectives by kind exact, the dropped share at the
+    config's capacity), then teacher-forced with the routing forced to the
+    meshless plain run's at a capacity that drops nothing: the logits within
+    the MoE gate of the plain run's, the rank's own top-8 sets within the
+    routing-flip limit of the forced ones; every kernel shape of the generate
+    held against its plain version on its own inputs."""
+    import repro_torch.models.moe as moe_lib
+    import repro_torch.models.transformer as transformer
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import collectives
+
+    tag = f"[tp r{rank}] (b) olmoe-1b-7b"
+    cfg = get_config("olmoe_1b_7b")
+    n_layers, n = cfg.n_layers, TP_MOE_STEPS
+    t0 = time.perf_counter()
+    d = os.path.join(TP_DIR, "olmoe_1b_7b")
+    qm = api.load(d, device=dev)
+    refs = torch.load(d + ".refs.pt")
+    prompts, new = refs["prompts"].to(dev), refs["tokens"].to(dev)
+    p_ids = [t.to(dev) for t in refs["plain_ids"]]
+    p_logits, k_logits = ([t.to(dev) for t in refs[k]] for k in ("plain_logits", "logits"))
+    print(f"{tag}: artifact loaded in {time.perf_counter() - t0:.1f} s")
+    setup = engine_mod.ServeSetup(cfg=cfg, mesh=mesh, max_len=LM_PROMPT + n, batch=LM_BATCH,
+                                  moe_impl="ep")
+    drops = collections.Counter()
+    real = moe_lib.ep_dispatch
+
+    def counted(x_loc, router, cfg_, n_shards, logits=None):
+        r = real(x_loc, router, cfg_, n_shards, logits)
+        kind = "prefill" if x_loc.shape[0] > LM_BATCH else "decode"
+        drops[kind, "dropped"] += r["dropped"].sum()
+        drops[kind, "pairs"] += r["dropped"].numel()
+        return r
+
+    collectives.reset()
+    _zero_counts()
+    moe_lib.ep_dispatch = counted
+    tap = KernelTap()
+    t0 = time.perf_counter()
+    try:
+        with tap:
+            got, phases = _phased(torch, lambda: engine_mod.static_generate(
+                setup, qm.params, {"tokens": prompts}, n))
+    finally:
+        moe_lib.ep_dispatch = real
+    gen_s = time.perf_counter() - t0
+    launches = dict(zip(KERNEL_ROUTES, _counts()))
+    out["launches"] = dict(collections.Counter(out["launches"]) + collections.Counter(launches))
+    want = ([("prefill", _expected({"elp_bsd_matmul/wgmma": n_layers * MOE_PER_LAYER,
+                                    "flash_attention/wgmma": n_layers}))]
+            + [("decode", _expected({"fused_decode_matmul/wgmma": n_layers * MOE_PER_LAYER}))]
+            * (n - 1))
+    share = {kind: int(drops[kind, "dropped"]) / max(int(drops[kind, "pairs"]), 1)
+             for kind in ("prefill", "decode")}
+    print(f"{tag}: static_generate through moe_ep at capacity factor "
+          f"{cfg.moe_capacity_factor} in {gen_s:.2f} s; launches by phase exact {phases == want}; "
+          f"dropped share of this rank's (token, choice) pairs: prefill {share['prefill']:.4f} "
+          f"of {int(drops['prefill', 'pairs'])}, decode {share['decode']:.4f} of "
+          f"{int(drops['decode', 'pairs'])}")
+    if phases != want:
+        out["failures"].append(f"[tp] (b) rank {rank}: launches by phase {phases}")
+    # a call: the embedding's sum, each layer's wo sum, router gather, exchange out
+    # and back, token gather; the head's gather
+    _tp_issued_ok(f"r{rank} (b) static_generate", collectives.ISSUED,
+                  {"all_reduce": n * (1 + n_layers), "all_gather": n * (1 + 2 * n_layers),
+                   "all_to_all": n * 2 * n_layers, "reduce_scatter": 0}, out)
+    if tuple(got.shape) != (LM_BATCH, n) or int(got.min()) < 0 or int(got.max()) >= cfg.vocab:
+        out["failures"].append(f"[tp] (b) tokens of shape {tuple(got.shape)} or out of the vocab")
+
+    ample = dataclasses.replace(cfg, moe_capacity_factor=cfg.n_experts / cfg.topk)
+    setup = dataclasses.replace(setup, cfg=ample)
+    params, cache = setup.layout(qm.params, transformer.init_cache(cfg, LM_BATCH, LM_PROMPT + n,
+                                                                   device=dev))
+    pctx = setup.pctx()
+    with RouteTap(force=p_ids, rank=pctx.model_rank) as rt:
+        logits, cache = transformer.prefill(params, ample, prompts, cache, pctx=pctx)
+        forced = [logits]
+        for i in range(n - 1):
+            logits, cache = transformer.decode_step(params, ample, new[:, i:i + 1], cache,
+                                                    LM_PROMPT + i, pctx=pctx)
+            forced.append(logits)
+    del params, cache
+    differ = total = 0
+    for c in range(n):
+        for layer in range(n_layers):
+            own = rt.ids[c * n_layers + layer]
+            ref = p_ids[c * n_layers + layer]
+            rows = own.shape[0]
+            ref = ref[pctx.model_rank * rows:(pctx.model_rank + 1) * rows]
+            dd = (own != ref).any(-1)
+            differ, total = differ + int(dd.sum()), total + dd.numel()
+    flips, rel, rel_k = differ / total, _rel(forced, p_logits), _rel(forced, k_logits)
+    print(f"{tag}: routing forced to the meshless plain run's (capacity factor "
+          f"{ample.moe_capacity_factor}: no drops), teacher-forced: this rank's own top-"
+          f"{cfg.topk} sets differ from the forced ids in {flips:.3e} of {total} (limit "
+          f"{ROUTE_FLIP_LIMIT:g}); max |logit diff| / max |logit| against the plain run's "
+          f"{rel:.3e} (limit {MOE_LOGIT_REL_TOL:g}), against the meshless kernels' {rel_k:.3e}")
+    if flips > ROUTE_FLIP_LIMIT or rel > MOE_LOGIT_REL_TOL:
+        out["failures"].append(f"[tp] (b) rank {rank}: routing {flips:.3e}, logits {rel:.3e}")
+    out["report"]["olmoe"] = {"dropped": share, "flips": flips, "logit_rel": rel,
+                              "logit_rel_kernels": rel_k, "generate_s": gen_s}
+    del forced
+    _tp_held(torch, dev, mesh, rank, "olmoe-1b-7b static_generate", tap, out)
+    del qm
+    torch.cuda.empty_cache()
+
+
+def _tp_train(torch, dev, mesh, rank, out) -> None:
+    """(c) lm-100m, the mesh phase's (c) run over the (1, 2) mesh (without remat:
+    the same losses, a third fewer collectives): TP_TRAIN_STEPS steps without and
+    with ``seq_parallel``, the losses within TP_TRAIN_REL_TOL relative of the
+    meshless run's, no kernel launched, ``reduce_scatter`` issued only with
+    ``seq_parallel``. The sequence-parallel run writes a checkpoint at
+    TP_TRAIN_CKPT and resumes from it on the mesh; rank 0 also resumes a copy
+    of it without a mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.experiments import train_lm
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime.train_loop import TrainSetup, train
+
+    straight = torch.load(os.path.join(TP_DIR, "lm100m.refs.pt"))["losses"]
+    kw = dict(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=TP_TRAIN_STEPS, device=dev,
+              log_fn=lambda line: None)
+    base = TrainSetup(cfg=train_lm.CFG, lr_peak=6e-4, warmup=50, total_steps=TRAIN_STEPS,
+                      remat=False)
+    ckpt = os.path.join(TP_DIR, "ckpt")
+    if rank == 0:
+        for d in (ckpt, ckpt + "_meshless"):
+            shutil.rmtree(d, ignore_errors=True)
+    dist.barrier()
+    report = {}
+
+    def check(label, got, want, t0):
+        fails = []
+        _no_kernel_launches(f"[tp] (c) rank {rank} lm-100m {label}", fails)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"[tp r{rank}] (c) lm-100m {label}, {len(got)} steps in "
+              f"{time.perf_counter() - t0:.1f} s: largest relative loss difference to the "
+              f"meshless run {rel:.3e} (limit {TP_TRAIN_REL_TOL:g})")
+        if len(got) != len(want) or not rel <= TP_TRAIN_REL_TOL:
+            fails.append(f"[tp] (c) rank {rank} {label}: {len(got)} steps, {rel:.3e}")
+        out["failures"].extend(fails)
+        return rel
+
+    for sp in (False, True):
+        label = f"seq_parallel={sp} on {mesh}"
+        setup = dataclasses.replace(base, mesh=mesh, seq_parallel=sp)
+        collectives.reset()
+        _zero_counts()
+        t0 = time.perf_counter()
+        if not sp:
+            run = train(setup, steps=TP_TRAIN_STEPS, **kw)
+            got, step_ms = run["losses"], run["straggler_report"]["median_s"] * 1e3
+        else:
+            first = train(setup, steps=TP_TRAIN_CKPT, ckpt_dir=ckpt, ckpt_every=TP_TRAIN_CKPT,
+                          **kw)
+            issued = dict(collectives.ISSUED)
+            if rank == 0:
+                shutil.copytree(ckpt, ckpt + "_meshless")
+                t1 = time.perf_counter()
+                resumed = train(base, steps=TP_TRAIN_STEPS, ckpt_dir=ckpt + "_meshless",
+                                **kw)["losses"]
+                report["resumed_without_mesh_rel"] = check(
+                    f"checkpoint of the mesh run at step {TP_TRAIN_CKPT}, resumed without a "
+                    "mesh", resumed, straight[TP_TRAIN_CKPT:], t1)
+            dist.barrier()
+            collectives.reset()
+            collectives.ISSUED.update(issued)
+            _zero_counts()
+            second = train(setup, steps=TP_TRAIN_STEPS, ckpt_dir=ckpt, **kw)
+            got = first["losses"] + second["losses"]
+            step_ms = second["straggler_report"]["median_s"] * 1e3
+        issued = dict(collectives.ISSUED)
+        rel = check(label + (f" (resumed on the mesh at step {TP_TRAIN_CKPT})" if sp else ""),
+                    got, straight, t0)
+        print(f"[tp r{rank}] (c) lm-100m {label}: step median {step_ms:.1f} ms; collectives "
+              f"{issued}")
+        if (issued["reduce_scatter"] > 0) != sp or not issued["all_reduce"]:
+            out["failures"].append(f"[tp] (c) rank {rank} {label}: collectives {issued}")
+        report[f"seq_parallel={sp}"] = {"loss_rel": rel, "step_ms": step_ms, "issued": issued}
+    out["report"]["lm100m"] = report
 
 
 def main() -> int:
@@ -3656,8 +4100,10 @@ def main() -> int:
     t0 = time.perf_counter()
     train_phase(torch, dev, failures)
     print(f"[time] phase 9, training: {time.perf_counter() - t0:.1f} s")
-    mesh_train_phase(torch, dev, failures, mesh, mesh_report)
+    straight = mesh_train_phase(torch, dev, failures, mesh, mesh_report)
     mesh_collective_phase(torch, dev, failures, mesh, mesh_report)
+    # -- the TP phase: two ranks on the card over gloo, a (1, 2) mesh ----------------
+    tp_launches = tp_phase(torch, failures, rows, straight)
     # (e) the collectives issued by each part of the mesh phase
     mesh_launches = collections.Counter()
     for label, rec in mesh_report.items():
@@ -3709,7 +4155,7 @@ def main() -> int:
             "launches": (cnn_launches.get(name, 0) + lm_launches[name] + sec5_launches[name]
                          + engine_launches[name] + moe_launches[name] + vlm_launches[name]
                          + family_launches[name] + vgg_launches[name] + paper_launches[name]
-                         + mesh_launches[name]),
+                         + mesh_launches[name] + tp_launches[name]),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": wsum("ms"),
             "plain_ms": wsum("plain_ms"),

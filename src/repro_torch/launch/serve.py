@@ -11,8 +11,11 @@ token and the straggler monitor's slow-step summary. ``--flash-decode``
 asks for the sequence-sharded flash-decoding cache layout, which takes
 effect under a mesh; one process serves without a mesh, as the JAX
 launcher does with one device. Under ``torchrun`` with more than one rank
-the mesh spans them, and serving over it raises ``NotImplementedError``
-(ROADMAP.md, queue 1 item 4b).
+the mesh spans them (the model axis' target 16, halved until it divides
+the rank count): ``--static`` (and a family outside the engine) serves
+the lockstep loop over it, each rank on its rows and its blocks of the
+parameters; the engine over more than one rank raises
+``NotImplementedError`` (ROADMAP.md, queue 1 item 4c).
 
 ``--metrics-out PATH`` also writes the schema-versioned obs snapshot to
 PATH and the per-request span events to its sibling ``*.events.jsonl``

@@ -5,11 +5,16 @@ exist (``torchrun --nproc-per-node N -m repro_torch.launch.train ...``
 gives an elastic mesh over the N ranks and the data-parallel ZeRO-1 step;
 one process trains without a mesh), and the host loop with checkpoints,
 auto-resume, the straggler monitor and optional gradient compression.
-``--model-parallel`` defaults to 1, the one model axis the port runs:
-tensor-parallel projections on a wider one, and ``--seq-parallel``, raise
-``NotImplementedError`` (ROADMAP.md, queue 1 item 4b). ``--smoke`` runs
-the reduced config of the same family; ``--device cpu`` runs on the host
-(default: the card).
+``--model-parallel`` (default 16, the reference's) is the model axis'
+target, halved until it divides the rank count
+(:func:`~repro_torch.runtime.elastic.choose_mesh_shape`); the products
+split over it, and ``--seq-parallel`` splits the residual along the
+sequence there. The ``ssm``, ``hybrid`` and ``encdec``/``audio`` families
+on a model axis of more than one rank raise ``NotImplementedError``
+(ROADMAP.md, queue 1 item 4d). ``--smoke`` runs the reduced config of the
+same family; ``--device cpu`` runs on the host (default: the card). Two
+ranks may share one card over a ``gloo`` group (start it before calling
+:func:`main`): NCCL refuses two ranks on one device.
 """
 from __future__ import annotations
 
@@ -32,9 +37,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--compress", default=None, choices=[None, "int8", "elp4"])
     ap.add_argument("--seq-parallel", action="store_true",
-                    help="not ported: raises (ROADMAP.md, queue 1 item 4b)")
-    ap.add_argument("--model-parallel", type=int, default=1,
-                    help="the model axis' target; above 1 raises (ROADMAP.md, queue 1 item 4b)")
+                    help="split the residual along the sequence over the model axis")
+    ap.add_argument("--model-parallel", type=int, default=16,
+                    help="the model axis' target, halved until it divides the rank count")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 

@@ -56,17 +56,21 @@ def _tf_api() -> ModelApi:
 
 def _ssm_api() -> ModelApi:
     from repro_torch.models import mamba2
+    from repro_torch.models.transformer import check_model_axis
 
     def loss(params, cfg, batch, *, pctx=None, remat=True):
+        check_model_axis(pctx, cfg.family)
         return mamba2.loss_fn(params, cfg, batch["tokens"], batch["labels"], remat=remat)
 
     def init_cache(cfg, batch, max_len, *, device=None):
         return mamba2.init_state(cfg, batch, device=device)
 
     def prefill(params, cfg, batch, cache, *, pctx=None):
+        check_model_axis(pctx, cfg.family)
         return mamba2.prefill(params, cfg, batch["tokens"], cache)
 
     def decode(params, cfg, token, cache, pos, *, pctx=None):
+        check_model_axis(pctx, cfg.family)
         return mamba2.decode_step(params, cfg, token, cache, pos)
 
     return ModelApi(mamba2.init_params, loss, init_cache, prefill, decode)
@@ -74,14 +78,18 @@ def _ssm_api() -> ModelApi:
 
 def _hybrid_api() -> ModelApi:
     from repro_torch.models import rglru
+    from repro_torch.models.transformer import check_model_axis
 
     def loss(params, cfg, batch, *, pctx=None, remat=True):
+        check_model_axis(pctx, cfg.family)
         return rglru.loss_fn(params, cfg, batch["tokens"], batch["labels"], remat=remat)
 
     def prefill(params, cfg, batch, cache, *, pctx=None):
+        check_model_axis(pctx, cfg.family)
         return rglru.prefill(params, cfg, batch["tokens"], cache)
 
     def decode(params, cfg, token, cache, pos, *, pctx=None):
+        check_model_axis(pctx, cfg.family)
         return rglru.decode_step(params, cfg, token, cache, pos)
 
     return ModelApi(rglru.init_params, loss, rglru.init_cache, prefill, decode)

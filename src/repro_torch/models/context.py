@@ -2,9 +2,9 @@
 
 The JAX package's ``repro/models/context.py`` over ``torch.distributed``.
 A :class:`ParallelCtx` tells the layers how the current mesh is laid out,
-so the manually parallel blocks (the expert-parallel MoE, flash-decoding
-over a sequence-sharded KV cache) can name their axes and reach their
-process groups. ``None`` means one device without a mesh: every layer
+so the manually parallel blocks (the tensor-parallel projections, the
+expert-parallel MoE, flash-decoding over a sequence-sharded KV cache) can
+name their axes and reach their process groups. ``None`` means one device without a mesh: every layer
 also works without a context.
 
 The mesh is a ``torch.distributed.device_mesh.DeviceMesh`` whose dims are
@@ -30,17 +30,6 @@ MOE_IMPLS = ("ep", "dense")
 
 # DeviceMesh -> {axes: (process group, its ranks)}, for groups over several axes
 _GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
-
-
-def check_seq_parallel(seq_parallel: bool) -> None:
-    """Raise for the reference's sequence-parallel residual layout: it splits the
-    sequence over the model axis around the tensor-parallel projections, which
-    wait for ROADMAP item 4b."""
-    if seq_parallel:
-        raise NotImplementedError(
-            "seq_parallel: the sequence-parallel residual layout goes with the "
-            "tensor-parallel projections, which are not ported to repro_torch yet; see "
-            "ROADMAP.md (queue 1 item 4b)")
 
 
 def _dim(mesh, axis: str) -> int:
@@ -94,8 +83,9 @@ class ParallelCtx:
     """How the mesh carries the model: the batch over ``batch_axes``, tensor and
     expert parallelism over ``model_axis``. ``moe_impl`` is ``"ep"`` (the
     expert-parallel exchange) or ``"dense"``; ``flash_decode`` attends a decode
-    step over the sequence-sharded cache; ``seq_parallel``, the reference's
-    sequence-parallel residual layout, raises (:func:`check_seq_parallel`)."""
+    step over the sequence-sharded cache; ``seq_parallel`` keeps the residual
+    stream between the tensor-parallel products split along the sequence over
+    the model axis (the reference's sequence-parallel layout)."""
 
     mesh: object
     batch_axes: tuple[str, ...] = ("data",)
@@ -107,7 +97,6 @@ class ParallelCtx:
     def __post_init__(self):
         if self.moe_impl not in MOE_IMPLS:
             raise ValueError(f"moe_impl is one of {MOE_IMPLS}, got {self.moe_impl!r}")
-        check_seq_parallel(self.seq_parallel)
 
     @property
     def all_axes(self) -> tuple[str, ...]:

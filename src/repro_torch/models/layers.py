@@ -22,6 +22,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import full_f32
+
 F32 = torch.float32
 NEG_INF = -1e30  # the masked logit of the JAX package (not -inf)
 
@@ -193,8 +195,9 @@ def mlp_apply(p: dict, x: torch.Tensor, kind: str, acts: dict | None = None) -> 
     return matmul(h, p["w2"])
 
 
-def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """``x[..., in] @ w[in, out]``, output in ``x.dtype``.
+def matmul(x: torch.Tensor, w, *, f32: bool = False) -> torch.Tensor:
+    """``x[..., in] @ w[in, out]``, output in ``x.dtype`` (``f32``: the float32
+    result of the same products, the reference's ``preferred_element_type=F32``).
 
     ``w`` may be a :class:`~repro_torch.kernels.ops.PackedWeight` (one
     layer's ``[K, N]`` codes): the product then runs on the codes through
@@ -205,8 +208,177 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     from repro_torch.kernels.ops import PackedWeight, quantized_matmul
 
     if isinstance(w, PackedWeight):
-        return quantized_matmul(x, w, impl="auto", out_dtype=x.dtype)
+        return quantized_matmul(x, w, impl="auto", out_dtype=F32 if f32 else x.dtype)
+    if f32:
+        with full_f32():
+            return torch.matmul(x.to(F32), w.to(x.dtype).to(F32))
     return torch.matmul(x, w.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+# Under a context whose model axis holds more than one rank each weight is
+# this rank's block under its sharding rule (``runtime.sharding.param_spec``,
+# laid out by ``runtime.elastic.reshard``), and the block's shape decides the
+# form of the product: out-features split (column-parallel: this rank's
+# equal block of the output columns), in-features split (row-parallel: a
+# float32 partial sum over the model axis of this rank's rows), or neither
+# (the whole product on every rank). Gradients follow the conjugate pairs of
+# ``runtime.collectives``: a whole activation carries its whole gradient on
+# every rank, and a rank's block carries the gradient of that block.
+def tp_active(pctx) -> bool:
+    """Whether ``pctx`` spreads the model over more than one rank."""
+    return pctx is not None and pctx.model_size > 1
+
+
+def local_kn(w) -> tuple[int, int]:
+    """The logical ``(K, N)`` of this rank's block of a matmul weight."""
+    from repro_torch.kernels.ops import PackedWeight
+
+    if isinstance(w, PackedWeight):
+        return tuple(w.shape)
+    return tuple(w.shape[-2:])
+
+
+def row_blocks(w, k: int, m: int) -> list[int]:
+    """Each rank's rows of the ``k`` in-features of a row-parallel weight whose
+    block is ``w``: equal blocks of its packed rows, so twice as many logical rows
+    for nibble codes, the last block short of an odd K's pad row."""
+    from repro_torch.kernels.ops import PackedWeight
+
+    step = w.codes.shape[-2] if isinstance(w, PackedWeight) else w.shape[-2]
+    if isinstance(w, PackedWeight) and w.nibble:
+        step *= 2
+    return [step] * (m - 1) + [k - step * (m - 1)]
+
+
+class TPInput:
+    """The input rows of the products that follow one norm, under tensor
+    parallelism: ``x`` whole, or with ``seq_local`` this rank's block of the
+    sequence (the sequence-parallel residual). ``entry()`` is the whole rows for
+    the column and row blocks of products, whose gradients each rank holds only
+    in part and the entry sums (``copy_to_model``, or ``gather_seq`` from a
+    sequence block); ``full()`` the whole rows with their whole gradient, for a
+    product that every rank computes whole. Each is made once."""
+
+    def __init__(self, x: torch.Tensor, pctx, seq_local: bool = False):
+        self.x, self.pctx, self.seq_local = x, pctx, seq_local
+        self._entry = self._full = None
+
+    def entry(self) -> torch.Tensor:
+        from repro_torch.runtime import collectives
+
+        if self._entry is None:
+            g = self.pctx.model_group
+            self._entry = (collectives.gather_seq(self.x, 1, g) if self.seq_local
+                           else collectives.copy_to_model(self.x, g))
+        return self._entry
+
+    def full(self) -> torch.Tensor:
+        from repro_torch.runtime import collectives
+
+        if self._full is None:
+            self._full = (collectives.gather_from_model(self.x, 1, self.pctx.model_group)
+                          if self.seq_local else self.x)
+        return self._full
+
+
+def tp_matmul(inp: TPInput, w, k: int, n: int, pctx, *, f32: bool = False):
+    """``x[..., k] @ W[k, n]`` on this rank's block ``w`` of ``W``: ``(y, form)``
+    with ``form`` ``"cols"`` (this rank's equal block of the ``n`` columns),
+    ``"partial"`` (float32, to be summed over the model axis) or ``"full"``.
+    A static activation scale acts elementwise, so on a block of ``x`` too."""
+    kl, nl = local_kn(w)
+    if nl != n:
+        return matmul(inp.entry(), w, f32=f32), "cols"
+    if kl != k:
+        sizes = row_blocks(w, k, pctx.model_size)
+        start = sum(sizes[:pctx.model_rank])
+        return matmul(inp.entry()[..., start:start + kl].contiguous(), w, f32=True), "partial"
+    return matmul(inp.full(), w, f32=f32), "full"
+
+
+def tp_full(y: torch.Tensor, form: str, pctx, dtype) -> torch.Tensor:
+    """The whole output of :func:`tp_matmul`: column blocks gathered, partial sums
+    summed in float32 and cast to ``dtype``."""
+    from repro_torch.runtime import collectives
+
+    if form == "cols":
+        return collectives.gather_from_model(y, -1, pctx.model_group)
+    if form == "partial":
+        return collectives.reduce_from_model(y, pctx.model_group).to(dtype)
+    return y
+
+
+def tp_take(x: torch.Tensor, dim: int, start: int, stop: int, pctx) -> torch.Tensor:
+    """Rows ``[start, stop)`` along ``dim`` of a whole ``x``, this rank's share of it
+    (the blocks of the ranks may overlap): the gradients of every rank's share are
+    summed back into the whole."""
+    from repro_torch.runtime import collectives
+
+    return collectives.copy_to_model(x, pctx.model_group).narrow(dim, start, stop - start)
+
+
+def tp_residual(y: torch.Tensor, form: str, pctx, seq_local: bool, dtype) -> torch.Tensor:
+    """A block's output in the residual's layout: whole rows, or this rank's
+    sequence block (``seq_local``); partial sums summed (``reduce_scatter`` onto the
+    sequence blocks), column blocks gathered."""
+    from repro_torch.runtime import collectives
+
+    g = pctx.model_group
+    if form == "partial":
+        if seq_local:
+            return collectives.scatter_seq(y, 1, g).to(dtype)
+        return collectives.reduce_from_model(y, g).to(dtype)
+    y = tp_full(y, form, pctx, dtype)
+    return collectives.split_to_model(y, 1, g) if seq_local else y
+
+
+def tp_mlp(p: dict, inp: TPInput, kind: str, d: int, ff: int, pctx, dtype):
+    """:func:`mlp_apply` on this rank's blocks: ``(y, form)`` of the down product.
+    With the up products column-parallel and the down product row-parallel on
+    the same blocks (the rules' layout when ``ff`` divides) the hidden stays in
+    this rank's columns; otherwise it is made whole first."""
+    a, fa = tp_matmul(inp, p["w1"], d, ff, pctx)
+    gated = kind in ("swiglu", "geglu")
+    b, fb = tp_matmul(inp, p["w3"], d, ff, pctx) if gated else (None, fa)
+    if not (fa == fb == "cols"):
+        a = tp_full(a, fa, pctx, dtype)
+        b = tp_full(b, fb, pctx, dtype) if gated else None
+    if kind == "swiglu":
+        h = F.silu(a) * b
+    elif kind == "geglu":
+        h = F.gelu(a, approximate="tanh") * b
+    elif kind == "gelu":
+        h = F.gelu(a, approximate="tanh")
+    else:
+        raise ValueError(kind)
+    m = pctx.model_size
+    if fa == fb == "cols":
+        if local_kn(p["w2"])[0] != ff and row_blocks(p["w2"], ff, m) == [ff // m] * m:
+            return matmul(h, p["w2"], f32=True), "partial"
+        h = tp_full(h, "cols", pctx, dtype)
+    return tp_matmul(TPInput(h, pctx), p["w2"], ff, d, pctx)
+
+
+def tp_embed(embed: torch.Tensor, tokens: torch.Tensor, vocab: int, d: int, pctx,
+             dtype) -> torch.Tensor:
+    """The whole token embeddings from this rank's block of the table: a
+    vocab-parallel block looks up the ids it holds (zeros elsewhere) and the
+    ranks' rows are summed (exact: one rank holds each id); a block of the
+    feature dim (where the vocab does not divide) is looked up and gathered."""
+    from repro_torch.runtime import collectives
+
+    vl, dl = embed.shape
+    g = pctx.model_group
+    if vl != vocab:
+        ids = tokens - pctx.model_rank * vl
+        held = (ids >= 0) & (ids < vl)
+        rows = embed[torch.clamp(ids, 0, vl - 1)].to(F32) * held[..., None]
+        return collectives.reduce_from_model(rows, g).to(dtype)
+    x = embed[tokens].to(dtype)
+    return collectives.gather_from_model(x, -1, g) if dl != d else x
 
 
 # ---------------------------------------------------------------------------

@@ -40,20 +40,28 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import full_f32
 from repro_torch.kernels.ops import PackedWeight, dequantize
+from repro_torch.models.layers import tp_full, tp_matmul, tp_take
 from repro_torch.runtime import collectives
 
 F32 = torch.float32
 
 
-def router_gates(x2d: torch.Tensor, router: torch.Tensor, topk: int):
+def router_logits(x2d: torch.Tensor, router: torch.Tensor) -> torch.Tensor:
+    """The float32 expert logits ``[T, E]`` of ``x2d[T, D]``."""
+    with full_f32():
+        return torch.matmul(x2d.to(F32), router.to(F32))
+
+
+def router_gates(x2d: torch.Tensor, router: torch.Tensor, topk: int, logits=None):
     """Top-k routing of ``x2d[T, D]``: (gate weights ``[T, k]`` float32, expert ids ``[T, k]``).
 
     ``jax.lax.top_k`` returns the lower index first among equal logits;
     ``torch.topk`` promises no order among them, so the ids come from a
-    stable descending sort.
+    stable descending sort. ``logits`` (``[T, E]``), where given, are the
+    router's on ``x2d``.
     """
-    with full_f32():
-        logits = torch.matmul(x2d.to(F32), router.to(F32))
+    if logits is None:
+        logits = router_logits(x2d, router)
     topv, topi = torch.sort(logits, dim=-1, descending=True, stable=True)
     topv, topi = topv[:, :topk], topi[:, :topk]
     return torch.softmax(topv, dim=-1), topi
@@ -93,16 +101,25 @@ def _expert_ffn(h: torch.Tensor, w1, w3, w2, kind: str) -> torch.Tensor:
     return _bmm_f32(z, _dq(w2, h.dtype)).to(h.dtype)
 
 
+def _combine(gates: torch.Tensor, topi: torch.Tensor, e: int) -> torch.Tensor:
+    """The ``[T, E]`` combine matrix of the top-k gates: one add per (token, chosen
+    expert) onto zero, so the accumulation is exact, as the reference's .at[].add."""
+    t = gates.shape[0]
+    combine = torch.zeros((t, e), dtype=F32, device=gates.device)
+    rows = torch.arange(t, device=gates.device)[:, None].expand(t, topi.shape[1])
+    return combine.index_put((rows, topi), gates, accumulate=True)
+
+
 def moe_dense(p: dict, x2d: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     """Every expert on every token ``x2d[T, D]``, combined by the top-k gates."""
-    gates, topi = router_gates(x2d, p["router"], cfg.topk)
+    return _dense(p, x2d, cfg, *router_gates(x2d, p["router"], cfg.topk))
+
+
+def _dense(p: dict, x2d: torch.Tensor, cfg: ArchConfig, gates: torch.Tensor,
+           topi: torch.Tensor) -> torch.Tensor:
     t, d = x2d.shape
     e = cfg.n_experts
-    # [T, E] combine matrix: one add per (token, chosen expert) onto zero, so
-    # the accumulation is exact, as the reference's .at[].add
-    combine = torch.zeros((t, e), dtype=F32, device=x2d.device)
-    rows = torch.arange(t, device=x2d.device)[:, None].expand(t, topi.shape[1])
-    combine.index_put_((rows, topi), gates, accumulate=True)
+    combine = _combine(gates, topi, e)
     h = x2d[None].expand(e, t, d)
     y = _expert_ffn(h, p["we1"], p.get("we3"), p["we2"], cfg.mlp_kind)  # [E, T, D]
     with full_f32():
@@ -123,16 +140,17 @@ def _ep_slots(e_flat: torch.Tensor) -> torch.Tensor:
 
 
 def ep_dispatch(x_loc: torch.Tensor, router: torch.Tensor, cfg: ArchConfig,
-                n_shards: int) -> dict:
+                n_shards: int, logits: torch.Tensor | None = None) -> dict:
     """The routing of ``x_loc[t, D]`` for the expert exchange over ``n_shards``
     ranks, per (token, choice) in token-major order ``[t * k]``: the gate, the
     token, the destination rank, the local expert there and the slot in its
-    bucket; the capacity; and the drop mask (slots at or past the capacity)."""
+    bucket; the capacity; and the drop mask (slots at or past the capacity).
+    ``logits``, where given, are the router's on ``x_loc``."""
     t = x_loc.shape[0]
     k, e = cfg.topk, cfg.n_experts
     e_loc = e // n_shards
     cap = max(8, int(math.ceil(t * k / e * cfg.moe_capacity_factor)))
-    gates, topi = router_gates(x_loc, router, k)
+    gates, topi = router_gates(x_loc, router, k, logits)
     e_flat = topi.reshape(-1)
     slot = _ep_slots(e_flat)
     return {"gates": gates.reshape(-1),
@@ -142,13 +160,13 @@ def ep_dispatch(x_loc: torch.Tensor, router: torch.Tensor, cfg: ArchConfig,
 
 
 def _moe_ep_local(x_loc: torch.Tensor, router, we1, we3, we2, *, cfg: ArchConfig, group,
-                  n_shards: int) -> torch.Tensor:
+                  n_shards: int, logits: torch.Tensor | None = None) -> torch.Tensor:
     """The exchange on one rank: ``x_loc[t, D]`` routed, sent to the ranks holding
     the chosen experts, run through this rank's experts ``we*[E_loc, ...]`` and
     combined back. Returns ``[t, D]`` in ``x_loc``'s dtype."""
     d = x_loc.shape[1]
     e_loc = cfg.n_experts // n_shards
-    r = ep_dispatch(x_loc, router, cfg, n_shards)
+    r = ep_dispatch(x_loc, router, cfg, n_shards, logits)
     cap, keep = r["cap"], ~r["dropped"]
     send = torch.zeros((n_shards, e_loc, cap, d), dtype=x_loc.dtype, device=x_loc.device)
     send = send.index_put((r["dst"][keep], r["local"][keep], r["slot"][keep]),
@@ -196,6 +214,55 @@ def moe_ep(p: dict, x2d: torch.Tensor, cfg: ArchConfig, pctx) -> torch.Tensor:
     out = _moe_ep_local(x_loc, p["router"], p["we1"], p["we3"], p["we2"], cfg=cfg, group=group,
                         n_shards=m)
     return collectives.all_gather(out, 0, group) if split else out
+
+
+def moe_tp(p: dict, inp, cfg: ArchConfig, pctx) -> tuple[torch.Tensor, str]:
+    """The MoE FFN of one layer under tensor parallelism (a model axis of more than
+    one rank) on the rows of ``inp`` (a :class:`~repro_torch.models.layers.TPInput`):
+    ``(y [B, S, D], form)`` as :func:`~repro_torch.models.layers.tp_matmul`'s.
+
+    The router is column-parallel (its expert logits gathered whole before the
+    top-k). ``moe_impl="ep"``: :func:`moe_ep`'s exchange over the expert-sharded
+    stacks, each rank routing its share of the tokens; ``"dense"``: each rank
+    runs its own experts on every token, weighed by their gates, and the
+    ranks' float32 sums are summed (every expert on every rank where the
+    experts do not divide)."""
+    x = inp.entry()
+    b, s, d = x.shape
+    e = cfg.n_experts
+    m, mr, group = pctx.model_size, pctx.model_rank, pctx.model_group
+    y, form = tp_matmul(inp, p["router"], d, e, pctx, f32=True)
+    logits = tp_full(y, form, pctx, F32).reshape(b * s, e)
+    e_loc = _leading(p["we1"])
+    if pctx.moe_impl == "ep":
+        if e_loc * m != e or p.get("we3") is None:
+            raise ValueError(f"the expert-parallel MoE takes gated experts sharded over the "
+                             f"model axis; this rank holds {e_loc} of {e}")
+        x2d, t = x.reshape(b * s, d), b * s
+        split = t % m == 0 and t >= m
+        if not split and torch.is_grad_enabled():
+            raise ValueError(f"{t} tokens do not split over a model axis of {m} ranks: a "
+                             "training step through moe_ep would run each token on every rank")
+        rows = (mr * t // m, (mr + 1) * t // m) if split else (0, t)
+        out = _moe_ep_local(x2d[rows[0]:rows[1]], p["router"], p["we1"], p["we3"], p["we2"],
+                            cfg=cfg, group=group, n_shards=m,
+                            logits=tp_take(logits, 0, rows[0], rows[1], pctx))
+        if split:
+            out = collectives.gather_from_model(out, 0, group)
+        return out.reshape(b, s, d), "full"
+    if e_loc == e:  # the experts replicate: every rank computes the whole FFN
+        xf = inp.full().reshape(b * s, d)
+        gates, topi = router_gates(xf, p["router"], cfg.topk, logits)
+        return _dense(p, xf, cfg, gates, topi).reshape(b, s, d), "full"
+    gates, topi = router_gates(x.reshape(b * s, d), p["router"], cfg.topk, logits)
+    combine = _combine(gates, topi, e)
+    lo = mr * e_loc
+    local = tp_take(combine, 1, lo, lo + e_loc, pctx)
+    x2d = x.reshape(b * s, d)
+    h = x2d[None].expand(e_loc, b * s, d)
+    ye = _expert_ffn(h, p["we1"], p.get("we3"), p["we2"], cfg.mlp_kind)  # [E_loc, T, D]
+    with full_f32():
+        return torch.einsum("etd,te->td", ye.to(F32), local).reshape(b, s, d), "partial"
 
 
 def moe_apply(p: dict, x2d: torch.Tensor, cfg: ArchConfig, pctx=None) -> torch.Tensor:

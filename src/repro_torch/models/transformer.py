@@ -48,9 +48,26 @@ attends through
 JAX package (the dynamic int8 cache on its codes and scales; the others
 on their float or dequantized, for a paged cache gathered, views).
 Where the JAX package leaves the collectives of the dense and attention
-projections to GSPMD (a model axis larger than 1) the port has none yet:
-that raises ``NotImplementedError`` (ROADMAP.md, queue 1 item 4b), as
-does ``seq_parallel``, the sequence-parallel layout that goes with them.
+projections to GSPMD (a model axis larger than 1), each rank holds its
+blocks of the weights (:func:`repro_torch.runtime.elastic.reshard` under
+the sharding rules) and every product takes the form its block's shape
+gives it (:func:`~repro_torch.models.layers.tp_matmul`: column-parallel,
+row-parallel with float32 partial sums summed over the model axis, or
+whole), with the collectives of :mod:`repro_torch.runtime.collectives`.
+Attention runs on whole heads: each rank attends its block of the query
+heads (:func:`head_blocks`) with the KV heads they read, and its KV cache
+holds those heads (:func:`tp_cache`); where the rules' column block of a
+projection splits a head (the heads do not divide the model axis), the
+projection's output is gathered and the rank takes its heads. The
+embedding is vocab-parallel (a masked lookup summed over the model axis)
+or, where the vocab does not divide, split on the feature dim; the LM head
+gathers its vocab blocks (or sums its feature blocks). With
+``pctx.seq_parallel`` the residual stream between the blocks is split
+along the sequence over the model axis, gathered at each block's entry
+and reduce-scattered at its exit (the reference's sequence-parallel
+layout). The ``ssm``, ``hybrid`` and ``encdec``/``audio`` families on a
+model axis of more than one rank raise ``NotImplementedError``
+(:func:`check_model_axis`; ROADMAP.md, queue 1 item 4d).
 
 Prefill-shaped attention without a window goes through
 :func:`repro_torch.kernels.flash_attention.flash_attention`, the CUDA
@@ -88,6 +105,7 @@ from repro_torch.kernels.ops import PackedWeight
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.flash_decode import flash_decode_attention
 from repro_torch.models.layers import (
+    TPInput,
     apply_rope,
     attention_chunked,
     attention_dot,
@@ -95,12 +113,22 @@ from repro_torch.models.layers import (
     dense_init,
     init_device,
     init_generator,
+    local_kn,
     matmul,
     mlp_apply,
     repeat_kv,
     rms_norm,
     rope_embed,
+    row_blocks,
+    tp_active,
+    tp_embed,
+    tp_full,
+    tp_matmul,
+    tp_mlp,
+    tp_residual,
+    tp_take,
 )
+from repro_torch.runtime import collectives
 
 F32 = torch.float32
 
@@ -115,14 +143,49 @@ FLASH_BLOCK = 128  # the flash kernel's sequence block (callers pad to it)
 ATTN_IMPLS = ("flash", "reference")
 
 
-def check_model_axis(pctx) -> None:
-    """Raise unless ``pctx`` is None or its model axis holds one rank: the
-    tensor-parallel projections of a wider one wait for ROADMAP item 4b."""
-    if pctx is not None and pctx.model_size > 1:
+# The families whose blocks run tensor parallel over a model axis.
+TP_FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_model_axis(pctx, family: str) -> None:
+    """Raise for a ``family`` outside :data:`TP_FAMILIES` on a model axis of more
+    than one rank: mamba2's ``in_proj`` concatenates z/x/B/C/dt along its
+    columns, so a column block cuts across them, and the RG-LRU's and the
+    encoder's projections need layouts of their own."""
+    if tp_active(pctx) and family not in TP_FAMILIES:
         raise NotImplementedError(
-            f"tensor-parallel execution of the dense and attention projections on a model "
-            f"axis of {pctx.model_size} ranks is not ported to repro_torch yet; see ROADMAP.md "
-            "(queue 1 item 4b)")
+            f"the {family!r} family on a model axis of {pctx.model_size} ranks is not ported "
+            "to repro_torch yet (tensor parallelism runs the dense, moe and vlm families); "
+            "see ROADMAP.md (queue 1 item 4d)")
+
+
+def head_blocks(cfg: ArchConfig, pctx) -> tuple[int, int, int, int]:
+    """``(q_lo, q_hi, kv_lo, kv_hi)``: this rank's block of the query heads (near
+    equal blocks in rank order) and the KV heads that its query heads read."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    m, r = pctx.model_size, pctx.model_rank
+    if h < m:
+        raise ValueError(f"{h} query heads leave some of {m} model ranks without a head")
+    q_lo, q_hi = r * h // m, (r + 1) * h // m
+    g = h // kv
+    return q_lo, q_hi, q_lo // g, (q_hi - 1) // g + 1
+
+
+def tp_cache(cache: dict, cfg: ArchConfig, pctx) -> dict:
+    """A whole-head KV cache's tensor-parallel layout: each ``[L, B, S, KV, ...]``
+    leaf and each static ``[L, KV]`` scale keeps this rank's KV heads
+    (:func:`head_blocks`). ``runtime.sharding.cache_spec`` (the reference's rule)
+    would split head_dim first where the heads do not divide, which would leave
+    each rank partial attention scores."""
+    _, _, lo, hi = head_blocks(cfg, pctx)
+    out = {}
+    for key, t in cache.items():
+        if key == "pages":
+            raise NotImplementedError("a paged cache serves on the engine, which runs on one "
+                                      "rank; see ROADMAP.md (queue 1 item 4c)")
+        dim = -1 if key in ("k_scale", "v_scale") else 3
+        out[key] = t.narrow(dim, lo, hi - lo).contiguous()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +489,42 @@ def _flash_prefill(q, k, v, q_offset: int, causal: bool = True) -> torch.Tensor:
     return out[:, :, :s].transpose(1, 2)
 
 
+def _tp_heads(lp: dict, cfg: ArchConfig, inp: TPInput, pctx, prefix: str):
+    """This rank's query, key and value heads ``[B, S, heads, hd]`` under tensor
+    parallelism, and the local KV head each local query head reads (None where
+    that is the plain GQA grouping of the local heads)."""
+    h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    m = pctx.model_size
+    q_lo, q_hi, kv_lo, kv_hi = head_blocks(cfg, pctx)
+
+    def heads(name, n_heads, lo, hi):
+        y, form = tp_matmul(inp, lp[prefix + name], d, n_heads * hd, pctx)
+        if not (form == "cols" and n_heads % m == 0 and h % m == 0):
+            # the column block splits a head, or the product is not column-parallel
+            y = tp_take(tp_full(y, form, pctx, cfg.dtype), -1, lo * hd, hi * hd, pctx)
+        return y.reshape(*y.shape[:2], hi - lo, hd)
+
+    q = heads("q", h, q_lo, q_hi)
+    k, v = heads("k", kv, kv_lo, kv_hi), heads("v", kv, kv_lo, kv_hi)
+    g, hq, nkv = h // kv, q_hi - q_lo, kv_hi - kv_lo
+    idx = [(q_lo + i) // g - kv_lo for i in range(hq)]
+    uniform = hq % nkv == 0 and idx == [i // (hq // nkv) for i in range(hq)]
+    return q, k, v, None if uniform else idx
+
+
+def _tp_out(mix: torch.Tensor, lp: dict, cfg: ArchConfig, pctx, prefix: str):
+    """The output projection of this rank's heads' mix ``[B, S, heads * hd]``:
+    ``(y, form)``. A row-parallel block on the same head rows takes the mix as it
+    is; otherwise the mix is gathered whole first."""
+    h, hd, d, m = cfg.n_heads, cfg.hd, cfg.d_model, pctx.model_size
+    w = lp[prefix + "o"]
+    sizes = [((r + 1) * h // m - r * h // m) * hd for r in range(m)]
+    if local_kn(w)[1] == d and local_kn(w)[0] != h * hd and row_blocks(w, h * hd, m) == sizes:
+        return matmul(mix, w, f32=True), "partial"
+    whole = collectives.gather_from_model(mix, -1, pctx.model_group, sizes)
+    return tp_matmul(TPInput(whole, pctx), w, h * hd, d, pctx)
+
+
 def _attention(
     lp: dict,
     cfg: ArchConfig,
@@ -443,7 +542,8 @@ def _attention(
     acts: dict | None = None,
     tap_kv: bool = False,
     attn_impl: str = "flash",
-) -> tuple[torch.Tensor, tuple | None]:
+    tp_in: TPInput | None = None,
+) -> tuple:
     """GQA attention, optionally reading and updating a KV cache (write before attend).
 
     ``kv_layout`` names the cache tuple: ``"dense"`` ``(ck, cv)``,
@@ -461,20 +561,37 @@ def _attention(
     ``"k_cache"``/``"v_cache"``. ``attn_impl`` (:data:`ATTN_IMPLS`) picks
     where prefill-shaped attention runs: ``"flash"`` on the kernel,
     ``"reference"`` in the JAX package's torch ops (the training forward).
+    Under tensor parallelism ``tp_in`` holds the input rows (``x`` is unused),
+    the heads and the cache are this rank's (:func:`head_blocks`), and the
+    output is ``(y, form)`` of the output projection
+    (:func:`~repro_torch.models.layers.tp_matmul`).
     """
     if kv_layout not in _CACHE_KEYS:
         raise ValueError(f"unknown KV-cache layout {kv_layout!r}")
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
-    b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    kv_src = x if kv_override is None else kv_override
-    q = matmul(x, lp[prefix + "q"]).reshape(b, s, h, hd)
-    k = matmul(kv_src, lp[prefix + "k"]).reshape(b, kv_src.shape[1], kv, hd)
-    v = matmul(kv_src, lp[prefix + "v"]).reshape(b, kv_src.shape[1], kv, hd)
+    hd = cfg.hd
+    kv_idx = None
+    if tp_in is not None:
+        if kv_override is not None:
+            raise NotImplementedError("cross-attention on a model axis of more than one rank; "
+                                      "see ROADMAP.md (queue 1 item 4d)")
+        q, k, v, kv_idx = _tp_heads(lp, cfg, tp_in, pctx, prefix)
+        b, s, h, _ = q.shape
+        kv = k.shape[2]
+    else:
+        b, s, _ = x.shape
+        h, kv = cfg.n_heads, cfg.n_kv_heads
+        kv_src = x if kv_override is None else kv_override
+        q = matmul(x, lp[prefix + "q"]).reshape(b, s, h, hd)
+        k = matmul(kv_src, lp[prefix + "k"]).reshape(b, kv_src.shape[1], kv, hd)
+        v = matmul(kv_src, lp[prefix + "v"]).reshape(b, kv_src.shape[1], kv, hd)
     if cfg.qk_norm and prefix == "w":
-        q = rms_norm(q, lp["qnorm"])
-        k = rms_norm(k, lp["knorm"])
+        qn, kn = lp["qnorm"], lp["knorm"]
+        if tp_in is not None:  # each rank's heads give part of the norms' gradients
+            qn, kn = (collectives.copy_to_model(t, pctx.model_group) for t in (qn, kn))
+        q = rms_norm(q, qn)
+        k = rms_norm(k, kn)
     if rope is not None and kv_override is None:
         cos_q, sin_q, cos_k, sin_k = rope
         q = apply_rope(q, cos_q, sin_q)
@@ -490,6 +607,10 @@ def _attention(
         # position vector) under a context that asks for it
         flash_decode = (pctx is not None and pctx.flash_decode
                         and (s == 1 or isinstance(cache_pos, torch.Tensor)))
+        if flash_decode and tp_in is not None:
+            raise NotImplementedError(
+                "flash-decode's sequence-sharded cache on a model axis that also splits the "
+                "heads; see ROADMAP.md (queue 1 item 4c)")
         if kv_layout == "quant":
             ck, cv, cks, cvs = kv_cache
             kq, ksf = _cache_q(k)
@@ -501,7 +622,7 @@ def _attention(
                 out = flash_decode_attention(q, ck, cv, cache_pos, pctx=pctx, window=window,
                                              ks=cks, vs=cvs)
                 return matmul(out.reshape(b, s, h * hd), lp[prefix + "o"]), new_cache
-            k, v = _cache_dq(ck, cks, x.dtype), _cache_dq(cv, cvs, x.dtype)
+            k, v = _cache_dq(ck, cks, q.dtype), _cache_dq(cv, cvs, q.dtype)
         elif kv_layout in ("paged", "paged_static"):
             # Write this step's k/v through the page table, then gather the
             # rows' logical views for the read. Shared prefix pages are never
@@ -517,19 +638,21 @@ def _attention(
             new_cache = (ck, cv)
             k, v = _paged_view(ck, pages), _paged_view(cv, pages)
             if kv_layout == "paged_static":
-                k, v = _static_dq(k, ksc, x.dtype), _static_dq(v, vsc, x.dtype)
+                k, v = _static_dq(k, ksc, q.dtype), _static_dq(v, vsc, q.dtype)
         elif kv_layout == "static":
             ck, cv, ksc, vsc = kv_cache
             _cache_set(ck, _static_q(k, ksc), cache_pos)
             _cache_set(cv, _static_q(v, vsc), cache_pos)
             new_cache = (ck, cv)
-            k, v = _static_dq(ck, ksc, x.dtype), _static_dq(cv, vsc, x.dtype)
+            k, v = _static_dq(ck, ksc, q.dtype), _static_dq(cv, vsc, q.dtype)
         else:
             ck, cv = kv_cache
             _cache_set(ck, k, cache_pos)
             _cache_set(cv, v, cache_pos)
             new_cache = (ck, cv)
             k, v = ck, cv
+    if kv_idx is not None:  # each local query head's KV head, where the grouping is uneven
+        k, v, kv = k[:, :, kv_idx], v[:, :, kv_idx], h
 
     q_offset = cache_pos if kv_cache is not None else 0
     # "decode": s queries per row at per-row depth (s == 1, or a [B] position
@@ -556,6 +679,8 @@ def _attention(
     mix = out.reshape(b, s, h * hd)
     if acts is not None:
         acts["attn_mix"] = mix
+    if tp_in is not None:
+        return _tp_out(mix, lp, cfg, pctx, prefix), new_cache
     return matmul(mix, lp[prefix + "o"]), new_cache
 
 
@@ -585,6 +710,12 @@ def block_apply(
     (post-ln2, feeds w1/w3 or the router and experts) and ``"ffn_hidden"``
     (feeds w2; the dense MLP only).
     """
+    if tp_active(pctx):
+        if acts is not None or enc_out is not None:
+            raise ValueError("tensor-parallel blocks take no activation taps and no encoder")
+        return _tp_block(lp, cfg, x, rope=rope, causal=causal, window=window,
+                         kv_cache=kv_cache, kv_layout=kv_layout, cache_pos=cache_pos, pctx=pctx,
+                         attn_impl=attn_impl)
     attn_in = rms_norm(x, lp["ln1"])
     if acts is not None:
         acts["attn_in"] = attn_in
@@ -608,6 +739,37 @@ def block_apply(
     else:
         y = mlp_apply(lp, ffn_in, cfg.mlp_kind, acts=acts)
     return x + y, new_cache
+
+
+def _tp_block(lp: dict, cfg: ArchConfig, x: torch.Tensor, *, rope, causal: bool, window: int,
+              kv_cache, kv_layout: str, cache_pos, pctx, attn_impl: str):
+    """:func:`block_apply` on this rank's blocks (a model axis of more than one
+    rank). ``x`` is the residual: whole rows, or this rank's block of the
+    sequence under ``pctx.seq_parallel`` (where the sequence divides)."""
+    seq_local = _seq_local(pctx, rope[0].shape[-2])
+    g = pctx.model_group
+    # on a sequence block the norms' gradients are partial sums over the blocks
+    ln1, ln2 = ((collectives.copy_to_model(lp[k], g) for k in ("ln1", "ln2")) if seq_local
+                else (lp["ln1"], lp["ln2"]))
+    inp = TPInput(rms_norm(x, ln1), pctx, seq_local)
+    (y, form), new_cache = _attention(
+        lp, cfg, None, rope=rope, causal=causal, window=window, kv_cache=kv_cache,
+        kv_layout=kv_layout, cache_pos=cache_pos, pctx=pctx, attn_impl=attn_impl, tp_in=inp)
+    x = x + tp_residual(y, form, pctx, seq_local, x.dtype)
+    inp = TPInput(rms_norm(x, ln2), pctx, seq_local)
+    if cfg.is_moe:
+        y, form = moe_lib.moe_tp({k: lp[k] for k in ("router", "we1", "we3", "we2")}, inp, cfg,
+                                 pctx)
+    else:
+        y, form = tp_mlp(lp, inp, cfg.mlp_kind, cfg.d_model, cfg.d_ff, pctx, x.dtype)
+    return x + tp_residual(y, form, pctx, seq_local, x.dtype), new_cache
+
+
+def _seq_local(pctx, s: int) -> bool:
+    """Whether the residual of ``s`` positions is split along the sequence: under
+    ``pctx.seq_parallel`` on a model axis of more than one rank, when ``s`` divides
+    it (the reference constrains runs of more than one position)."""
+    return tp_active(pctx) and pctx.seq_parallel and s > 1 and s % pctx.model_size == 0
 
 
 # ---------------------------------------------------------------------------
@@ -646,7 +808,7 @@ def stack_apply(
     not with ``collect``) recomputes each block in the backward pass;
     ``attn_impl`` as in :func:`_attention`.
     """
-    check_model_axis(pctx)
+    check_model_axis(pctx, cfg.family)
     if collect and cache is not None:
         raise ValueError("collect=True is for the cache-less forward")
     if remat and (collect or cache is not None):
@@ -658,6 +820,9 @@ def stack_apply(
     rope = (cos, sin, cos, sin)  # new keys share the query positions
 
     layout = "dense" if cache is None else cache_layout(cache)
+    seq_local = _seq_local(pctx, s)
+    if seq_local:
+        x = collectives.split_to_model(x, 1, pctx.model_group)
     ys: list[dict] = []
     for i in range(blocks["ln1"].shape[0]):
         lp = layer_params(blocks, i)
@@ -678,6 +843,8 @@ def stack_apply(
         x = remat_call(block, lp, x) if remat else block(lp, x)
         if collect:
             ys.append({"block_out": x, **acts})
+    if seq_local:
+        x = collectives.gather_from_model(x, 1, pctx.model_group)
     if cache is not None:
         return x, cache
     if not collect:
@@ -688,26 +855,44 @@ def stack_apply(
 # ---------------------------------------------------------------------------
 # Decoder LM public API
 # ---------------------------------------------------------------------------
-def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor, frontend=None) -> torch.Tensor:
+def embed_tokens(params, cfg: ArchConfig, tokens: torch.Tensor, frontend=None,
+                 pctx=None) -> torch.Tensor:
     """Token embeddings ``[B, S, D]``; with ``frontend`` (precomputed patch embeddings
-    ``[B, F, D]``) their ``frontend_proj`` image prepended: ``[B, F + S, D]``."""
+    ``[B, F, D]``) their ``frontend_proj`` image prepended: ``[B, F + S, D]``. Under
+    tensor parallelism from this rank's blocks, whole on every rank."""
     dev = params["embed"].device
-    x = params["embed"][torch.as_tensor(tokens).to(dev).long()].to(cfg.dtype)
+    ids = torch.as_tensor(tokens).to(dev).long()
+    tp = tp_active(pctx)
+    if tp:
+        x = tp_embed(params["embed"], ids, cfg.vocab, cfg.d_model, pctx, cfg.dtype)
+    else:
+        x = params["embed"][ids].to(cfg.dtype)
     if frontend is not None:
-        fe = matmul(torch.as_tensor(frontend).to(dev).to(cfg.dtype), params["frontend_proj"])
+        f = torch.as_tensor(frontend).to(dev).to(cfg.dtype)
+        if tp:
+            y, form = tp_matmul(TPInput(f, pctx), params["frontend_proj"], cfg.d_model,
+                                cfg.d_model, pctx)
+            fe = tp_full(y, form, pctx, cfg.dtype)
+        else:
+            fe = matmul(f, params["frontend_proj"])
         x = torch.cat([fe, x], dim=1)
     return x
 
 
-def unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def unembed(params, cfg: ArchConfig, x: torch.Tensor, pctx=None) -> torch.Tensor:
     """Final norm, then float32 logits ``x @ head``.
 
     The JAX package multiplies the model-dtype operands with a float32
     result; here both operands go to float32 (exact for bfloat16 values)
-    and the product runs in full float32 (no TF32).
+    and the product runs in full float32 (no TF32). Under tensor parallelism
+    the head's vocab blocks' logits are gathered (its feature blocks' partial
+    logits summed where the vocab does not divide): whole on every rank.
     """
     x = rms_norm(x, params["final_norm"])
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if tp_active(pctx):
+        y, form = tp_matmul(TPInput(x, pctx), head, cfg.d_model, cfg.vocab, pctx, f32=True)
+        return tp_full(y, form, pctx, F32)
     with full_f32():
         return torch.matmul(x.to(F32), head.to(x.dtype).to(F32))
 
@@ -722,7 +907,7 @@ def remat_call(fn, *args):
 
 def _logits(params, cfg: ArchConfig, tokens, *, frontend=None, pctx=None, tap=None,
             tap_kv: bool = False, remat: bool = False, attn_impl: str = "flash"):
-    x = embed_tokens(params, cfg, tokens, frontend)
+    x = embed_tokens(params, cfg, tokens, frontend, pctx)
     if tap is not None:
         x = tap("embed", x)
     x, ys = stack_apply(params["blocks"], cfg, x, causal=True, window=cfg.window, pctx=pctx,
@@ -733,7 +918,7 @@ def _logits(params, cfg: ArchConfig, tokens, *, frontend=None, pctx=None, tap=No
         for site, act in ys.items():
             tap(site, act)
         x = tap("final", x)
-    return unembed(params, cfg, x)
+    return unembed(params, cfg, x, pctx)
 
 
 def forward(params, cfg: ArchConfig, tokens, *, frontend=None, pctx=None, tap=None,
@@ -768,10 +953,10 @@ def prefill(params, cfg: ArchConfig, tokens, cache: dict, *, frontend=None, pctx
     """Fill the cache with the prompt (after the ``frontend`` embeddings, if any);
     return the last position's logits and the cache."""
     with torch.no_grad():
-        x = embed_tokens(params, cfg, tokens, frontend)
+        x = embed_tokens(params, cfg, tokens, frontend, pctx)
         x, cache = stack_apply(params["blocks"], cfg, x, causal=True, window=cfg.window,
                                cache=cache, cache_pos=0, pctx=pctx)
-        return unembed(params, cfg, x[:, -1:]), cache
+        return unembed(params, cfg, x[:, -1:], pctx), cache
 
 
 def decode_step(params, cfg: ArchConfig, token, cache: dict, pos, *, pctx=None):
@@ -784,10 +969,10 @@ def decode_step(params, cfg: ArchConfig, token, cache: dict, pos, *, pctx=None):
     """
     with torch.no_grad():
         pos, positions = step_positions(pos, token.shape[1], params["embed"].device)
-        x = embed_tokens(params, cfg, token)
+        x = embed_tokens(params, cfg, token, pctx=pctx)
         x, cache = stack_apply(params["blocks"], cfg, x, causal=True, window=cfg.window,
                                positions=positions, cache=cache, cache_pos=pos, pctx=pctx)
-        return unembed(params, cfg, x), cache
+        return unembed(params, cfg, x, pctx), cache
 
 
 def step_positions(pos, s: int, device) -> tuple:

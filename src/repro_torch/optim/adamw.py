@@ -46,9 +46,11 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(g.to(F32))) for g in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
-    """Float32 gradients scaled by ``min(1, max_norm / norm)``, and the norm."""
-    gnorm = global_norm(grads)
+def clip_by_global_norm(grads: Any, max_norm: float,
+                        norm: torch.Tensor | None = None) -> tuple[Any, torch.Tensor]:
+    """Float32 gradients scaled by ``min(1, max_norm / norm)``, and the norm (``norm``
+    where given: the whole gradient's, of which ``grads`` are this rank's blocks)."""
+    gnorm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     return tree_map(lambda g: g.to(F32) * scale, grads), gnorm
 

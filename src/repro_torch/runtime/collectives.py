@@ -3,17 +3,37 @@
 Where the JAX package writes a collective inside ``shard_map``
 (``lax.psum``, ``lax.pmax``, ``lax.all_to_all``) or leaves one to GSPMD
 (the gathers of a sharded tree, the gradient mean of a data-parallel
-step), the port calls one of these over a mesh dim's process group
+step, the partial sums of a tensor-parallel product), the port calls one
+of these over a mesh dim's process group
 (:mod:`repro_torch.models.context`). Each adds one to :data:`ISSUED`
 under its kind when it issues its collective, and nowhere else: the
 counterpart of the kernel wrappers' launch counters, which shows that a
-run over a one-rank mesh went through the collectives rather than the
-meshless path.
+run over a mesh went through the collectives rather than the meshless
+path. A collective that a backward pass issues counts too.
 
 A tensor that requires grad goes through ``torch.distributed.nn``'s
 differentiable forms (the expert exchange and the data-parallel loss in
 a training step); everything else through ``torch.distributed`` itself.
-A failed collective raises: nothing here retries or falls back.
+The tensor-parallel layers use the conjugate pairs below, each a
+``torch.autograd.Function`` whose backward is the other half of the pair:
+
+* :func:`copy_to_model` (identity, then ``all_reduce`` of the gradient) at
+  the input of a column-parallel product, and :func:`reduce_from_model`
+  (``all_reduce``, then the identity) at the output of a row-parallel one;
+* :func:`gather_seq` (``all_gather`` along the sequence, then
+  ``reduce_scatter``) and :func:`scatter_seq` (``reduce_scatter``, then
+  ``all_gather``), their sequence-parallel forms;
+* :func:`gather_from_model` (``all_gather`` of rank blocks, then this
+  rank's block of the gradient) and :func:`split_to_model` (this rank's
+  block, then ``all_gather`` of the gradient), the layout changes between
+  a whole tensor and its rank blocks.
+
+Gathered blocks may differ in size along their dim (``sizes``, one a
+rank): they travel padded to the largest. A ``gloo`` group carries CUDA tensors
+for every kind here (PyTorch 2.11 on the H100: ``all_reduce``,
+``all_gather``, ``reduce_scatter`` and ``all_to_all``), so nothing is
+staged through the host. A failed collective raises: nothing here retries
+or falls back.
 """
 from __future__ import annotations
 
@@ -21,8 +41,9 @@ import collections
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
-KINDS = ("all_reduce", "all_to_all", "all_gather")
+KINDS = ("all_reduce", "all_to_all", "all_gather", "reduce_scatter")
 
 # Collectives issued so far in this process, by kind (reset with reset()).
 ISSUED: collections.Counter = collections.Counter()
@@ -67,18 +88,166 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def all_gather(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """Every rank's ``t`` of ``group`` concatenated along ``dim`` in rank order."""
+def all_gather(t: torch.Tensor, dim: int, group, sizes=None) -> torch.Tensor:
+    """Every rank's ``t`` of ``group`` concatenated along ``dim`` in rank order;
+    ``sizes`` (each rank's extent along ``dim``) where they differ."""
     ISSUED["all_gather"] += 1
-    t = t.contiguous()
     n = dist.get_world_size(group)
+    if sizes is not None and len(set(sizes)) > 1:
+        t = _pad_to(t, dim, max(sizes))
+    t = t.contiguous()
     if _needs_grad(t):
         from torch.distributed import nn as dist_nn
 
-        return torch.cat(dist_nn.functional.all_gather(t, group=group), dim=dim)
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t, group=group)
+        parts = list(dist_nn.functional.all_gather(t, group=group))
+    else:
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t, group=group)
+    if sizes is not None and len(set(sizes)) > 1:
+        parts = [p.narrow(dim, 0, s) for p, s in zip(parts, sizes)]
     return torch.cat(parts, dim=dim)
+
+
+def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over ``group`` of ``t``, of which this rank keeps its equal block
+    along ``dim``."""
+    ISSUED["reduce_scatter"] += 1
+    n = dist.get_world_size(group)
+    blocks = [b.contiguous() for b in t.split(blocks_of(t.shape[dim], n)[0][1], dim=dim)]
+    out = torch.empty_like(blocks[0])
+    dist.reduce_scatter(out, blocks, group=group)
+    return out
+
+
+def _pad_to(t: torch.Tensor, dim: int, width: int) -> torch.Tensor:
+    extra = width - t.shape[dim]
+    if extra == 0:
+        return t
+    pad = [0, 0] * (t.ndim - dim % t.ndim - 1) + [0, extra]
+    return F.pad(t, pad)
+
+
+def blocks_of(total: int, n: int, sizes=None) -> list[tuple[int, int]]:
+    """``[start, stop)`` of each rank's block of ``total`` (equal blocks, or
+    ``sizes``)."""
+    if sizes is None:
+        if total % n:
+            raise ValueError(f"{total} does not split into {n} equal blocks")
+        sizes = [total // n] * n
+    if sum(sizes) != total:
+        raise ValueError(f"blocks {list(sizes)} do not cover {total}")
+    out, start = [], 0
+    for s in sizes:
+        out.append((start, start + s))
+        start += s
+    return out
+
+
+def _block(t: torch.Tensor, dim: int, group, sizes) -> torch.Tensor:
+    start, stop = blocks_of(t.shape[dim], dist.get_world_size(group), sizes)[
+        dist.get_rank(group)]
+    return t.narrow(dim, start, stop - start)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, sizes):
+        ctx.dim, ctx.group, ctx.sizes = dim, group, sizes
+        return all_gather(x, dim, group, sizes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.dim, ctx.group, ctx.sizes).contiguous(), None, None, None
+
+
+class _SplitToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _block(x, dim, group, None).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as it is; its gradient summed over ``group`` (each rank's gradient
+    is the part that its column block of a product contributes)."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (the partial products of a row-parallel
+    product); the gradient passes as it is."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, group, sizes=None) -> torch.Tensor:
+    """Every rank's block ``x`` concatenated along ``dim``; the gradient's block
+    of this rank passes back."""
+    return _GatherFromModel.apply(x, dim, group, None if sizes is None else tuple(sizes))
+
+
+def split_to_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's equal block of the whole ``x`` along ``dim``; the gradient's
+    blocks are gathered back whole."""
+    return _SplitToModel.apply(x, dim, group)
+
+
+def gather_seq(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's rows ``x`` concatenated along the sequence ``dim``; the
+    gradient is summed over ``group`` and this rank keeps its rows."""
+    return _GatherSeq.apply(x, dim, group)
+
+
+def scatter_seq(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, this rank's rows along the sequence
+    ``dim``; the gradient's rows are gathered back whole."""
+    return _ScatterSeq.apply(x, dim, group)
 
 
 reset()

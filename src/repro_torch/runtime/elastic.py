@@ -18,19 +18,28 @@ With no group yet it starts a one-rank group on a ``FileStore`` in a
 fresh temporary file (no port, no environment, so processes that do
 this side by side cannot collide; the store removes the file when the
 group is destroyed). A group whose backend is not the
-device's raises; nothing switches backend.
+device's raises, except a ``gloo`` group for the card: its caller chose
+to carry CUDA tensors over the host (two ranks that share one card,
+which NCCL refuses); nothing switches backend.
+
+:func:`reshard` gives each packed weight its local logical ``shape``.
+Codes are nibble-packed along K, so a block of a row-parallel weight's
+packed rows is twice as many logical rows, except in the last rank's
+block of an odd K, which holds the pad row and one logical row less.
 """
 from __future__ import annotations
 
+import dataclasses
 import tempfile
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import PackedWeight
 from repro_torch.models.context import axes_group, axes_index, axes_size
 from repro_torch.runtime import collectives
-from repro_torch.runtime.sharding import map_with_path, spec_axes
+from repro_torch.runtime.sharding import spec_axes
 
 POD_SIZE = 256
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -61,12 +70,13 @@ def backend_for(device: torch.device) -> str:
 
 def ensure_group(device=None) -> None:
     """The default process group, started as a one-rank group on a ``FileStore``
-    when there is none; raises if it exists with another backend than ``device``'s."""
+    when there is none; raises if it exists with another backend than ``device``'s
+    (a ``gloo`` group serves the card too)."""
     device = resolve_device(device)
     backend = backend_for(device)
     if dist.is_initialized():
         have = dist.get_backend()
-        if have != backend:
+        if have != backend and not (have == "gloo" and device.type == "cuda"):
             raise ValueError(f"the process group runs {have!r}, but {device} needs {backend!r}")
         return
     if device.type == "cuda":  # NCCL binds the group to the current card
@@ -115,13 +125,70 @@ def _whole(x: torch.Tensor, mesh, spec) -> torch.Tensor:
     return x
 
 
+def _k_axes(pw: PackedWeight, spec) -> tuple[str, ...]:
+    """The axes that shard a packed weight's K (its codes' dim -2)."""
+    entries = list(spec) + [None] * (pw.codes.ndim - len(spec))
+    return spec_axes(entries[-2])
+
+
+def local_shape(pw: PackedWeight, mesh, spec) -> tuple[int, int]:
+    """The logical ``(K, N)`` of this rank's block of the whole packed weight
+    ``pw`` under its codes' ``spec``."""
+    k, n = pw.shape
+    entries = list(spec) + [None] * (pw.codes.ndim - len(spec))
+    n_axes = spec_axes(entries[-1])
+    if n_axes:
+        n //= axes_size(mesh, n_axes)
+    k_axes = _k_axes(pw, spec)
+    if k_axes:
+        parts = axes_size(mesh, k_axes)
+        rows = pw.codes.shape[-2] // parts
+        step = 2 * rows if pw.nibble else rows
+        start = axes_index(mesh, k_axes) * step
+        k = min(k, start + step) - start
+        if k < 1:
+            raise ValueError(f"K = {pw.shape[0]} over {parts} ranks leaves this rank no row")
+    return k, n
+
+
 def reshard(tree, mesh, spec_tree):
     """Each leaf of a whole (logical) tree replaced by this rank's block under its
-    spec: a view-free copy where the spec shards, the leaf itself where it does not."""
-    return map_with_path(lambda _, x, spec: local_block(x, mesh, spec), tree, spec_tree)
+    spec: a view-free copy where the spec shards, the leaf itself where it does not;
+    a packed weight's ``shape`` becomes its block's logical one."""
+    def leaf(x, spec):
+        if isinstance(x, PackedWeight):
+            return dataclasses.replace(x, codes=local_block(x.codes, mesh, spec.codes),
+                                       sf=local_block(x.sf, mesh, spec.sf),
+                                       shape=local_shape(x, mesh, spec.codes))
+        return local_block(x, mesh, spec)
+
+    return _walk(leaf, tree, spec_tree)
 
 
 def gather(tree, mesh, spec_tree):
     """:func:`reshard`'s inverse: each leaf whole, gathered from every rank's block
     (a collective: every rank of the mesh calls it)."""
-    return map_with_path(lambda _, x, spec: _whole(x, mesh, spec), tree, spec_tree)
+    def leaf(x, spec):
+        if not isinstance(x, PackedWeight):
+            return _whole(x, mesh, spec)
+        k, n = x.shape
+        entries = list(spec.codes) + [None] * (x.codes.ndim - len(spec.codes))
+        n *= axes_size(mesh, spec_axes(entries[-1]))
+        k_axes = _k_axes(x, spec.codes)
+        if k_axes:  # the blocks' logical rows, the last one's short of an odd K's pad
+            k = int(collectives.all_gather(
+                torch.tensor([k], device=x.codes.device), 0, axes_group(mesh, k_axes)).sum())
+        return dataclasses.replace(x, codes=_whole(x.codes, mesh, spec.codes),
+                                   sf=_whole(x.sf, mesh, spec.sf), shape=(k, n))
+
+    return _walk(leaf, tree, spec_tree)
+
+
+def _walk(fn, tree, spec_tree):
+    """``fn(leaf, spec)`` over a tree whose packed weights are leaves (their spec a
+    packed weight holding the codes' and scales' specs)."""
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, spec_tree[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_walk(fn, v, s) for v, s in zip(tree, spec_tree))
+    return fn(tree, spec_tree)

@@ -65,14 +65,20 @@ the setup's :class:`~repro_torch.models.context.ParallelCtx`: an MoE
 model through the expert-parallel exchange (``moe_impl`` defaults to
 ``"ep"``), and with ``flash_decode=True`` each decode step's attention
 through :func:`~repro_torch.models.flash_decode.flash_decode_attention`
-over the cache laid out sequence-first (``cache_specs_tree(...,
-prefer_seq=True)``). Parameters and cache are resharded by the sharding
-rules at start-up, which on a one-rank mesh leaves every tensor whole.
-The JAX engine is one controller over every device; an engine spread
-over more than one rank (and so any model axis wider than one rank)
-raises ``NotImplementedError`` (ROADMAP.md, queue 1 item 4b). Without a
-mesh ``flash_decode`` has nothing to shard and changes nothing, as in
-the JAX package.
+over the cache's sequence. :func:`static_generate` (and
+:func:`batch_generate`'s lockstep route) runs over a mesh of any number of
+ranks, SPMD, one process a rank: each rank takes its block of the batch
+over the data axes and its blocks of the parameters under the sharding
+rules, the ``dense``, ``moe`` and ``vlm`` families split their products
+over the model axis (the ``ssm``, ``hybrid`` and ``encdec``/``audio``
+families take data-only meshes: ROADMAP.md, queue 1 item 4d), the logits
+are whole on every model rank, so every rank picks the same tokens, and
+the ranks' tokens are gathered whole at the end. The JAX engine is one
+controller over every device; a :class:`ServeEngine` spread over more
+than one rank, and flash-decode on a model axis that also splits the
+heads, raise ``NotImplementedError`` (ROADMAP.md, queue 1 item 4c).
+Without a mesh ``flash_decode`` has nothing to shard and changes nothing,
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -87,11 +93,15 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.energy import lm_token_energy
 from repro_torch.device import host_to_device
 from repro_torch.models import get_model
-from repro_torch.models.context import ParallelCtx
+from repro_torch.models.context import ParallelCtx, axes_group, axes_index, axes_size
+from repro_torch.models.layers import tp_active
+from repro_torch.models.transformer import check_model_axis
 from repro_torch.obs.metrics import NULL_REGISTRY, Registry
 from repro_torch.obs.trace import ProfileHook, TraceLog
+from repro_torch.runtime import collectives
 from repro_torch.runtime import sharding as shr
 from repro_torch.runtime.elastic import reshard
+from repro_torch.runtime.sharding import spec_axes
 from repro_torch.runtime.straggler import StragglerMonitor
 from repro_torch.serve.scheduler import Request, SlotScheduler
 
@@ -104,7 +114,7 @@ ENGINE_FAMILIES = ("dense", "moe", "vlm")
 def _resolve_mesh(mesh):
     """``"auto"``: no mesh; a mesh or None as given. The JAX package lays an
     elastic mesh over more than one device here, but an engine spread over
-    more than one rank is not ported (ROADMAP.md, queue 1 item 4b), so until
+    more than one rank is not ported (ROADMAP.md, queue 1 item 4c), so until
     it is every rank of a larger process group serves on its own."""
     if isinstance(mesh, str):
         if mesh != "auto":
@@ -121,9 +131,11 @@ class ServeSetup:
     ``kv_bits=8`` stores int8 codes against static per-(layer, head)
     scales. ``mesh`` (a ``DeviceMesh`` or None) carries the model calls'
     :meth:`pctx`; ``moe_impl`` (``"ep"`` or ``"dense"``) and
-    ``flash_decode`` take effect only over a mesh, as in the JAX package. A
-    mesh of more than one rank raises ``NotImplementedError`` (ROADMAP.md,
-    queue 1 item 4b: a serving step spread over ranks).
+    ``flash_decode`` take effect only over a mesh, as in the JAX package.
+    ``batch`` is the whole batch; each rank serves its :meth:`rows`. A
+    family outside the tensor-parallel ones on a model axis of more than one
+    rank raises ``NotImplementedError`` (ROADMAP.md, queue 1 item 4d), as
+    does flash-decode there (item 4c).
     """
 
     cfg: ArchConfig
@@ -136,12 +148,12 @@ class ServeSetup:
     kv_bits: int = 0
 
     def __post_init__(self) -> None:
-        if self.mesh is not None and self.mesh.size() > 1:
+        pctx = self.pctx()
+        check_model_axis(pctx, self.cfg.family)
+        if self.flash_decode and tp_active(pctx):
             raise NotImplementedError(
-                f"serving over a mesh of {self.mesh.size()} ranks "
-                f"({shr.mesh_shape(self.mesh)}): the engine and the lockstep loop run on one "
-                "rank, and a multi-rank serving step (with tensor-parallel projections) is not "
-                "ported to repro_torch yet; see ROADMAP.md (queue 1 item 4b)")
+                "flash-decode's sequence-sharded cache on a model axis that also splits the "
+                "heads is not ported to repro_torch yet; see ROADMAP.md (queue 1 item 4c)")
         if self.moe_impl not in ("ep", "dense"):
             raise ValueError(f'moe_impl is "ep" or "dense", got {self.moe_impl!r}')
         if self.kv_bits not in (0, 8):
@@ -155,14 +167,39 @@ class ServeSetup:
                            model_axis="model", moe_impl=self.moe_impl,
                            flash_decode=self.flash_decode)
 
+    def rows(self) -> tuple[int, int]:
+        """``[start, stop)``: this rank's rows of the batch, its block over the batch
+        axes where the batch divides them (the rule of ``sharding.input_spec``)."""
+        if self.mesh is None:
+            return 0, self.batch
+        axes = spec_axes(shr.input_spec((self.batch,), self.mesh)[0])
+        n = axes_size(self.mesh, axes)
+        i = axes_index(self.mesh, axes) if axes else 0
+        return i * self.batch // n, (i + 1) * self.batch // n
+
+    def gather_rows(self, out: torch.Tensor) -> torch.Tensor:
+        """The whole batch's ``out`` from each rank's rows (:meth:`rows`)."""
+        if self.mesh is None:
+            return out
+        axes = spec_axes(shr.input_spec((self.batch,), self.mesh)[0])
+        if not axes or axes_size(self.mesh, axes) == 1:
+            return out
+        return collectives.all_gather(out, 0, axes_group(self.mesh, axes))
+
     def layout(self, params, cache):
-        """``(params, cache)`` resharded onto the mesh by the sharding rules (the
-        cache sequence-first under flash-decode); as given without a mesh."""
+        """``(params, cache)`` laid out on the mesh: the parameters resharded by the
+        sharding rules, the cache (made for this rank's rows) keeping this rank's
+        KV heads on a model axis of more than one rank (``transformer.tp_cache``);
+        as given without a mesh."""
         if self.mesh is None:
             return params, cache
         params = reshard(params, self.mesh, shr.param_specs(params, self.mesh))
-        cspecs = shr.cache_specs_tree(cache, self.mesh, prefer_seq=self.flash_decode)
-        return params, reshard(cache, self.mesh, cspecs)
+        pctx = self.pctx()
+        if tp_active(pctx):
+            from repro_torch.models.transformer import tp_cache
+
+            cache = tp_cache(cache, self.cfg, pctx)
+        return params, cache
 
 
 # ---------------------------------------------------------------------------
@@ -334,20 +371,26 @@ def static_generate(
     state; rglru's recurrent state and ring) from the prefill through
     every step. Sampling (``greedy=False`` with a ``generator``)
     draws from the ``torch.Generator``, whose bits are not ``jax.random``'s.
-    Under ``setup.mesh`` the parameters and cache are resharded by the
-    sharding rules (:meth:`ServeSetup.layout`) and every model call runs with
-    the setup's parallel context.
+    Under ``setup.mesh`` (every rank of it calls this, on the whole batch and
+    the whole parameters) each rank takes its rows (:meth:`ServeSetup.rows`)
+    and its blocks of the parameters (:meth:`ServeSetup.layout`), every model
+    call runs with the setup's parallel context, and the ranks' tokens come
+    back whole. Sampling under a model axis of more than one rank needs the
+    same ``generator`` state on each of its ranks.
     """
     cfg = setup.cfg
     api = get_model(cfg)
     device = params["embed"].device
     if setup.kv_bits and kv_scales is None:
         raise ValueError("kv_bits=8 stores int8 codes against calibrated scales: pass kv_scales")
+    lo, hi = setup.rows()
+    batch = {k: torch.as_tensor(v)[lo:hi] if k in ("tokens", "frontend") else v
+             for k, v in batch.items()}
     if kv_scales is not None:
-        cache = api.init_cache(cfg, setup.batch, setup.max_len, kv_scales=kv_scales, device=device)
+        cache = api.init_cache(cfg, hi - lo, setup.max_len, kv_scales=kv_scales, device=device)
     else:
-        cache = api.init_cache(cfg, setup.batch, setup.max_len, device=device)
-    tokens = torch.as_tensor(batch["tokens"]).to(device)
+        cache = api.init_cache(cfg, hi - lo, setup.max_len, device=device)
+    tokens = batch["tokens"].to(device)
     params, cache = setup.layout(params, cache)
     prefill_fn, decode_fn = build_serve_fns(setup, api)
     logits, cache = prefill_fn(params, {**batch, "tokens": tokens}, cache)
@@ -357,7 +400,7 @@ def static_generate(
     for i in range(max_new_tokens - 1):
         logits, cache = decode_fn(params, out[-1], cache, pos + i)
         out.append(_pick(logits, greedy, generator))
-    return torch.cat(out, dim=1)
+    return setup.gather_rows(torch.cat(out, dim=1))
 
 
 def _pick(logits: torch.Tensor, greedy: bool, generator: torch.Generator | None) -> torch.Tensor:
@@ -437,7 +480,7 @@ class ServeEngine:
       max_len: per-slot cache capacity (prompt + generated); a request
         reaching it is finished early and flagged ``truncated``.
       mesh: ``"auto"`` (no mesh: an engine over more than one rank is
-        ROADMAP.md queue 1 item 4b), a ``DeviceMesh`` of one rank, or None.
+        ROADMAP.md queue 1 item 4c), a ``DeviceMesh`` of one rank, or None.
       flash_decode: under a mesh, decode attention over the sequence-sharded
         cache (:func:`~repro_torch.models.flash_decode.flash_decode_attention`).
       moe_impl: under a mesh, ``"ep"`` (the expert exchange, default) or
@@ -541,6 +584,12 @@ class ServeEngine:
         self.device = params["embed"].device
         dev = self.device
         self.mesh = _resolve_mesh(mesh)
+        if self.mesh is not None and self.mesh.size() > 1:
+            raise NotImplementedError(
+                f"ServeEngine over a mesh of {self.mesh.size()} ranks "
+                f"({shr.mesh_shape(self.mesh)}): its scheduler would have to agree across the "
+                "ranks, which is not ported to repro_torch yet; see ROADMAP.md (queue 1 item "
+                "4c). static_generate serves over such a mesh")
         self.setup = ServeSetup(
             cfg=cfg, mesh=self.mesh, max_len=max_len, batch=n_slots,
             moe_impl=moe_impl, flash_decode=flash_decode,

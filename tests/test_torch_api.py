@@ -15,6 +15,16 @@ from repro_torch.calib import observers, policy  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -59,6 +59,16 @@ GENERATED = ("olmoe_1b_7b", "kimi_k2_1t_a32b", "internvl2_26b", "mamba2_780m",
 RECURRENT_ENCDEC = ("mamba2_780m", "recurrentgemma_2b", "seamless_m4t_large_v2")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rel=REL):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     err = float(np.abs(got - want).max())

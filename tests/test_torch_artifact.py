@@ -43,6 +43,16 @@ jconvert = __import__("sys").modules["repro.core.convert"]
 FMT_NAMES = sorted(telp.PRESET_FORMATS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", FMT_NAMES)
 @pytest.mark.parametrize("n", [1, 7, 64, 1001])
 def test_pack_codes_bytes_identical(name, n):

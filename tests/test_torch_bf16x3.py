@@ -30,6 +30,16 @@ TOL = dict(rtol=1e-5, atol=1e-4)
 FLT_MAX = np.finfo(np.float32).max
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bits(t: torch.Tensor) -> np.ndarray:
     return t.contiguous().view(torch.int32).numpy().view(np.uint32)
 

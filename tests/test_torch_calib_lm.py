@@ -27,6 +27,16 @@ from repro_torch.kernels.ops import PackedWeight, packed_tree_bytes  # noqa: E40
 from repro_torch.runtime.quantized_params import ACT_SITE_BY_LEAF, quantize_stacked  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def gqa():
     jc, tc = tp.lm_configs("gqa")

@@ -26,6 +26,16 @@ TOL = dict(rtol=1e-5, atol=1e-4)
 _j_pack = jax.jit(jops.pack_conv_weight, static_argnums=(1,), static_argnames=("granularity",))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _carry(pw):
     return packed_from_numpy(
         np.asarray(pw.codes), np.asarray(pw.sf), pw.fmt_name, pw.nibble, pw.shape,

@@ -33,6 +33,16 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 FMT_NAMES = sorted(telp.PRESET_FORMATS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("name", FMT_NAMES)
 def test_format_tables_equal(name):
     jf, tf = jelp.PRESET_FORMATS[name], telp.PRESET_FORMATS[name]

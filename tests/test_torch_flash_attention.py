@@ -26,6 +26,16 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(seed, shape, dtype=np.float32):
     rng = np.random.default_rng(seed)
     return [rng.normal(size=shape).astype(np.float32).astype(dtype) for _ in range(3)]

@@ -30,6 +30,16 @@ from repro_torch.kernels.fused_decode import fused_decode_matmul as t_fused  # n
 TOL = dict(rtol=1e-5, atol=1e-4)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _stored(rng, fmt_name, k, n, nibble):
     if nibble:
         return rng.integers(0, 256, size=(k // 2, n)).astype(np.uint8)

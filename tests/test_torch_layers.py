@@ -22,6 +22,16 @@ from repro_torch.models import layers as tl  # noqa: E402
 RNG = np.random.default_rng(0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(shape, scale=1.0):
     return (RNG.normal(size=shape) * scale).astype(np.float32)
 

@@ -14,7 +14,14 @@ paths (the card has no JAX):
   |out|, float and int8 caches; ``moe_ep`` against ``moe_dense`` within 1e-5
   of max |y| at a capacity that drops nothing;
 * ``compressed_mean`` on the NCCL group equal to the codec's round trip;
-  three data-parallel ZeRO-1 train steps equal to the meshless steps.
+  three data-parallel ZeRO-1 train steps equal to the meshless steps;
+* tensor parallelism with two ranks on the one card (NCCL refuses two ranks
+  on one device, so a ``gloo`` group carries the card's tensors over the
+  host; rank bodies in ``tests/torch_tp_ranks.py``): reduced float32 qwen3,
+  a4 codes, ``static_generate`` on a ``(1, 2)`` mesh giving the meshless
+  tokens with each rank launching, route by route, what the meshless run
+  launches; three train steps with and without ``seq_parallel`` within
+  1e-5 relative of the meshless losses.
 
     python -m pytest -m gpu tests/test_torch_*.py
 """
@@ -163,3 +170,34 @@ def test_mesh_train_steps_on_card_match_meshless(cuda_mesh):
                                                                     device="cuda"))
             losses[mesh is None].append(float(m["loss"]))
     np.testing.assert_allclose(losses[False], losses[True], rtol=1e-6)
+
+
+@pytest.fixture(scope="module")
+def two_ranks_on_one_card(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.multiprocessing as mp
+
+    import torch_tp_ranks as R
+
+    d = tmp_path_factory.mktemp("tp_gpu")
+    mp.spawn(R.gpu_rank_main, args=(2, str(d / "store"), str(d)), nprocs=2, join=True)
+    return [dict(np.load(d / f"gpu_rank{r}.npz")) for r in range(2)]
+
+
+def test_tensor_parallel_two_ranks_on_one_card(two_ranks_on_one_card):
+    for res in two_ranks_on_one_card:
+        np.testing.assert_array_equal(res["tp/tokens"], res["meshless/tokens"])
+        routes = [k.split("/launches/")[1] for k in res if k.startswith("tp/launches/")]
+        for r in routes:
+            assert int(res[f"tp/launches/{r}"]) == int(res[f"meshless/launches/{r}"]), r
+        assert sum(int(res[f"tp/launches/{r}"]) for r in routes) > 0
+        assert int(res["tp/all_reduce"]) > 0 and int(res["meshless/all_reduce"]) == 0
+
+
+def test_tensor_parallel_train_steps_on_one_card(two_ranks_on_one_card):
+    for res in two_ranks_on_one_card:
+        for name in ("tp", "sp"):
+            np.testing.assert_allclose(res[f"train/{name}"], res["train/meshless"], rtol=1e-5)
+        assert int(res["train/sp/reduce_scatter"]) > 0
+        assert int(res["train/tp/reduce_scatter"]) == 0

@@ -50,6 +50,16 @@ ACC_TOL = 2 / 1024
 SPEC = "ALEXNET_MINI"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _weights(shape, seed=0):
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32) * 0.1
 

@@ -30,6 +30,16 @@ from repro_torch.obs import metrics as tmetrics  # noqa: E402
 from repro_torch.runtime.straggler import StragglerMonitor as TMonitor  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _record(mod, seed):
     """The same seeded record sequence into a fresh registry of ``mod``."""
     rng = np.random.default_rng(seed)

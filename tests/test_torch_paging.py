@@ -41,6 +41,16 @@ KW = dict(name="engine-t", family="dense", n_layers=2, d_model=64, n_heads=4, n_
 JC, TC = JCfg(**KW), TCfg(**KW)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def params():
     jp = jtr.init_params(JC, jax.random.PRNGKey(0))
@@ -258,6 +268,6 @@ def test_engine_validation_errors(params):
                     kv_scales=(np.ones((2, 2)), np.ones((2, 2))))
     with pytest.raises(ValueError, match="kv_cache"):
         ServeEngine(TC, tparams, kv_cache="chunked")
-    # a paged engine spread over more than one rank waits for ROADMAP item 4b
-    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+    # a paged engine spread over more than one rank waits for ROADMAP item 4c
+    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
         ServeEngine(TC, tparams, kv_cache="paged", flash_decode=True, mesh=tp.TwoRankMesh())

@@ -39,6 +39,16 @@ KW = dict(name="engine-t", family="dense", n_layers=2, d_model=64, n_heads=4, n_
 JC, TC = JCfg(**KW), TCfg(**KW)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def trees():
     """(JAX float, port float, JAX a4 packed, port a4 packed) trees of the same weights."""
@@ -263,10 +273,15 @@ def test_setup_and_engine_reject_unported_options(trees):
     from repro_torch.models.context import ParallelCtx
 
     tparams = trees[1]
-    # serving over more than one rank waits for ROADMAP item 4b; flash-decode
-    # without a mesh has nothing to shard (no context), as in the JAX package
-    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
-        ServeSetup(cfg=TC, mesh=tp.TwoRankMesh(), max_len=8, batch=1)
+    # the lockstep loop serves over more than one rank, but not the recurrent and
+    # enc-dec families on a model axis of more than one (ROADMAP item 4d), nor
+    # flash-decode there (item 4c); flash-decode without a mesh has nothing to
+    # shard (no context), as in the JAX package
+    with pytest.raises(NotImplementedError, match="queue 1 item 4d"):
+        ServeSetup(cfg=TCfg(**{**KW, "family": "hybrid"}), mesh=tp.TwoRankMesh(), max_len=8,
+                   batch=1)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
+        ServeSetup(cfg=TC, mesh=tp.TwoRankMesh(), max_len=8, batch=1, flash_decode=True)
     assert ServeSetup(cfg=TC, mesh=None, max_len=8, batch=1, flash_decode=True).pctx() is None
     # MoE models serve (the dense form without a mesh); over a mesh the experts
     # must be the rank's shard of them
@@ -275,7 +290,7 @@ def test_setup_and_engine_reject_unported_options(trees):
                    "we3": torch.zeros(4, 1, 1), "we2": torch.zeros(4, 1, 1)},
                   torch.zeros(2, TC.d_model), TCfg(**{**KW, "n_experts": 4, "topk": 2}),
                   pctx=ParallelCtx(mesh=tp.TwoRankMesh()))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
         ServeEngine(TC, tparams, mesh=tp.TwoRankMesh())
     with pytest.raises(ValueError, match="DeviceMesh"):
         ServeEngine(TC, tparams, mesh="everywhere")

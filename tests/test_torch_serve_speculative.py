@@ -38,6 +38,16 @@ KW = dict(name="spec-t", family="dense", n_layers=2, d_model=64, n_heads=4, n_kv
 JC, TC = JCfg(**KW), TCfg(**KW)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def trees():
     """(JAX float, port float, JAX a4 draft, port a4 draft) of the same weights."""

@@ -32,6 +32,16 @@ from repro_torch.runtime import elastic as tel  # noqa: E402
 from repro_torch.runtime import sharding as tshr  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class FakeMesh:
     """Duck-typed mesh: the rules read only .shape."""
 

@@ -26,6 +26,16 @@ from torch_parity import run_slice  # noqa: E402
 SPEC = "ALEXNET_MINI"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def slice_run():
     return run_slice(SPEC)

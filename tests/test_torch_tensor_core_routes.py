@@ -33,6 +33,16 @@ from repro_torch.kernels import fused_decode as fd  # noqa: E402
 WIDE = ElpBsdFormat((DigitSpec(shifts=(0,)), DigitSpec(shifts=(9,))), name="shifts_0_9")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_decode_route_rule_without_launching():
     a4, c6 = TFMT["elp_bsd_a4"], TFMT["elp_bsd_c6"]
     x = torch.zeros(16, 64)

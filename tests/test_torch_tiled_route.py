@@ -31,6 +31,16 @@ WIDE = ElpBsdFormat((DigitSpec(shifts=(0,)), DigitSpec(shifts=(9,))), name="shif
 LAYOUTS = [("elp_bsd_a4", True)] + [(f, False) for f in sorted(TFMT)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _f32_bits_of_bf16(half: np.ndarray) -> np.ndarray:
     """16-bit bf16 patterns -> the float32 bit patterns of the same values."""
     return (half.astype(np.uint32) << 16).view(np.float32).view(np.uint32)

@@ -31,6 +31,16 @@ B, S, MAX_LEN = 2, 12, 20
 TOL = {"dense": 1e-4, "quant": 1e-3, "static": 1e-3}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for this file: the test runner puts several workers on
+    one host, where oversubscribed torch threads slow small ops many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rel):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     err = float(np.abs(got - want).max())
@@ -143,15 +153,19 @@ def test_model_api_and_unported_inputs():
     toks = torch.zeros(1, 4, dtype=torch.long)
     loss = api.loss_fn(params, tc, {"tokens": toks, "labels": toks})
     assert loss.ndim == 0 and bool(torch.isfinite(loss))
-    # over a mesh whose model axis holds more than one rank the projections would be
-    # tensor parallel, which waits for ROADMAP item 4b (one rank: test_torch_mesh_engine.py)
+    # over a mesh whose model axis holds more than one rank the projections are
+    # tensor parallel (test_torch_tensor_parallel.py) for the transformer families;
+    # the recurrent and enc-dec ones wait for ROADMAP item 4d
     from repro_torch.models.context import ParallelCtx
 
     pctx = ParallelCtx(mesh=tp.TwoRankMesh())
-    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
-        api.loss_fn(params, tc, {"tokens": toks, "labels": toks}, pctx=pctx)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4b"):
-        ttr.prefill(params, tc, torch.zeros(1, 4, dtype=torch.long), cache, pctx=pctx)
+    ttr.check_model_axis(pctx, tc.family)
+    sc = type(tc)(**{**tc.__dict__, "family": "ssm"})
+    with pytest.raises(NotImplementedError, match="queue 1 item 4d"):
+        get_model(sc).prefill(params, sc, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, cache,
+                              pctx=pctx)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4d"):
+        ttr.check_model_axis(pctx, "encdec")
     with pytest.raises(ValueError, match="unknown model family"):
         get_model(type(tc)(**{**tc.__dict__, "family": "rnn"}))
     with pytest.raises(ValueError, match="get_model"):  # the ssm family has its own tree

@@ -420,22 +420,29 @@ def _port_layout(res, inp, meshes, out_dir) -> None:
 
 
 def _port_raises(res, inp, meshes, out_dir) -> None:
-    import torch
-
+    """The boundary of the ported mesh paths: the engine over more than one rank
+    (ROADMAP item 4c), the recurrent and enc-dec families on a model axis of more
+    than one rank (item 4d)."""
+    from repro_torch.configs import get_config
     from repro_torch.configs.base import ArchConfig
-    from repro_torch.models import transformer
-    from repro_torch.models.context import ParallelCtx
+    from repro_torch.models import get_model
     from repro_torch.runtime.train_loop import TrainSetup
-    from repro_torch.serve.engine import ServeSetup
+    from repro_torch.serve.engine import ServeEngine, ServeSetup
 
     cfg = ArchConfig(**LM_KW)
     m22 = meshes["2x2"]
+    ssm = get_config("mamba2_780m").reduced()
+    hybrid = get_config("recurrentgemma_2b").reduced()
+    encdec = get_config("seamless_m4t_large_v2").reduced()
     calls = {
-        "train": lambda: TrainSetup(cfg=cfg, mesh=m22),
-        "seq_parallel": lambda: TrainSetup(cfg=cfg, mesh=meshes["4x1"], seq_parallel=True),
-        "serve": lambda: ServeSetup(cfg=cfg, mesh=meshes["4x1"], max_len=8, batch=4),
-        "forward": lambda: transformer.forward(_params(inp), cfg, torch.zeros(2, 4, dtype=torch.long),
-                                               pctx=ParallelCtx(mesh=m22)),
+        "engine": lambda: ServeEngine(cfg, _params(inp), n_slots=4, max_len=8, mesh=meshes["4x1"]),
+        "ssm": lambda: TrainSetup(cfg=ssm, mesh=m22),
+        "hybrid": lambda: ServeSetup(cfg=hybrid, mesh=m22, max_len=8, batch=4),
+        "encdec": lambda: get_model(encdec).loss_fn(
+            get_model(encdec).init_params(encdec, 0, device="cpu"), encdec,
+            {"tokens": np.zeros((2, 4), np.int64), "labels": np.zeros((2, 4), np.int64),
+             "frontend": np.zeros((2, 4, encdec.d_model), np.float32)},
+            pctx=TrainSetup(cfg=cfg, mesh=m22).pctx()),
     }
     for name, call in calls.items():
         try:
@@ -447,8 +454,8 @@ def _port_raises(res, inp, meshes, out_dir) -> None:
 
 def _port_defaults(res, inp, meshes, out_dir) -> None:
     """The defaults inside a group of 4 ranks: ``ServeEngine``'s ``mesh="auto"``
-    serves without a mesh, and the train launcher's default model axis (1)
-    trains data parallel over every rank."""
+    serves without a mesh, and the train launcher's default model axis (16,
+    halved to what 4 ranks divide) trains tensor parallel over every rank."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ArchConfig
