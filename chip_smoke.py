@@ -42,7 +42,7 @@ stays held and timed).
   ``batch_generate`` and the engine on 8 of the prompts (launches exact, a
   row parting from the lockstep tokens only at a plain near-tie); the
   serving engine at the same width: 24 seeded requests (prompts of 48-400
-  tokens, half behind one shared 128-token prefix, 16-32 new tokens) into 8
+  tokens, half behind one shared 128-token prefix, 8-16 new tokens) into 8
   slots, (a) ``QuantizedModel.serve`` on the dense cache, (b) the paged
   cache with static int8 K/V, (c) (b) with ngram speculative decoding, (d) a
   ``QuantScheme.speculative`` artifact (a4 draft, float verify tier), its
@@ -55,10 +55,10 @@ stays held and timed).
   tokens teacher-forced through the same model with its kernels and with
   their plain versions (logits within the LM gate; every token within the
   gate of the top logit of both, with controls of wrong tokens that must
-  fail), TTFT/ITL/tokens/s from the obs histograms; every kernel shape those
-  runs gave a wrapper (decode and verify steps, ragged admissions on both
-  matmul routes, flash at ragged S) held against its plain version on the
-  run's own inputs and timed; and the reduced 2-layer qwen3-8b on the card
+  fail), TTFT from the requests' own samples, ITL from the obs histograms,
+  tokens/s; every kernel shape those runs gave a wrapper (decode and verify
+  steps, ragged admissions on both matmul routes, flash at ragged S) held
+  against its plain version on the run's own inputs and timed; and the reduced 2-layer qwen3-8b on the card
   against the CPU;
 * the paper's Sec. V slice, after the AlexNet path: ALEXNET_MINI and
   VGG_MINI trained on the card at the JAX package's budget (1200 momentum-SGD
@@ -141,8 +141,12 @@ stays held and timed).
   shape of (a) and (b) held against its plain version on the run's own
   inputs; (c) lm-100m 20 steps with and without ``seq_parallel``, the
   losses within 1e-5 relative of the meshless run's, no kernel launched, a
-  checkpoint of the mesh run resumed on the mesh and without one. Its
-  times are of two ranks sharing one card over a host wire.
+  checkpoint of the mesh run resumed on the mesh and without one; (d) the
+  qwen3-8b continuous-batching engine over the ranks (``_tp_engine``) on the
+  (1, 2) mesh and a (2, 1) one: launches and collectives exact, tokens equal
+  on both ranks and in the gate, prefix hits the meshless engine's, every
+  kernel shape of its runs held against its plain version. Its times are of
+  two ranks sharing one card over a host wire.
 
     python3 chip_smoke.py
 
@@ -226,7 +230,7 @@ LM_ENGINE_GEN_ROWS = 8  # QuantizedModel.generate through the engine: 8 of the 1
 ENGINE_REQUESTS, ENGINE_SLOTS, ENGINE_MAX_LEN, ENGINE_PAGE = 24, 8, 512, 16
 ENGINE_LENGTHS = (48, 96, 160, 320, 400)
 ENGINE_PREFIX = 128
-ENGINE_NEW = (16, 32)
+ENGINE_NEW = (8, 16)
 ENGINE_SPEC_K = 4
 # (d), model drafts against the float verify tier (each round W - 1 draft
 # steps and one verify), serves the first ENGINE_SPEC_REQUESTS requests; the
@@ -781,7 +785,8 @@ def lm_main_path(torch, dev, failures, rows, mesh=None, mesh_report=None) -> tup
     if max(rels) > LM_LOGIT_REL_TOL:
         failures.append(f"LM logits: kernels vs plain {max(rels):.3e} relative")
     tp_save(torch, qm, "qwen3_8b", prompts=prompts, tokens=new, logits=kernel_logits,
-            prefill_ms=statistics.median(pre_ms[1:]), decode_ms=statistics.median(later_steps))
+            prefill_ms=statistics.median(pre_ms[1:]), decode_ms=statistics.median(later_steps),
+            calib=calib)
 
     # Greedy QuantizedModel.generate routes through batch_generate to the
     # engine: one slot per row, each admission a 128-token prefill (the
@@ -961,12 +966,16 @@ def _engine_forced(torch, transformer, params, cfg, reqs, outs, kv_scales=None):
     return list(torch.split(logits, [len(o) for o in outs]))
 
 
-def _serve_run(torch, label, run, reqs, failures, tap, *, paged: bool, per_layer: int = 7):
+def _serve_run(torch, label, run, reqs, failures, tap, *, paged: bool, per_layer: int = 7,
+               readings: dict | None = None):
     """Drive one engine run (``run(metrics, trace)`` serves ``reqs``) under the
     kernel ``tap``, counting every launch per model call from zero (the engine's
     prefill, decode_step, verify and draft calls); check the counts per call
     (``per_layer`` packed block matmuls a layer), completion and the page pool;
-    print the obs readings. Returns (outs, engine, launches)."""
+    print the obs readings: TTFT and prefill from the requests' own samples (the
+    trace's admissions), ITL as the obs histogram's bucket bounds (steps of
+    2^0.25, about 19 %). ``readings`` gets the TTFT samples (ms). Returns
+    (outs, engine, launches)."""
     import numpy as np
 
     import repro_torch.serve.engine as engine_mod
@@ -1102,13 +1111,18 @@ def _serve_run(torch, label, run, reqs, failures, tap, *, paged: bool, per_layer
                     f"{spec['tokens_drafted']} drafted ({spec['acceptance_rate']:.4f}), "
                     f"{acc.mean:.3f} tokens a slot a round (p50 {acc.percentile(50):.0f}), "
                     f"{(n_tok - len(reqs)) / max(spec['rounds'], 1):.3f} a round over all slots")
+    admits = [ev for ev in log.events if ev["event"] == "admit"]
+    ttft = [ev["ttft_s"] * 1e3 for ev in admits]
+    pre = [ev["prefill_s"] * 1e3 for ev in admits]
+    if readings is not None:
+        readings["ttft_ms"] = ttft
     print(f"[engine] {label}: {len(reqs)} requests, {n_tok} tokens in {wall:.2f} s, "
-          f"{n_tok / wall:.1f} tokens/s; TTFT p50 {pct('serve.ttft_s', 50):.1f} p99 "
-          f"{pct('serve.ttft_s', 99):.1f} ms; ITL p50 {pct('serve.itl_s', 50):.1f} p99 "
-          f"{pct('serve.itl_s', 99):.1f} ms; decode {st['decode_steps']} steps, "
+          f"{n_tok / wall:.1f} tokens/s; TTFT median {statistics.median(ttft):.1f} max "
+          f"{max(ttft):.1f} ms; ITL p50 {pct('serve.itl_s', 50):.1f} p99 "
+          f"{pct('serve.itl_s', 99):.1f} ms (bucket bounds); decode {st['decode_steps']} steps, "
           f"{mon['median_s'] * 1e3:.1f} ms a step (median; p50 {mon['p50_s'] * 1e3:.1f}, max "
-          f"{mon['max_s'] * 1e3:.1f}); {st['prefills']} admissions, prefill p50 "
-          f"{pct('serve.prefill_s', 50):.1f} ms{spec_txt}; modeled "
+          f"{mon['max_s'] * 1e3:.1f}); {st['prefills']} admissions, prefill median "
+          f"{statistics.median(pre):.1f} ms{spec_txt}; modeled "
           f"{st['energy_nj_per_token']:.4g} nJ a token; max_memory_allocated {peak} B")
     if eng.profile is not None:
         # ProfileHook: torch.profiler from the end of the first decode dispatch
@@ -1588,6 +1602,7 @@ VLM_LOGIT_REL_TOL = 0.15
 ROUTE_FLIP_LIMIT = 0.25
 MOE_LOGIT_REL_TOL = 0.15
 MOE_CONTROL_STEPS = 4
+MOE_ENGINE_REQUESTS = 12  # the MoE engine runs' share of the engine phase's requests
 
 
 class RouteTap:
@@ -1934,9 +1949,10 @@ def moe_phase(torch, dev, failures, rows, mesh=None, mesh_report=None) -> dict:
     torch.cuda.empty_cache()
     hold_tapped(torch, dev, "moe static_generate", tap, rows, failures)
 
-    # The engine on the engine phase's traffic: (a) dense through
-    # QuantizedModel.serve, (b) the paged static int8 cache.
-    reqs = engine_requests(cfg.vocab)
+    # The engine on the engine phase's first MOE_ENGINE_REQUESTS requests (a
+    # decode step takes 0.6 s here, and the phases share the script's limit):
+    # (a) dense through QuantizedModel.serve, (b) the paged static int8 cache.
+    reqs = engine_requests(cfg.vocab)[:MOE_ENGINE_REQUESTS]
     scales = calibrate_kv_cache(qm.params, cfg, calib)
     geom = dict(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN)
     runs = [
@@ -3068,6 +3084,8 @@ def mesh_serve_phase(torch, dev, qm, cfg, calib, failures, mesh, report) -> None
             finally:
                 transformer.flash_decode_attention = real_fd
             runs[meshed] = (outs, launches)
+            if not meshed:
+                plain_hits = eng.stats()["cache"]["prefix_hits"]
             if meshed:
                 st = eng.stats()
                 print(f"[mesh] (a) {label}: engine mesh {st['mesh']}, moe_impl "
@@ -3079,6 +3097,10 @@ def mesh_serve_phase(torch, dev, qm, cfg, calib, failures, mesh, report) -> None
                 failures.append(f"[mesh] (a) {label}: the meshless run issued collectives")
             del eng
         (plain_outs, plain_l), (mesh_outs, mesh_l) = runs[False], runs[True]
+        # the meshless engine's tokens and prefix hits, for the TP phase's part (d)
+        os.makedirs(TP_DIR, exist_ok=True)
+        torch.save({"outs": [o.tolist() for o in plain_outs], "prefix_hits": plain_hits},
+                   os.path.join(TP_DIR, f"qwen3_8b.engine_{'paged' if paged else 'dense'}.pt"))
         same = sum(int((a == b).all()) for a, b in zip(plain_outs, mesh_outs))
         print(f"[mesh] (a) {label}: launches with the mesh {mesh_l}, without {plain_l}; "
               f"requests with tokens identical to the meshless engine's {same}/{len(reqs)}")
@@ -3317,6 +3339,10 @@ TP_MOE_STEPS = 4  # olmoe: the prefill and 3 decode steps
 TP_TRAIN_STEPS, TP_TRAIN_CKPT = 20, 10  # lm-100m: the mesh phase's (c) steps
 TP_TRAIN_REL_TOL = 1e-5
 TP_TIMEOUT_S = 900
+# (d): the first MESH_REQUESTS engine requests, each cut to its first TP_ENGINE_NEW new
+# tokens (the engine phase's profiled run's cut): the script's time limit, not the
+# checks, sets it
+TP_ENGINE_NEW = PROFILED_NEW
 
 
 def tp_save(torch, qm, name, **refs) -> None:
@@ -3409,7 +3435,7 @@ def tp_rank_main(rank: int, world: int, store: str) -> None:
     out = {"failures": [], "rows": {k: [] for k in KERNEL_ROUTES}, "launches": {},
            "report": {"mesh": str(mesh), "backend": dist.get_backend()}}
     try:
-        for part in (_tp_qwen3, _tp_olmoe, _tp_train):
+        for part in (_tp_qwen3, _tp_olmoe, _tp_train):  # (d) runs inside _tp_qwen3
             part(torch, dev, mesh, rank, out)
             dist.barrier()
     except BaseException:
@@ -3446,7 +3472,9 @@ def _tp_qwen3(torch, dev, mesh, rank, out) -> None:
     LM gate of the meshless kernels' logits, this run's tokens parting from the
     meshless ones only within the gate of the top logit; prefill and decode ms
     and peak memory; every kernel shape of the run held against its plain
-    version on its own inputs."""
+    version on its own inputs. Then the float-activation control of the logit
+    reading (``_tp_float_control``) and, on the same loaded artifact, the
+    engine over the ranks (``_tp_engine``, part (d))."""
     import repro_torch.models.transformer as transformer
     import repro_torch.serve.engine as engine_mod
     from repro_torch import api
@@ -3529,9 +3557,172 @@ def _tp_qwen3(torch, dev, mesh, rank, out) -> None:
                               "decode_ms_median": statistics.median(step_ms),
                               "peak_bytes": peak, "generate_s": gen_s}
     del params, cache, forced, logits
+    _tp_float_control(torch, dev, setup, qm, prompts, new, rel, rank, out)
     _tp_held(torch, dev, mesh, rank, "qwen3-8b static_generate", tap, out)
+    _tp_engine(torch, dev, mesh, rank, out, qm, cfg, refs["calib"].to(dev))
     del qm
     torch.cuda.empty_cache()
+
+
+def _strip_act(tree):
+    """``tree`` with every packed weight's static activation quantizer taken off
+    (the same codes: float activations into the same products)."""
+    from repro_torch.kernels.ops import PackedWeight
+
+    if isinstance(tree, dict):
+        return {k: _strip_act(v) for k, v in tree.items()}
+    if isinstance(tree, PackedWeight) and tree.act_scale is not None:
+        return dataclasses.replace(tree, act_scale=None, act_bits=None)
+    return tree
+
+
+def _tp_float_control(torch, dev, setup, qm, prompts, new, rel_static, rank, out) -> None:
+    """The control of (a)'s logit reading: the same teacher-forced comparison, the
+    (1, 2) run against the meshless one, both on the kernels, on the loaded tree
+    with its static activation scales taken off. Where the float reading is not
+    well below the static one, the static 8-bit activations are not what parts
+    the two runs."""
+    import repro_torch.models.transformer as transformer
+
+    cfg = setup.cfg
+    tree = _strip_act(qm.params)
+
+    def forced(params, pctx, cache) -> list:
+        logits, cache = transformer.prefill(params, cfg, prompts, cache, pctx=pctx)
+        outs = [logits]
+        for i in range(LM_NEW - 1):
+            logits, cache = transformer.decode_step(params, cfg, new[:, i:i + 1], cache,
+                                                    LM_PROMPT + i, pctx=pctx)
+            outs.append(logits)
+        return outs
+
+    t0 = time.perf_counter()
+    meshless = forced(tree, None, transformer.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW,
+                                                         device=dev))
+    params, cache = setup.layout(tree, transformer.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW,
+                                                              device=dev))
+    rel = _rel(forced(params, setup.pctx(), cache), meshless)
+    print(f"[tp r{rank}] (a) control: float activations (the tree's static scales taken off), "
+          f"teacher-forced (1, 2) against meshless on the kernels, max |logit diff| / max "
+          f"|logit| {rel:.3e}; with the static 8-bit activations {rel_static:.3e} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not math.isfinite(rel):
+        out["failures"].append(f"[tp] (a) rank {rank}: float control reading {rel}")
+    out["report"]["qwen3_float_control"] = {"logit_rel_float": rel, "logit_rel_static": rel_static}
+    del params, cache, meshless
+    torch.cuda.empty_cache()
+
+
+def _tp_engine(torch, dev, mesh, rank, out, qm, cfg, calib) -> None:
+    """(d) qwen3-8b (the loaded artifact) on the continuous-batching engine over the
+    ranks, the first MESH_REQUESTS engine requests (cut to TP_ENGINE_NEW new tokens;
+    a request's tokens are compared with the first ones of the meshless engine's)
+    into ENGINE_SLOTS slots: on the
+    (1, 2) mesh the dense cache, the paged static-int8 cache, that with ngram
+    speculation and the dense cache with flash-decode (every KV head for the
+    rank's half of the positions); on a (2, 1) mesh over the same ranks the dense
+    and the paged cache, each rank holding its four slots. Per rank and run:
+    launches per route exact per model call, collectives by kind exact (one
+    ``agree`` a step), tokens equal on both ranks and under the teacher-forced
+    gate of the meshless kernels' logits, the paged runs' prefix hits those the
+    trace implies and the meshless engine's (the mesh phase's (a) saves its
+    tokens and hits on these requests); then every kernel shape of the runs
+    (the (1, 2) runs' sharded weights, the (2, 1) runs' four rows a rank) held
+    against its plain version on its own inputs."""
+    import torch.distributed as dist
+
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.calib.runner import calibrate_kv_cache
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime.elastic import make_mesh
+
+    t_part = time.perf_counter()
+    n_layers = cfg.n_layers
+    dp_mesh = make_mesh(target_model=1, device=dev)  # (2, 1): every rank of the group calls it
+    reqs = [(p, min(n, TP_ENGINE_NEW)) for p, n in engine_requests(cfg.vocab)[:MESH_REQUESTS]]
+    scales = calibrate_kv_cache(qm.params, cfg, calib)
+    geom = dict(n_slots=ENGINE_SLOTS, max_len=ENGINE_MAX_LEN)
+    paged = dict(kv_cache="paged", page_size=ENGINE_PAGE, kv_scales=scales)
+    runs = (
+        ("(1, 2) dense", mesh, {}),
+        ("(1, 2) paged int8", mesh, paged),
+        ("(1, 2) paged int8, ngram spec_k 4", mesh, dict(paged, spec_k=ENGINE_SPEC_K,
+                                                         spec_draft="ngram")),
+        ("(1, 2) dense, flash-decode", mesh, {"flash_decode": True}),
+        ("(2, 1) dense", dp_mesh, {}),
+        ("(2, 1) paged int8", dp_mesh, paged),
+    )
+    meshless_runs = {}  # the mesh phase's meshless engine on the same requests, this run's
+    for name in ("dense", "paged"):
+        path = os.path.join(TP_DIR, f"qwen3_8b.engine_{name}.pt")
+        if not os.path.exists(path):
+            raise RuntimeError(f"(d): the mesh phase wrote no meshless engine run {path}")
+        meshless_runs[name] = torch.load(path)
+    tap = KernelTap()
+    forced_cache = {}
+    report = {}
+    total = collections.Counter()
+    for label, m, kw in runs:
+        tag = f"[tp r{rank}] (d) {label}"
+        collectives.reset()
+        readings = {}
+        outs, eng, launches = _serve_run(
+            torch, tag, lambda reg, log, m=m, kw=kw: engine_mod.ServeEngine(
+                cfg, qm.params, metrics=reg, trace=log, mesh=m, **geom, **kw).serve(reqs),
+            reqs, out["failures"], tap, paged="kv_cache" in kw, readings=readings)
+        issued = dict(collectives.ISSUED)
+        total.update(launches)
+        st = eng.stats()
+        calls, steps = st["prefills"] + st["decode_steps"], eng.steps
+        if m is dp_mesh:  # a dense admission's logits from its row's rank, the rows' tokens
+            want = {"all_reduce": 0 if "kv_cache" in kw else st["prefills"],
+                    "all_gather": st["decode_steps"]}
+        elif kw.get("flash_decode"):
+            # an admission gathers its k and v heads whole, a decode call its q, k
+            # and v heads and sums the statistics' max and sum; the head's gather
+            want = {"all_reduce": st["prefills"] * (1 + 2 * n_layers)
+                    + st["decode_steps"] * (1 + 4 * n_layers),
+                    "all_gather": st["prefills"] * (2 * n_layers + 1)
+                    + st["decode_steps"] * (3 * n_layers + 1)}
+        else:  # the embedding's and each layer's two row-parallel sums, the head's gather
+            want = {"all_reduce": calls * (1 + 2 * n_layers), "all_gather": calls}
+        want.update(agree=steps, reduce_scatter=0, all_to_all=0)
+        _tp_issued_ok(f"r{rank} (d) {label} ({st['prefills']} admissions, "
+                      f"{st['decode_steps']} decode calls, {steps} steps)", issued, want, out)
+        everyone = [None] * dist.get_world_size()
+        dist.all_gather_object(everyone, [o.tolist() for o in outs])
+        same = all(e == everyone[0] for e in everyone)
+        meshless = meshless_runs["paged" if "kv_cache" in kw else "dense"]
+        ident = sum(a == b[:len(a)] for a, b in zip(everyone[rank], meshless["outs"]))
+        print(f"{tag}: tokens equal on every rank {same}; mesh {st['mesh']}; requests "
+              f"identical to the meshless engine's (the mesh phase's (a)) {ident}/{len(reqs)}")
+        if "kv_cache" in kw:
+            hits = st["cache"]["prefix_hits"]
+            print(f"{tag}: prefix hits {hits}, the meshless engine's {meshless['prefix_hits']}")
+            if hits != meshless["prefix_hits"]:
+                out["failures"].append(f"[tp] (d) {label}: prefix hits {hits} against the "
+                                       f"meshless engine's {meshless['prefix_hits']}")
+        if not same:
+            out["failures"].append(f"[tp] (d) {label}: the ranks' tokens differ")
+        kv = scales if "kv_cache" in kw else None
+        key = (kv is not None, tuple(o.tobytes() for o in outs))
+        if key not in forced_cache:
+            forced_cache[key] = _forced_pair(torch, qm.params, cfg, reqs, outs, kv,
+                                             out["failures"])
+        _engine_held(torch, tag, forced_cache[key], outs, out["failures"])
+        mon = st["straggler"]
+        report[label] = {"issued": issued, "launches": launches, "steps": steps,
+                         "decode_ms_median": mon["median_s"] * 1e3,
+                         "ttft_p50_ms": statistics.median(readings["ttft_ms"]),
+                         "prefix_hits": st["cache"]["prefix_hits"], "same_as_meshless": ident}
+        del eng
+        torch.cuda.empty_cache()
+    forced_cache.clear()
+    out["launches"] = dict(collections.Counter(out["launches"]) + total)
+    _tp_held(torch, dev, mesh, rank, "qwen3-8b engine (d)", tap, out)
+    secs = time.perf_counter() - t_part
+    out["report"]["engine_d"] = {"runs": report, "s": secs}
+    print(f"[tp r{rank}] (d) launches of the engine runs {dict(total)}; part (d) {secs:.1f} s")
 
 
 def _tp_olmoe(torch, dev, mesh, rank, out) -> None:
@@ -3749,6 +3940,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    # what the phases hand the TP phase is this run's: nothing of an earlier run stays
+    shutil.rmtree(TP_DIR, ignore_errors=True)
     # -- phase 1: card ---------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -405,9 +405,10 @@ class QuantizedModel:
         rounds, token-identical to serving the verify tier alone.
         ``metrics``/``trace`` (an obs ``Registry`` / ``TraceLog``) turn on
         the engine's instrumentation. ``mesh`` is ``"auto"`` (an elastic mesh
-        when the process group has more than one rank), a ``DeviceMesh`` or
-        None; ``flash_decode`` attends decode steps over the mesh's
-        sequence-sharded cache. The paged cache and int8 K/V
+        when the process group has more than one rank: every rank then calls
+        this with the same requests and gets the same tokens), a
+        ``DeviceMesh`` or None; ``flash_decode`` attends decode steps over the
+        mesh's sequence-sharded cache. The paged cache and int8 K/V
         are :class:`~repro_torch.serve.engine.ServeEngine` options, as in the
         JAX package.
         """

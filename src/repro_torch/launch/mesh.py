@@ -17,7 +17,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.runtime.elastic import backend_for, ensure_group, make_mesh
+from repro_torch.runtime.elastic import GROUP_TIMEOUT, backend_for, ensure_group, make_mesh
 
 
 def world_mesh(target_model: int = 16, device=None) -> tuple:
@@ -32,7 +32,7 @@ def world_mesh(target_model: int = 16, device=None) -> tuple:
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
         torch.cuda.set_device(device)
     if not dist.is_initialized():
-        dist.init_process_group(backend_for(device))
+        dist.init_process_group(backend_for(device), timeout=GROUP_TIMEOUT)
     return make_mesh(target_model=target_model, device=device), device
 
 

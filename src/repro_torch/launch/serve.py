@@ -12,10 +12,10 @@ asks for the sequence-sharded flash-decoding cache layout, which takes
 effect under a mesh; one process serves without a mesh, as the JAX
 launcher does with one device. Under ``torchrun`` with more than one rank
 the mesh spans them (the model axis' target 16, halved until it divides
-the rank count): ``--static`` (and a family outside the engine) serves
-the lockstep loop over it, each rank on its rows and its blocks of the
-parameters; the engine over more than one rank raises
-``NotImplementedError`` (ROADMAP.md, queue 1 item 4c).
+the rank count), and the engine serves over it, SPMD: every rank makes the
+same trace and the same calls, holds its slots' rows and its blocks of the
+parameters, and prints the same tokens. ``--static`` (and a family outside
+the engine) serves the lockstep loop over it the same way.
 
 ``--metrics-out PATH`` also writes the schema-versioned obs snapshot to
 PATH and the per-request span events to its sibling ``*.events.jsonl``

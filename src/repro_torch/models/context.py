@@ -14,11 +14,15 @@ process a rank: each rank holds its local shard of every tensor, and the
 collectives that the JAX package writes inside ``shard_map`` run over the
 process group of the axes named (:func:`axes_group`). A group over
 several axes (``("pod", "data")``) is made once per mesh, by every rank
-in the same order, as ``torch.distributed.new_group`` asks.
+in the same order, as ``torch.distributed.new_group`` asks, with the
+explicit timeout :data:`GROUP_TIMEOUT` (``new_group`` would give it the
+backend's default of 30 minutes), so a rank that leaves the order of
+collectives fails there instead of waiting.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import math
 import weakref
 
@@ -27,6 +31,9 @@ import torch.distributed as dist
 from repro_torch.runtime.sharding import mesh_shape
 
 MOE_IMPLS = ("ep", "dense")
+# The collective timeout of the process groups the port starts: a rank that
+# leaves the order of collectives fails within it instead of waiting for ever.
+GROUP_TIMEOUT = datetime.timedelta(minutes=10)
 
 # DeviceMesh -> {axes: (process group, its ranks)}, for groups over several axes
 _GROUPS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -71,7 +78,7 @@ def axes_group(mesh, axes: tuple[str, ...]):
             -1, axes_size(mesh, axes))
         mine = None
         for row in rows.tolist():
-            g = dist.new_group(row)
+            g = dist.new_group(row, timeout=GROUP_TIMEOUT)
             if dist.get_rank() in row:
                 mine = g
         groups[axes] = mine

@@ -16,7 +16,10 @@ local tensors and the combine is an ``all_reduce(MAX)`` of ``m`` and one
 ``psum`` s in one message) over the model axis's process group
 (:mod:`repro_torch.runtime.collectives`). The batch rides the batch axes
 as the cache does (:func:`batch_sharded`); a rank's sequence slice starts
-at ``model_rank * s_loc``.
+at ``model_rank * s_loc``. On a model axis that also splits the heads the
+caller gathers the query heads whole first, so each rank computes the
+statistics of every head over its slice
+(:func:`repro_torch.models.transformer._attention`).
 
 A paged cache feeds this through its LOGICAL view (the transformer
 gathers, and for int8 codes dequantizes, ``[B, Pmax * page, KV, hd]``

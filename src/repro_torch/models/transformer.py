@@ -58,7 +58,13 @@ Attention runs on whole heads: each rank attends its block of the query
 heads (:func:`head_blocks`) with the KV heads they read, and its KV cache
 holds those heads (:func:`tp_cache`); where the rules' column block of a
 projection splits a head (the heads do not divide the model axis), the
-projection's output is gathered and the rank takes its heads. The
+projection's output is gathered and the rank takes its heads. With
+``pctx.flash_decode`` a dense cache is sequence-sharded instead, the
+reference's flash-decoding layout: every rank holds every KV head for its
+block of the positions, the projections' heads are gathered whole, each rank
+writes the new entries of its positions, and a decode run attends every head
+over the rank's block through :func:`flash_decode_attention`
+(:func:`_attention`); a paged pool keeps its heads split either way. The
 embedding is vocab-parallel (a masked lookup summed over the model axis)
 or, where the vocab does not divide, split on the feature dim; the LM head
 gathers its vocab blocks (or sums its feature blocks). With
@@ -171,18 +177,53 @@ def head_blocks(cfg: ArchConfig, pctx) -> tuple[int, int, int, int]:
     return q_lo, q_hi, q_lo // g, (q_hi - 1) // g + 1
 
 
+def seq_sharded(pctx, layout: str) -> bool:
+    """Whether a cache of ``layout`` takes flash-decode's sequence-sharded layout
+    on a model axis that also splits the heads: every rank holds all KV heads for
+    its block of the positions (:func:`tp_cache`). A paged pool keeps its heads
+    split instead (the reference's paged rule never shards the page dims)."""
+    return tp_active(pctx) and pctx.flash_decode and not layout.startswith("paged")
+
+
 def tp_cache(cache: dict, cfg: ArchConfig, pctx) -> dict:
-    """A whole-head KV cache's tensor-parallel layout: each ``[L, B, S, KV, ...]``
-    leaf and each static ``[L, KV]`` scale keeps this rank's KV heads
-    (:func:`head_blocks`). ``runtime.sharding.cache_spec`` (the reference's rule)
-    would split head_dim first where the heads do not divide, which would leave
-    each rank partial attention scores."""
+    """A whole KV cache's tensor-parallel layout on this rank.
+
+    * Dense layouts keep this rank's KV heads (:func:`head_blocks`) in each
+      ``[L, B, S, KV, ...]`` leaf and each static ``[L, KV]`` scale.
+      ``runtime.sharding.cache_spec`` (the reference's rule) would split
+      head_dim first where the heads do not divide, which would leave each
+      rank partial attention scores.
+    * With ``pctx.flash_decode`` (:func:`seq_sharded`) each leaf keeps all KV
+      heads for this rank's block of ``ceil(S / m)`` positions, the
+      reference's ``cache_spec(prefer_seq=True)``; the last rank's block is
+      padded where ``m`` does not divide ``S`` (its positions past ``S`` are
+      never written or attended), and static scales stay whole.
+    * A paged pool ``[L, n_pages, page, KV, hd]`` keeps this rank's KV heads;
+      the page table and the static scales stay whole on every rank, the
+      reference's paged rule.
+    """
     _, _, lo, hi = head_blocks(cfg, pctx)
     out = {}
+    if "pages" in cache:
+        for key, t in cache.items():
+            out[key] = t if key in ("pages", "k_scale", "v_scale") else t.narrow(
+                3, lo, hi - lo).contiguous()
+        return out
+    if seq_sharded(pctx, cache_layout(cache)):
+        m, r = pctx.model_size, pctx.model_rank
+        for key, t in cache.items():
+            if key in ("k_scale", "v_scale"):
+                out[key] = t
+                continue
+            s_loc = -(-t.shape[2] // m)
+            block = t[:, :, r * s_loc:(r + 1) * s_loc]
+            pad = s_loc - block.shape[2]
+            if pad:
+                block = torch.cat([block, block.new_zeros(
+                    (*block.shape[:2], pad, *block.shape[3:]))], dim=2)
+            out[key] = block.contiguous()
+        return out
     for key, t in cache.items():
-        if key == "pages":
-            raise NotImplementedError("a paged cache serves on the engine, which runs on one "
-                                      "rank; see ROADMAP.md (queue 1 item 4c)")
         dim = -1 if key in ("k_scale", "v_scale") else 3
         out[key] = t.narrow(dim, lo, hi - lo).contiguous()
     return out
@@ -296,20 +337,39 @@ def _as_pos(pos):
     return int(pos)
 
 
-def _cache_set(c: torch.Tensor, u: torch.Tensor, pos) -> torch.Tensor:
+def _cache_set(c: torch.Tensor, u: torch.Tensor, pos, start: int | None = None) -> torch.Tensor:
     """Write ``u[B, s, ...]`` into cache ``c[B, S, ...]`` at ``pos``, in place.
 
     A scalar ``pos`` writes one contiguous run at the same offset for every
     row (prefill, lockstep decode); a ``[B]`` vector writes row ``b``'s
     ``s`` tokens at ``pos[b] ..`` (continuous batching, speculative verify).
+
+    With ``start``, ``c`` is this rank's block of a sequence-sharded cache
+    (positions ``start .. start + S``) and the positions of other ranks' blocks
+    are not written. A ``[B]`` ``pos`` then writes through indices modulo ``S``,
+    in runs of at most ``S`` positions, so no two of a row's entries land on one
+    index: an entry outside the block writes back what its index holds. No index
+    leaves the device, so a decode step waits for nothing.
     """
     u = u.to(c.dtype)
+    s_loc, s = c.shape[1], u.shape[1]
     if not isinstance(pos, torch.Tensor):
-        c[:, pos:pos + u.shape[1]] = u
+        lo, hi = (pos, pos + s) if start is None else (max(pos, start), min(pos + s, start + s_loc))
+        start = 0 if start is None else start
+        if lo < hi:
+            c[:, lo - start:hi - start] = u[:, lo - pos:hi - pos]
         return c
     rows = torch.arange(c.shape[0], device=c.device)[:, None]
-    cols = pos.to(c.device)[:, None] + torch.arange(u.shape[1], device=c.device)[None, :]
-    c[rows, cols] = u
+    pos = pos.to(c.device)
+    if start is None:
+        c[rows, pos[:, None] + torch.arange(s, device=c.device)[None, :]] = u
+        return c
+    for j0 in range(0, s, s_loc):
+        uj = u[:, j0:j0 + s_loc]
+        local = pos[:, None] + j0 + torch.arange(uj.shape[1], device=c.device)[None, :] - start
+        inside = ((local >= 0) & (local < s_loc)).reshape(*local.shape, *[1] * (u.ndim - 2))
+        idx = torch.remainder(local, s_loc)
+        c[rows, idx] = torch.where(inside, uj, c[rows, idx])
     return c
 
 
@@ -489,40 +549,59 @@ def _flash_prefill(q, k, v, q_offset: int, causal: bool = True) -> torch.Tensor:
     return out[:, :, :s].transpose(1, 2)
 
 
-def _tp_heads(lp: dict, cfg: ArchConfig, inp: TPInput, pctx, prefix: str):
+def _tp_heads(lp: dict, cfg: ArchConfig, inp: TPInput, pctx, prefix: str, *,
+              whole_q: bool = False, whole_kv: bool = False):
     """This rank's query, key and value heads ``[B, S, heads, hd]`` under tensor
     parallelism, and the local KV head each local query head reads (None where
-    that is the plain GQA grouping of the local heads)."""
+    that is the plain GQA grouping of the local heads, or where the query heads
+    are whole). ``whole_q``/``whole_kv`` gather every query/KV head instead
+    (flash-decode's sequence-sharded cache holds every KV head, and a decode run
+    attends every query head over the rank's block of the positions)."""
     h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
     m = pctx.model_size
     q_lo, q_hi, kv_lo, kv_hi = head_blocks(cfg, pctx)
 
-    def heads(name, n_heads, lo, hi):
+    def heads(name, n_heads, lo, hi, whole):
         y, form = tp_matmul(inp, lp[prefix + name], d, n_heads * hd, pctx)
-        if not (form == "cols" and n_heads % m == 0 and h % m == 0):
+        if whole:
+            y, lo, hi = tp_full(y, form, pctx, cfg.dtype), 0, n_heads
+        elif not (form == "cols" and n_heads % m == 0 and h % m == 0):
             # the column block splits a head, or the product is not column-parallel
             y = tp_take(tp_full(y, form, pctx, cfg.dtype), -1, lo * hd, hi * hd, pctx)
         return y.reshape(*y.shape[:2], hi - lo, hd)
 
-    q = heads("q", h, q_lo, q_hi)
-    k, v = heads("k", kv, kv_lo, kv_hi), heads("v", kv, kv_lo, kv_hi)
-    g, hq, nkv = h // kv, q_hi - q_lo, kv_hi - kv_lo
+    q = heads("q", h, q_lo, q_hi, whole_q)
+    k, v = heads("k", kv, kv_lo, kv_hi, whole_kv), heads("v", kv, kv_lo, kv_hi, whole_kv)
+    return q, k, v, None if whole_q else _kv_index(cfg, pctx)
+
+
+def _kv_index(cfg: ArchConfig, pctx):
+    """The local KV head that each of this rank's query heads reads, or None where
+    that is the plain GQA grouping of the rank's heads (:func:`head_blocks`)."""
+    q_lo, q_hi, kv_lo, kv_hi = head_blocks(cfg, pctx)
+    g, hq, nkv = cfg.n_heads // cfg.n_kv_heads, q_hi - q_lo, kv_hi - kv_lo
     idx = [(q_lo + i) // g - kv_lo for i in range(hq)]
     uniform = hq % nkv == 0 and idx == [i // (hq // nkv) for i in range(hq)]
-    return q, k, v, None if uniform else idx
+    return None if uniform else idx
 
 
-def _tp_out(mix: torch.Tensor, lp: dict, cfg: ArchConfig, pctx, prefix: str):
-    """The output projection of this rank's heads' mix ``[B, S, heads * hd]``:
-    ``(y, form)``. A row-parallel block on the same head rows takes the mix as it
-    is; otherwise the mix is gathered whole first."""
+def _tp_out(mix: torch.Tensor, lp: dict, cfg: ArchConfig, pctx, prefix: str, *,
+            whole: bool = False):
+    """The output projection of this rank's heads' mix ``[B, S, heads * hd]`` (or
+    of every head's, ``whole``): ``(y, form)``. A row-parallel block on the same
+    head rows takes the rank's heads of the mix; otherwise the mix is gathered
+    whole first (where it is not whole already)."""
     h, hd, d, m = cfg.n_heads, cfg.hd, cfg.d_model, pctx.model_size
     w = lp[prefix + "o"]
     sizes = [((r + 1) * h // m - r * h // m) * hd for r in range(m)]
     if local_kn(w)[1] == d and local_kn(w)[0] != h * hd and row_blocks(w, h * hd, m) == sizes:
+        if whole:
+            start = sum(sizes[:pctx.model_rank])
+            mix = mix[..., start:start + sizes[pctx.model_rank]].contiguous()
         return matmul(mix, w, f32=True), "partial"
-    whole = collectives.gather_from_model(mix, -1, pctx.model_group, sizes)
-    return tp_matmul(TPInput(whole, pctx), w, h * hd, d, pctx)
+    if not whole:
+        mix = collectives.gather_from_model(mix, -1, pctx.model_group, sizes)
+    return tp_matmul(TPInput(mix, pctx), w, h * hd, d, pctx)
 
 
 def _attention(
@@ -572,11 +651,22 @@ def _attention(
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got {attn_impl!r}")
     hd = cfg.hd
     kv_idx = None
+    # flash-decode's sequence-sharded cache (seq_sharded): every run but a
+    # prefill from position 0 ("fresh": it attends only its own new keys, the
+    # rank's query heads on the flash kernel) attends every query head over the
+    # rank's block of the positions, which flash_decode_attention combines
+    if kv_cache is not None:
+        cache_pos = _as_pos(cache_pos)
+    seq = kv_cache is not None and seq_sharded(pctx, kv_layout)
+    fresh = seq and (not isinstance(cache_pos, torch.Tensor) and cache_pos == 0
+                     and (tp_in.seq_local or tp_in.x.shape[1] > 1)
+                     and attn_impl == "flash" and not window)
     if tp_in is not None:
         if kv_override is not None:
             raise NotImplementedError("cross-attention on a model axis of more than one rank; "
                                       "see ROADMAP.md (queue 1 item 4d)")
-        q, k, v, kv_idx = _tp_heads(lp, cfg, tp_in, pctx, prefix)
+        q, k, v, kv_idx = _tp_heads(lp, cfg, tp_in, pctx, prefix, whole_q=seq and not fresh,
+                                    whole_kv=seq)
         b, s, h, _ = q.shape
         kv = k.shape[2]
     else:
@@ -600,35 +690,40 @@ def _attention(
         acts["k_cache"] = k
         acts["v_cache"] = v
 
-    new_cache, flash_decode = None, False
+    new_cache, flash_decode, ks, vs = None, False, None, None
     if kv_cache is not None:
-        cache_pos = _as_pos(cache_pos)
+        # the rank's block of a sequence-sharded cache starts at this position
+        start = pctx.model_rank * kv_cache[0].shape[1] if seq else None
         # the reference's flash-decode: a decode run (one query a row, or a [B]
-        # position vector) under a context that asks for it
-        flash_decode = (pctx is not None and pctx.flash_decode
-                        and (s == 1 or isinstance(cache_pos, torch.Tensor)))
-        if flash_decode and tp_in is not None:
-            raise NotImplementedError(
-                "flash-decode's sequence-sharded cache on a model axis that also splits the "
-                "heads; see ROADMAP.md (queue 1 item 4c)")
+        # position vector) under a context that asks for it, or any run but a
+        # fresh one on a sequence-sharded cache. On a model axis that splits the
+        # heads a paged pool keeps its heads split and attends them on the plain
+        # path (tp_cache).
+        flash_decode = (seq and not fresh) or (
+            pctx is not None and pctx.flash_decode and tp_in is None
+            and (s == 1 or isinstance(cache_pos, torch.Tensor)))
         if kv_layout == "quant":
             ck, cv, cks, cvs = kv_cache
             kq, ksf = _cache_q(k)
             vq, vsf = _cache_q(v)
             for c, u in ((ck, kq), (cv, vq), (cks, ksf), (cvs, vsf)):
-                _cache_set(c, u, cache_pos)
+                _cache_set(c, u, cache_pos, start)
             new_cache = (ck, cv, cks, cvs)
-            if flash_decode:
-                out = flash_decode_attention(q, ck, cv, cache_pos, pctx=pctx, window=window,
-                                             ks=cks, vs=cvs)
-                return matmul(out.reshape(b, s, h * hd), lp[prefix + "o"]), new_cache
-            k, v = _cache_dq(ck, cks, q.dtype), _cache_dq(cv, cvs, q.dtype)
+            if flash_decode:  # it reads the codes and their scales
+                k, v, ks, vs = ck, cv, cks, cvs
+            elif fresh:
+                k, v = _cache_dq(kq, ksf, q.dtype), _cache_dq(vq, vsf, q.dtype)
+            else:
+                k, v = _cache_dq(ck, cks, q.dtype), _cache_dq(cv, cvs, q.dtype)
         elif kv_layout in ("paged", "paged_static"):
             # Write this step's k/v through the page table, then gather the
             # rows' logical views for the read. Shared prefix pages are never
             # written: every write lands at or past the row's own prompt length.
             if kv_layout == "paged_static":
                 ck, cv, pages, ksc, vsc = kv_cache
+                if tp_in is not None and ksc.shape[-1] != kv:  # whole scales, this rank's heads
+                    _, _, kv_lo, kv_hi = head_blocks(cfg, pctx)
+                    ksc, vsc = ksc[kv_lo:kv_hi], vsc[kv_lo:kv_hi]
                 kq, vq = _static_q(k, ksc), _static_q(v, vsc)
             else:
                 ck, cv, pages = kv_cache
@@ -641,16 +736,22 @@ def _attention(
                 k, v = _static_dq(k, ksc, q.dtype), _static_dq(v, vsc, q.dtype)
         elif kv_layout == "static":
             ck, cv, ksc, vsc = kv_cache
-            _cache_set(ck, _static_q(k, ksc), cache_pos)
-            _cache_set(cv, _static_q(v, vsc), cache_pos)
+            kq, vq = _static_q(k, ksc), _static_q(v, vsc)
+            _cache_set(ck, kq, cache_pos, start)
+            _cache_set(cv, vq, cache_pos, start)
             new_cache = (ck, cv)
-            k, v = _static_dq(ck, ksc, q.dtype), _static_dq(cv, vsc, q.dtype)
+            k, v = (kq, vq) if fresh else (ck, cv)
+            k, v = _static_dq(k, ksc, q.dtype), _static_dq(v, vsc, q.dtype)
         else:
             ck, cv = kv_cache
-            _cache_set(ck, k, cache_pos)
-            _cache_set(cv, v, cache_pos)
+            _cache_set(ck, k, cache_pos, start)
+            _cache_set(cv, v, cache_pos, start)
             new_cache = (ck, cv)
-            k, v = ck, cv
+            if not fresh:
+                k, v = ck, cv
+    if fresh:  # the rank's KV heads of the whole new ones
+        _, _, kv_lo, kv_hi = head_blocks(cfg, pctx)
+        k, v, kv = k[:, :, kv_lo:kv_hi], v[:, :, kv_lo:kv_hi], kv_hi - kv_lo
     if kv_idx is not None:  # each local query head's KV head, where the grouping is uneven
         k, v, kv = k[:, :, kv_idx], v[:, :, kv_idx], h
 
@@ -662,7 +763,7 @@ def _attention(
                                        or kv_layout.startswith("paged"))
     flash = attn_impl == "flash" and not window
     if flash_decode:
-        out = flash_decode_attention(q, k, v, cache_pos, pctx=pctx, window=window)
+        out = flash_decode_attention(q, k, v, cache_pos, pctx=pctx, window=window, ks=ks, vs=vs)
     elif decode:
         out = attention_dot(q, repeat_kv(k, h // kv), repeat_kv(v, h // kv), causal=causal,
                             window=window, q_offset=q_offset)
@@ -680,7 +781,7 @@ def _attention(
     if acts is not None:
         acts["attn_mix"] = mix
     if tp_in is not None:
-        return _tp_out(mix, lp, cfg, pctx, prefix), new_cache
+        return _tp_out(mix, lp, cfg, pctx, prefix, whole=seq and not fresh), new_cache
     return matmul(mix, lp[prefix + "o"]), new_cache
 
 

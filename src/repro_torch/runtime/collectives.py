@@ -9,7 +9,9 @@ of these over a mesh dim's process group
 under its kind when it issues its collective, and nowhere else: the
 counterpart of the kernel wrappers' launch counters, which shows that a
 run over a mesh went through the collectives rather than the meshless
-path. A collective that a backward pass issues counts too.
+path. A collective that a backward pass issues counts too. :func:`agree`,
+the serving engine's check that its ranks took the same decisions, counts
+under its own kind, ``"agree"``.
 
 A tensor that requires grad goes through ``torch.distributed.nn``'s
 differentiable forms (the expert exchange and the data-parallel loss in
@@ -43,7 +45,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-KINDS = ("all_reduce", "all_to_all", "all_gather", "reduce_scatter")
+KINDS = ("all_reduce", "all_to_all", "all_gather", "reduce_scatter", "agree")
 
 # Collectives issued so far in this process, by kind (reset with reset()).
 ISSUED: collections.Counter = collections.Counter()
@@ -117,6 +119,19 @@ def reduce_scatter(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     out = torch.empty_like(blocks[0])
     dist.reduce_scatter(out, blocks, group=group)
     return out
+
+
+def agree(vec: torch.Tensor, group) -> bool:
+    """Whether the small integer vector ``vec`` is equal on every rank of ``group``:
+    one ``all_reduce(MAX)`` of ``[vec, -vec]``, whose halves are the vector's
+    maximum and minus its minimum over the group (the values stay within
+    ``+-(2**63 - 1)``). Returns a host bool, so it waits for the collective."""
+    ISSUED["agree"] += 1
+    v = vec.to(torch.int64).reshape(-1)
+    both = torch.cat([v, -v])
+    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=group)
+    n = v.numel()
+    return bool(torch.equal(both[:n], -both[n:]))
 
 
 def _pad_to(t: torch.Tensor, dim: int, width: int) -> torch.Tensor:

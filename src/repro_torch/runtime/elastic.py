@@ -17,10 +17,10 @@ device decides the backend: ``nccl`` for the card, ``gloo`` for the CPU.
 With no group yet it starts a one-rank group on a ``FileStore`` in a
 fresh temporary file (no port, no environment, so processes that do
 this side by side cannot collide; the store removes the file when the
-group is destroyed). A group whose backend is not the
-device's raises, except a ``gloo`` group for the card: its caller chose
-to carry CUDA tensors over the host (two ranks that share one card,
-which NCCL refuses); nothing switches backend.
+group is destroyed), with an explicit timeout (:data:`GROUP_TIMEOUT`). A
+group whose backend is not the device's raises, except a ``gloo`` group
+for the card: its caller chose to carry CUDA tensors over the host (two
+ranks that share one card, which NCCL refuses); nothing switches backend.
 
 :func:`reshard` gives each packed weight its local logical ``shape``.
 Codes are nibble-packed along K, so a block of a row-parallel weight's
@@ -37,7 +37,7 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import PackedWeight
-from repro_torch.models.context import axes_group, axes_index, axes_size
+from repro_torch.models.context import GROUP_TIMEOUT, axes_group, axes_index, axes_size
 from repro_torch.runtime import collectives
 from repro_torch.runtime.sharding import spec_axes
 
@@ -84,7 +84,7 @@ def ensure_group(device=None) -> None:
     with tempfile.NamedTemporaryFile(prefix="repro_torch_pg_", delete=False) as f:
         path = f.name
     store = dist.FileStore(path, 1)
-    dist.init_process_group(backend, store=store, rank=0, world_size=1)
+    dist.init_process_group(backend, store=store, rank=0, world_size=1, timeout=GROUP_TIMEOUT)
 
 
 def make_mesh(devices=None, target_model: int = 16, *, device=None):

@@ -57,28 +57,51 @@ and the recurrent and enc-dec families (``ssm``, ``hybrid``, ``encdec``,
 ``audio``: their state is not a KV cache of slot rows) take
 :func:`static_generate`, as in the JAX package.
 
-Meshes: ``mesh="auto"`` serves without one (the JAX package's elastic
-mesh over several devices waits for the multi-rank engine below); a
-``DeviceMesh`` is taken as given, such as the one-rank mesh of
-:func:`repro_torch.runtime.elastic.make_mesh`. Under a mesh every model call runs with
-the setup's :class:`~repro_torch.models.context.ParallelCtx`: an MoE
-model through the expert-parallel exchange (``moe_impl`` defaults to
-``"ep"``), and with ``flash_decode=True`` each decode step's attention
-through :func:`~repro_torch.models.flash_decode.flash_decode_attention`
-over the cache's sequence. :func:`static_generate` (and
-:func:`batch_generate`'s lockstep route) runs over a mesh of any number of
-ranks, SPMD, one process a rank: each rank takes its block of the batch
-over the data axes and its blocks of the parameters under the sharding
-rules, the ``dense``, ``moe`` and ``vlm`` families split their products
-over the model axis (the ``ssm``, ``hybrid`` and ``encdec``/``audio``
-families take data-only meshes: ROADMAP.md, queue 1 item 4d), the logits
-are whole on every model rank, so every rank picks the same tokens, and
-the ranks' tokens are gathered whole at the end. The JAX engine is one
-controller over every device; a :class:`ServeEngine` spread over more
-than one rank, and flash-decode on a model axis that also splits the
-heads, raise ``NotImplementedError`` (ROADMAP.md, queue 1 item 4c).
-Without a mesh ``flash_decode`` has nothing to shard and changes nothing,
-as in the JAX package.
+Meshes: ``mesh="auto"`` lays an elastic mesh
+(:func:`repro_torch.runtime.elastic.make_mesh`, the model axis' target 16
+halved until it divides the rank count) over a process group of more than
+one rank, as the JAX package does over more than one device, and serves
+without one otherwise; a ``DeviceMesh`` is taken as given. Under a mesh
+every model call runs with the setup's
+:class:`~repro_torch.models.context.ParallelCtx`: an MoE model through the
+expert-parallel exchange (``moe_impl`` defaults to ``"ep"``), the
+``dense``, ``moe`` and ``vlm`` families' products split over the model axis
+(the ``ssm``, ``hybrid`` and ``encdec``/``audio`` families take data-only
+meshes: ROADMAP.md, queue 1 item 4d), and with ``flash_decode=True`` each
+decode step's attention through
+:func:`~repro_torch.models.flash_decode.flash_decode_attention` over the
+cache's sequence (on a model axis that splits the heads, a dense cache holds
+every KV head for the rank's block of the positions:
+:func:`repro_torch.models.transformer.tp_cache`). :func:`static_generate`
+runs over a mesh of any number of ranks, SPMD, one process a rank: each rank
+takes its block of the batch over the data axes and its blocks of the
+parameters under the sharding rules, the logits are whole on every model
+rank, so every rank picks the same tokens, and the ranks' tokens are
+gathered whole at the end. Without a mesh ``flash_decode`` has nothing to
+shard and changes nothing, as in the JAX package.
+
+The engine over a mesh is SPMD too, where the JAX engine is one controller
+over every device. Every rank receives the same ``submit`` calls in the same
+order (a sampled request's ``torch.Generator`` seeded alike on each), and
+its scheduler and page table decide alone: host-side and deterministic, they
+take the same decisions on every rank. :func:`~repro_torch.runtime.
+collectives.agree` checks that once a step, before any model call: each
+rank's digest of its schedule (the step counter, the queue, the admitted
+(request, slot) pairs, positions, page rows and free lists) must be equal
+on every rank, or the step raises :class:`ScheduleDisagreement`. Each rank
+holds its slots' rows of the cache (:meth:`ServeSetup.rows`) and its blocks
+of both weight tiers. A dense admission prefills on the data group that
+holds the slot's row, on every model rank of it; a paged pool is whole on
+every data group (the reference's paged rule shards no page dim, and a
+shared prefix page may serve a slot of any group), so a paged admission
+prefills on every rank and has its logits there. A dense admission's logits
+are summed over the row axes from the group that holds the row, so every
+rank selects the same first token. Decode steps, drafts and verify rounds run on every rank over its
+rows, and the tokens (a verify round's also its acceptance) are gathered
+over the row axes before anything reads them: the requests' outputs,
+sampled selection, the ngram table and pending tokens, speculative widths,
+:meth:`ServeEngine.result`. A greedy step still waits for the card only in
+the agreement.
 """
 from __future__ import annotations
 
@@ -88,6 +111,7 @@ from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.energy import lm_token_energy
@@ -111,15 +135,25 @@ from repro_torch.serve.scheduler import Request, SlotScheduler
 ENGINE_FAMILIES = ("dense", "moe", "vlm")
 
 
-def _resolve_mesh(mesh):
-    """``"auto"``: no mesh; a mesh or None as given. The JAX package lays an
-    elastic mesh over more than one device here, but an engine spread over
-    more than one rank is not ported (ROADMAP.md, queue 1 item 4c), so until
-    it is every rank of a larger process group serves on its own."""
+class ScheduleDisagreement(RuntimeError):
+    """The ranks of an engine's mesh took different scheduling decisions (their
+    schedule digests differ): they did not all receive the same ``submit`` calls
+    in the same order."""
+
+
+def _resolve_mesh(mesh, device=None, target_model: int = 16):
+    """``"auto"``: an elastic mesh over the default process group when it has more
+    than one rank (:func:`repro_torch.runtime.elastic.make_mesh` on ``device``'s
+    type), else None, as the JAX package does over its devices; a mesh or None
+    as given."""
     if isinstance(mesh, str):
         if mesh != "auto":
             raise ValueError(f'mesh is "auto", a DeviceMesh or None, got {mesh!r}')
-        return None
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() < 2:
+            return None
+        from repro_torch.runtime.elastic import make_mesh
+
+        return make_mesh(target_model=target_model, device=device)
     return mesh
 
 
@@ -134,8 +168,7 @@ class ServeSetup:
     ``flash_decode`` take effect only over a mesh, as in the JAX package.
     ``batch`` is the whole batch; each rank serves its :meth:`rows`. A
     family outside the tensor-parallel ones on a model axis of more than one
-    rank raises ``NotImplementedError`` (ROADMAP.md, queue 1 item 4d), as
-    does flash-decode there (item 4c).
+    rank raises ``NotImplementedError`` (ROADMAP.md, queue 1 item 4d).
     """
 
     cfg: ArchConfig
@@ -150,10 +183,6 @@ class ServeSetup:
     def __post_init__(self) -> None:
         pctx = self.pctx()
         check_model_axis(pctx, self.cfg.family)
-        if self.flash_decode and tp_active(pctx):
-            raise NotImplementedError(
-                "flash-decode's sequence-sharded cache on a model axis that also splits the "
-                "heads is not ported to repro_torch yet; see ROADMAP.md (queue 1 item 4c)")
         if self.moe_impl not in ("ep", "dense"):
             raise ValueError(f'moe_impl is "ep" or "dense", got {self.moe_impl!r}')
         if self.kv_bits not in (0, 8):
@@ -167,24 +196,38 @@ class ServeSetup:
                            model_axis="model", moe_impl=self.moe_impl,
                            flash_decode=self.flash_decode)
 
+    def row_axes(self) -> tuple[str, ...]:
+        """The mesh axes that split the batch into :meth:`rows` (the rule of
+        ``sharding.input_spec``): none without a mesh or where they hold one rank."""
+        if self.mesh is None:
+            return ()
+        axes = spec_axes(shr.input_spec((self.batch,), self.mesh)[0])
+        return axes if axes_size(self.mesh, axes) > 1 else ()
+
     def rows(self) -> tuple[int, int]:
         """``[start, stop)``: this rank's rows of the batch, its block over the batch
         axes where the batch divides them (the rule of ``sharding.input_spec``)."""
-        if self.mesh is None:
+        axes = self.row_axes()
+        if not axes:
             return 0, self.batch
-        axes = spec_axes(shr.input_spec((self.batch,), self.mesh)[0])
-        n = axes_size(self.mesh, axes)
-        i = axes_index(self.mesh, axes) if axes else 0
+        n, i = axes_size(self.mesh, axes), axes_index(self.mesh, axes)
         return i * self.batch // n, (i + 1) * self.batch // n
 
     def gather_rows(self, out: torch.Tensor) -> torch.Tensor:
         """The whole batch's ``out`` from each rank's rows (:meth:`rows`)."""
-        if self.mesh is None:
-            return out
-        axes = spec_axes(shr.input_spec((self.batch,), self.mesh)[0])
-        if not axes or axes_size(self.mesh, axes) == 1:
+        axes = self.row_axes()
+        if not axes:
             return out
         return collectives.all_gather(out, 0, axes_group(self.mesh, axes))
+
+    def from_owner(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` of one row on every rank: the ranks that hold the row (:meth:`rows`)
+        give it, every other rank zeros of its shape, summed over :meth:`row_axes`
+        (so exactly the holders' values)."""
+        axes = self.row_axes()
+        if not axes:
+            return t
+        return collectives.all_reduce(t.clone(), axes_group(self.mesh, axes))
 
     def layout(self, params, cache):
         """``(params, cache)`` laid out on the mesh: the parameters resharded by the
@@ -467,6 +510,16 @@ def batch_generate(
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
+def _agreement_group(mesh):
+    """The process group over every rank of ``mesh`` that checks the engine's
+    schedule: the default group when the mesh spans it (its timeout is the
+    caller's), else one over the mesh's axes."""
+    ranks = sorted(int(r) for r in mesh.mesh.reshape(-1).tolist())
+    if ranks == list(range(dist.get_world_size())):
+        return dist.group.WORLD
+    return axes_group(mesh, tuple(mesh.mesh_dim_names))
+
+
 class ServeEngine:
     """Slot-based continuous-batching server for decoder LMs.
 
@@ -479,8 +532,10 @@ class ServeEngine:
       n_slots: concurrent requests = batch rows of the persistent cache.
       max_len: per-slot cache capacity (prompt + generated); a request
         reaching it is finished early and flagged ``truncated``.
-      mesh: ``"auto"`` (no mesh: an engine over more than one rank is
-        ROADMAP.md queue 1 item 4c), a ``DeviceMesh`` of one rank, or None.
+      mesh: ``"auto"`` (an elastic mesh over a process group of more than one
+        rank, else none), a ``DeviceMesh``, or None. Over a mesh of more than
+        one rank every rank makes the engine and receives the same calls.
+      target_model: the model axis' target size of the ``"auto"`` mesh.
       flash_decode: under a mesh, decode attention over the sequence-sharded
         cache (:func:`~repro_torch.models.flash_decode.flash_decode_attention`).
       moe_impl: under a mesh, ``"ep"`` (the expert exchange, default) or
@@ -521,6 +576,7 @@ class ServeEngine:
         n_slots: int = 4,
         max_len: int = 512,
         mesh="auto",
+        target_model: int = 16,
         flash_decode: bool = False,
         kv_cache: str = "dense",
         page_size: int = 16,
@@ -583,18 +639,18 @@ class ServeEngine:
         self.cfg = cfg
         self.device = params["embed"].device
         dev = self.device
-        self.mesh = _resolve_mesh(mesh)
-        if self.mesh is not None and self.mesh.size() > 1:
-            raise NotImplementedError(
-                f"ServeEngine over a mesh of {self.mesh.size()} ranks "
-                f"({shr.mesh_shape(self.mesh)}): its scheduler would have to agree across the "
-                "ranks, which is not ported to repro_torch yet; see ROADMAP.md (queue 1 item "
-                "4c). static_generate serves over such a mesh")
+        self.mesh = _resolve_mesh(mesh, dev, target_model)
         self.setup = ServeSetup(
             cfg=cfg, mesh=self.mesh, max_len=max_len, batch=n_slots,
             moe_impl=moe_impl, flash_decode=flash_decode,
             page_size=int(page_size) if self._paged else 0, kv_bits=int(kv_bits),
         )
+        # This rank's rows of the slots (all of them without a mesh): the dense
+        # caches and the device token vector hold these rows; a paged pool is
+        # whole on every rank, addressed through the rows of the page table.
+        self._lo, self._hi = self.setup.rows()
+        n_rows = self._hi - self._lo
+        self._agree_group = None  # made at the first step (_agree)
         self._api = get_model(cfg)
         if self._paged:
             self._prefill = build_paged_prefill(self.setup, self._api)
@@ -616,7 +672,7 @@ class ServeEngine:
             self._pager = PageTable(n_slots, max_len, self.setup.page_size,
                                     n_pages=cache["k"].shape[1], device=dev)
         else:
-            cache = self._api.init_cache(cfg, n_slots, max_len, device=dev)
+            cache = self._api.init_cache(cfg, n_rows, max_len, device=dev)
             self._pager = None
         self.params, self._cache = self.setup.layout(params, cache)
         # Speculative state: the verify step runs on the target params. A
@@ -636,7 +692,7 @@ class ServeEngine:
                         kv_scales=scales, device=dev)
                 else:
                     self._draft_prefill = build_slot_prefill(self.setup, self._api)
-                    dcache = self._api.init_cache(cfg, n_slots, max_len, device=dev)
+                    dcache = self._api.init_cache(cfg, n_rows, max_len, device=dev)
                 self.draft_params, self._draft_cache = self.setup.layout(draft_params, dcache)
                 self._draft_run = build_draft_run(self.setup, self._api)
             else:
@@ -663,7 +719,7 @@ class ServeEngine:
         self._m_pages_shared = m.gauge("serve.cache.pages_shared")
         self._m_prefix_hits = m.counter("serve.cache.prefix_hits_total")
         self.energy = lm_token_energy(cfg, params)
-        self._draft_energy = (lm_token_energy(cfg, self.draft_params)
+        self._draft_energy = (lm_token_energy(cfg, draft_params)
                               if self.spec_k and self.spec_draft == "model" else None)
         if self.spec_k:
             self._m_width = m.histogram("serve.spec.round_width", lo=1.0, growth=2.0 ** 0.25,
@@ -673,11 +729,12 @@ class ServeEngine:
         self._sched = SlotScheduler(n_slots)
         self._requests: dict[int, Request] = {}
         self._next_rid = 0
-        # Per-slot state: the next cache write position (host: the scheduler
-        # needs it at once) and the last generated token (on the device: the
-        # greedy loop chains it from step to step without fetching it).
+        # Per-slot state: the next cache write position (host, every slot: the
+        # scheduler needs it at once) and the last generated token of this rank's
+        # rows (on the device: the greedy loop chains it from step to step
+        # without fetching it).
         self._pos = np.zeros(n_slots, np.int32)
-        self._tok_dev = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
+        self._tok_dev = torch.zeros((n_rows, 1), dtype=torch.int32, device=dev)
         self.steps = 0
         self._decode_steps = 0
         self._prefills = 0
@@ -697,7 +754,9 @@ class ServeEngine:
         paged cache the allocator first matches the prompt's full pages
         against the shared-prefix index, allocates private pages for the
         rest, and prefills only the unmatched suffix. ``key`` (a CPU
-        ``torch.Generator``) makes the request sampled.
+        ``torch.Generator``) makes the request sampled. Over a mesh every rank
+        submits the same requests in the same order, a sampled one's generator
+        seeded alike on each: every rank draws its tokens from the same logits.
         """
         if isinstance(tokens, torch.Tensor):
             tokens = tokens.cpu().numpy()
@@ -759,11 +818,74 @@ class ServeEngine:
         return host_to_device(prompt[None].astype(np.int64), self.device)
 
     def _set_token(self, slot: int, tok) -> None:
-        """Put slot ``slot``'s pending token into a NEW device vector: earlier
-        vectors stay referenced by requests' lazy outputs."""
+        """Put slot ``slot``'s pending token into a NEW device vector of this rank's
+        rows (a slot of another rank's rows is not here): earlier vectors stay
+        referenced by requests' lazy outputs."""
+        if not self._lo <= slot < self._hi:
+            return
         t = self._tok_dev.clone()
-        t[slot, 0] = tok
+        t[slot - self._lo, 0] = tok
         self._tok_dev = t
+
+    def _agree(self) -> None:
+        """Check that every rank of the mesh holds the same schedule (the step
+        counter, the scheduler's and the page table's digests, every slot's
+        position): one :func:`~repro_torch.runtime.collectives.agree` a step, before
+        the step's first model call. Nothing to check without a mesh of more than
+        one rank."""
+        if self.mesh is None or self.mesh.size() < 2:
+            return
+        if self._agree_group is None:
+            self._agree_group = _agreement_group(self.mesh)
+        from repro_torch.serve.scheduler import fingerprint
+
+        parts = [np.asarray([self.steps], np.int64), self._sched.digest(),
+                 np.asarray([fingerprint(self._pos)], np.int64)]
+        if self._paged:
+            parts.append(self._pager.digest(list(self._sched.live)))
+        vec = torch.from_numpy(np.concatenate(parts))
+        if dist.get_backend(self._agree_group) != "gloo":  # NCCL takes the card's tensors
+            vec = vec.to(self.device)
+        if not collectives.agree(vec, self._agree_group):
+            raise ScheduleDisagreement(
+                f"step {self.steps}: the ranks of the mesh {shr.mesh_shape(self.mesh)} hold "
+                "different schedules (queue, admitted requests, positions or page tables); "
+                "every rank must receive the same submit calls in the same order")
+
+    def _admit(self, slot: int, req: Request) -> torch.Tensor:
+        """Prefill an admitted request into its slot (both tiers under a model
+        drafter); returns the prompt's last logits ``[1, V]``, the same on every
+        rank. A dense admission runs where the slot's row is (:meth:`ServeSetup.rows`)
+        and its holders give the logits to the other ranks; a paged one runs on
+        every rank (the pool is whole on every rank), so each has its logits."""
+        owned = self._lo <= slot < self._hi
+        if self._paged:
+            # Acquire the matched shared-prefix pages, allocate the rest, and
+            # prefill only the unmatched SUFFIX as one causal run past the shared
+            # tokens, through the slot's own page row.
+            n_shared = self._pager.admit(slot, req.prompt)
+            self._m_prefix_hits.inc(n_shared // self.setup.page_size)
+            row = self._pager.to_device(slot)
+            pos0 = host_to_device(np.array([n_shared], np.int64), self.device)
+            suffix = self._tokens_in(req.prompt[n_shared:])
+            logits, _ = self._prefill(self.params, suffix, {**self._cache, "pages": row}, pos0)
+            if self.spec_k and self.spec_draft == "model":
+                # the draft tier keeps its own cache in step: same prompt, same
+                # slot; its logits are discarded (every emitted token comes from
+                # the verify tier)
+                self._draft_prefill(self.draft_params, suffix,
+                                    {**self._draft_cache, "pages": row}, pos0)
+            self._pager.register(slot, req.prompt)
+            return logits
+        if owned:
+            prompt = self._tokens_in(req.prompt)
+            local = slot - self._lo
+            logits, self._cache = self._prefill(self.params, prompt, self._cache, local)
+            if self.spec_k and self.spec_draft == "model":
+                self._draft_prefill(self.draft_params, prompt, self._draft_cache, local)
+        else:  # the row's holders give the logits
+            logits = torch.zeros((1, self.cfg.vocab), dtype=torch.float32, device=self.device)
+        return self.setup.from_owner(logits)
 
     def step(self) -> bool:
         """Admit queued requests into free slots, then run one decode step
@@ -772,36 +894,15 @@ class ServeEngine:
 
         Greedy steps stay on the device: selection runs there, requests log
         lazy ``(token_vector, slot)`` entries, and nothing waits for the
-        card. A step with any sampled request fetches the logits.
+        card (but the agreement of a mesh's ranks). A step with any sampled
+        request fetches the logits.
         """
+        self._agree()
         progressed = False
         for slot, req in self._sched.ready():
             req.t_admit = time.perf_counter()
-            if self._paged:
-                # Acquire the matched shared-prefix pages, allocate the rest,
-                # and prefill only the unmatched SUFFIX as one causal run past
-                # the shared tokens, through the slot's own page row.
-                n_shared = self._pager.admit(slot, req.prompt)
-                self._m_prefix_hits.inc(n_shared // self.setup.page_size)
-                row = self._pager.to_device(slot)
-                pos0 = host_to_device(np.array([n_shared], np.int64), self.device)
-                suffix = self._tokens_in(req.prompt[n_shared:])
-                logits, _ = self._prefill(self.params, suffix, {**self._cache, "pages": row},
-                                          pos0)
-                self._pager.register(slot, req.prompt)
-            else:
-                prompt = self._tokens_in(req.prompt)
-                logits, self._cache = self._prefill(self.params, prompt, self._cache, slot)
+            logits = self._admit(slot, req)
             self._prefills += 1
-            if self.spec_k and self.spec_draft == "model":
-                # The draft tier keeps its own cache in step: same prompt, same
-                # slot. Its prefill logits are discarded: every emitted token
-                # comes from the verify tier.
-                if self._paged:
-                    self._draft_prefill(self.draft_params, suffix,
-                                        {**self._draft_cache, "pages": row}, pos0)
-                else:
-                    self._draft_prefill(self.draft_params, prompt, self._draft_cache, slot)
             if req.key is None and self.spec_k and self.spec_draft == "ngram":
                 # the lookup drafter chains from the pending token's VALUE
                 first = int(torch.argmax(logits, dim=-1)[0])
@@ -842,25 +943,26 @@ class ServeEngine:
             self.steps += 1
             return True
         if live:
-            pos = host_to_device(self._pos.astype(np.int64), self.device)
+            pos = self._pos_in()
             n_live = len(live)  # snapshot: _maybe_finish pops from live
             cache_in = self._dispatch_cache()
             t0 = time.perf_counter()
             if all(r.key is None for r in live.values()):
                 nxt, _ = self._decode_greedy(self.params, self._tok_dev, cache_in, pos)
                 self._tok_dev = nxt
+                every = self.setup.gather_rows(nxt)  # [n_slots, 1]: every rank's rows
                 # dispatch-clocked: a host-bound step's issue time is its time
                 dt = time.perf_counter() - t0
                 self.monitor.record(dt)
                 for slot, req in list(live.items()):
-                    req.out.append((nxt, slot))
+                    req.out.append((every, slot))
                     self._tokens_generated += 1
                     self._m_itl.record(dt)
                     self._pos[slot] += 1
                     self._maybe_finish(slot, req)
             else:
                 logits, _ = self._decode(self.params, self._tok_dev, cache_in, pos)
-                logits = logits[:, -1].float().cpu()
+                logits = self.setup.gather_rows(logits[:, -1].float()).cpu()
                 dt = time.perf_counter() - t0
                 self.monitor.record(dt)
                 toks = np.zeros(self._sched.n_slots, np.int32)
@@ -872,7 +974,7 @@ class ServeEngine:
                     self._m_itl.record(dt)
                     self._pos[slot] += 1
                     self._maybe_finish(slot, req)
-                self._tok_dev = host_to_device(toks[:, None], self.device)
+                self._tok_dev = host_to_device(toks[self._lo:self._hi, None], self.device)
             self._m_tokens.inc(n_live)
             self._m_energy.inc(self.energy["total_nj"] * n_live)
             if self.profile is not None:
@@ -1012,7 +1114,8 @@ class ServeEngine:
         """Which kernel route each packed decode-step GEMM takes.
 
         Walks the packed leaves and resolves every distinct ``[K, N]`` GEMM
-        at ``M`` = the slot count the way ``models.layers.matmul`` does: the
+        (this rank's block of it) at ``M`` = this rank's slot rows the way
+        ``models.layers.matmul`` does: the
         decode-step kernel at M <= 256 rows, the tiled one above, and the
         route :func:`repro_torch.kernels.elp_bsd_matmul.route` picks for the
         model's activation dtype on the card (``"plain"`` on the CPU). Keyed
@@ -1024,7 +1127,7 @@ class ServeEngine:
         from repro_torch.kernels.elp_bsd_matmul import route
         from repro_torch.kernels.ops import MAX_FUSED_M, PackedWeight, tree_leaves
 
-        m = self._sched.n_slots
+        m = self._hi - self._lo
         probe = torch.empty(0, dtype=self.cfg.dtype)
         out: dict[str, dict] = {}
         for leaf in tree_leaves(self.params):
@@ -1064,12 +1167,16 @@ class ServeEngine:
     # -- internals -----------------------------------------------------------
     def _dispatch_cache(self, cache: Any = None) -> Any:
         """The cache dict a dispatch consumes: for the paged layout with a
-        fresh device copy of the whole page table (admission and release
-        change the host table between dispatches)."""
+        fresh device copy of this rank's rows of the page table (admission and
+        release change the host table between dispatches)."""
         cache = self._cache if cache is None else cache
         if not self._paged:
             return cache
-        return {**cache, "pages": self._pager.to_device()}
+        return {**cache, "pages": self._pager.to_device(rows=(self._lo, self._hi))}
+
+    def _pos_in(self) -> torch.Tensor:
+        """A device copy of this rank's rows' positions."""
+        return host_to_device(self._pos[self._lo:self._hi].astype(np.int64), self.device)
 
     def _spec_round(self, live: dict[int, Request]) -> None:
         """One speculative draft/verify round.
@@ -1089,20 +1196,21 @@ class ServeEngine:
         advances ``pos`` by ``take``, and the rejected positions are
         overwritten before anything reads them (mask-past-pos).
         """
-        pos_np = np.array(self._pos)
         width = max(1, min(self._spec_width,
-                           min(int(self.setup.max_len - pos_np[s]) for s in live),
+                           min(int(self.setup.max_len - self._pos[s]) for s in live),
                            max(r.remaining for r in live.values())))
-        pos = host_to_device(pos_np.astype(np.int64), self.device)
+        pos = self._pos_in()
         t0 = time.perf_counter()
         if self.spec_draft == "model":
             run, _ = self._draft_run(self.draft_params, self._tok_dev,
                                      self._dispatch_cache(self._draft_cache), pos, width)
         else:
-            run = host_to_device(self._ngram_run(live, width), self.device)
+            run = host_to_device(self._ngram_run(live, width)[self._lo:self._hi], self.device)
         vtok, acc, ptok, _ = self._verify(self.params, run, self._dispatch_cache(), pos)
         if self.spec_draft == "model":
             self._tok_dev = ptok
+        # every rank's rows: the widths and the table depend on every slot's tokens
+        vtok, acc = self.setup.gather_rows(vtok), self.setup.gather_rows(acc)
         dt = time.perf_counter() - t0
         self.monitor.record(dt)
         acc_np = acc.cpu().numpy()  # the round's one fetch

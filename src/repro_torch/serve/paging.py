@@ -99,17 +99,32 @@ class PageTable:
     def pages_shared(self) -> int:
         return int(np.count_nonzero(self.refs > 1))
 
-    def to_device(self, slot: int | None = None) -> torch.Tensor:
+    def to_device(self, slot: int | None = None, *, rows: tuple[int, int] | None = None
+                  ) -> torch.Tensor:
         """Device copy of the page table (the whole ``[n_slots, Pmax]``
-        table, or one slot's row as ``[1, Pmax]`` when ``slot`` is given),
-        int64 on :attr:`device`.
+        table, one slot's row as ``[1, Pmax]`` when ``slot`` is given, or the
+        rows ``[start, stop)`` of ``rows``), int64 on :attr:`device`.
 
         ``admit``/``release`` change ``table`` in place while earlier
         dispatches may still be queued, so the device always receives a
         snapshot copy, never a view of the live buffer.
         """
-        rows = self.table if slot is None else self.table[slot:slot + 1]
-        return host_to_device(rows.astype(np.int64), self.device)
+        if slot is not None:
+            rows = (slot, slot + 1)
+        table = self.table if rows is None else self.table[rows[0]:rows[1]]
+        return host_to_device(table.astype(np.int64), self.device)
+
+    def digest(self, slots) -> np.ndarray:
+        """``[free, used, prefix hits, pages]`` int64: the free list's length, the
+        pages in use, the shared pages acquired so far and a fingerprint of the
+        admitted ``slots``' page rows and the free list (equal on ranks that took
+        the same decisions)."""
+        from repro_torch.serve.scheduler import fingerprint
+
+        slots = np.asarray(sorted(slots), np.int64)
+        return np.asarray([len(self._free), self.pages_used, self.prefix_hits,
+                           fingerprint(slots, self.table[slots],
+                                       np.asarray(self._free, np.int64))], np.int64)
 
     def _prefix_key(self, prompt: np.ndarray, n_pages: int) -> bytes:
         return np.ascontiguousarray(

@@ -19,10 +19,22 @@ Invariants the engine relies on:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from collections import deque
 from typing import Any, Iterator
 
 import numpy as np
+
+
+def fingerprint(*arrays) -> int:
+    """A deterministic 62-bit digest of integer arrays (their int64 values and
+    shapes, in order): equal on every process for equal inputs."""
+    h = hashlib.blake2b(digest_size=8)
+    for a in arrays:
+        a = np.ascontiguousarray(a, dtype=np.int64)
+        h.update(np.asarray(a.shape, np.int64).tobytes())
+        h.update(a.tobytes())
+    return int.from_bytes(h.digest(), "little") >> 2
 
 
 @dataclasses.dataclass
@@ -145,6 +157,19 @@ class SlotScheduler:
         self._free.append(slot)
         self._free.sort(reverse=True)
         return req
+
+    def digest(self) -> np.ndarray:
+        """``[queued, free, queue, admitted]`` int64: the queue's and the free list's
+        lengths, a :func:`fingerprint` of the queued requests (ids, budgets and
+        prompts, in order) and one of the admitted (slot, request id, tokens
+        emitted) triples. Ranks that took the same decisions hold equal digests."""
+        queue = [np.asarray([r.rid, r.max_new_tokens, r.prompt.size], np.int64)
+                 for r in self._queue]
+        queue += [r.prompt for r in self._queue]
+        live = np.asarray([(s, r.rid, len(r.out)) for s, r in sorted(self.live.items())],
+                          np.int64).reshape(-1, 3)
+        return np.asarray([len(self._queue), len(self._free), fingerprint(*queue),
+                           fingerprint(live, np.asarray(self._free, np.int64))], np.int64)
 
     def cancel(self, req: Request) -> None:
         """Drop a still-queued (never admitted) request."""

@@ -195,24 +195,31 @@ def test_shard_batch_slices(runs):
 
 
 def test_item_4b_raises(runs):
-    """Item 4b is ported; what stays out raises, naming its item: the engine over
-    more than one rank (4c), the recurrent and enc-dec families on a model axis of
-    more than one rank (4d)."""
+    """Items 4b and 4c are ported; what stays out raises, naming its item: the
+    recurrent and enc-dec families on a model axis of more than one rank (4d). The
+    engine over the 4 ranks of the (4, 1) mesh gives its meshless tokens on every
+    rank."""
     _, ranks, _ = runs
     for res in ranks:
-        for name, item in (("engine", "4c"), ("ssm", "4d"), ("hybrid", "4d"), ("encdec", "4d")):
+        for name, item in (("ssm", "4d"), ("hybrid", "4d"), ("encdec", "4d")):
             msg = str(res[f"raises/{name}"])
             assert f"queue 1 item {item}" in msg, (name, msg)
+        assert bool(res["raises/engine_same"])
+        np.testing.assert_array_equal(res["raises/engine_tokens"],
+                                      ranks[0]["raises/engine_tokens"])
 
 
 def test_launch_defaults_in_a_group(runs):
-    """Inside a group of 4 ranks the defaults run: ``mesh="auto"`` serves on each
-    rank alone, and the train launcher's default model axis (the reference's 16,
-    halved until it divides 4) is a (1, 4) tensor-parallel mesh."""
+    """Inside a group of 4 ranks the defaults run: ``mesh="auto"`` lays the elastic
+    mesh over every rank and serves the meshless tokens, and the train launcher's
+    default model axis (the reference's 16, halved until it divides 4) is a (1, 4)
+    tensor-parallel mesh."""
     _, ranks, _ = runs
     for res in ranks:
-        assert bool(res["defaults/serve_meshless"])
+        np.testing.assert_array_equal(res["defaults/serve_mesh"], [1, R.WORLD])
         assert res["defaults/serve_tokens"].shape == (3,)
+        np.testing.assert_array_equal(res["defaults/serve_tokens"],
+                                      res["defaults/serve_meshless_tokens"])
         np.testing.assert_array_equal(res["defaults/train_mesh"], [1, R.WORLD])
         assert res["defaults/train_losses"].shape == (1,)
         assert np.isfinite(res["defaults/train_losses"]).all()

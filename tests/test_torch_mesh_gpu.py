@@ -21,7 +21,14 @@ paths (the card has no JAX):
   a4 codes, ``static_generate`` on a ``(1, 2)`` mesh giving the meshless
   tokens with each rank launching, route by route, what the meshless run
   launches; three train steps with and without ``seq_parallel`` within
-  1e-5 relative of the meshless losses.
+  1e-5 relative of the meshless losses;
+* the continuous-batching engine over the same two ranks (rank bodies in
+  ``tests/torch_engine_ranks.py``): reduced float32 qwen3, elp4 codes, on a
+  ``(1, 2)`` mesh (dense, flash-decode, paged int8, ngram) and a ``(2, 1)``
+  mesh (dense, paged int8), every run's tokens the meshless engine's (same
+  cache, same drafter) on both ranks, every kernel's launches only where the meshless run launches it,
+  one ``agree`` a step; and the dense run on each mesh with the kernels
+  rebound to their plain versions giving the same tokens, launching nothing.
 
     python -m pytest -m gpu tests/test_torch_*.py
 """
@@ -201,3 +208,40 @@ def test_tensor_parallel_train_steps_on_one_card(two_ranks_on_one_card):
             np.testing.assert_allclose(res[f"train/{name}"], res["train/meshless"], rtol=1e-5)
         assert int(res["train/sp/reduce_scatter"]) > 0
         assert int(res["train/tp/reduce_scatter"]) == 0
+
+
+@pytest.fixture(scope="module")
+def engine_on_two_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.multiprocessing as mp
+
+    import torch_engine_ranks as R
+
+    d = tmp_path_factory.mktemp("engine_gpu")
+    mp.spawn(R.gpu_rank_main, args=(2, str(d / "store"), str(d)), nprocs=2, join=True)
+    return [dict(np.load(d / f"gpu_rank{r}.npz")) for r in range(2)]
+
+
+@pytest.mark.parametrize("run", ["1x2/dense", "1x2/flash", "1x2/paged", "1x2/ngram",
+                                 "2x1/dense", "2x1/paged"])
+def test_engine_two_ranks_on_one_card(engine_on_two_ranks, run):
+    ranks = engine_on_two_ranks
+    kind = run.split("/")[1]
+    ref = f"none/{'dense' if kind == 'flash' else kind}"  # without a mesh flash changes nothing
+    for res in ranks:
+        np.testing.assert_array_equal(res[f"{run}/tokens"], res[f"{ref}/tokens"])
+        np.testing.assert_array_equal(res[f"{run}/tokens"], ranks[0][f"{run}/tokens"])
+        routes = [k.split("/launches/")[1] for k in res if k.startswith(f"{run}/launches/")]
+        assert sum(int(res[f"{run}/launches/{r}"]) for r in routes) > 0
+        for r in routes:  # the routes the meshless engine takes, and no other
+            if int(res[f"{ref}/launches/{r}"]) == 0:
+                assert int(res[f"{run}/launches/{r}"]) == 0, r
+        assert int(res[f"{run}/issued/agree"]) > 0
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x1"])
+def test_engine_kernels_against_plain_on_two_ranks(engine_on_two_ranks, mesh):
+    for res in engine_on_two_ranks:
+        np.testing.assert_array_equal(res[f"plain/{mesh}/tokens"], res[f"{mesh}/dense/tokens"])
+        assert int(res[f"plain/{mesh}/launched"]) == 0

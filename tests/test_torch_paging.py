@@ -268,6 +268,10 @@ def test_engine_validation_errors(params):
                     kv_scales=(np.ones((2, 2)), np.ones((2, 2))))
     with pytest.raises(ValueError, match="kv_cache"):
         ServeEngine(TC, tparams, kv_cache="chunked")
-    # a paged engine spread over more than one rank waits for ROADMAP item 4c
-    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
-        ServeEngine(TC, tparams, kv_cache="paged", flash_decode=True, mesh=tp.TwoRankMesh())
+    # a paged engine over a model axis of two ranks: the pool keeps the rank's KV
+    # heads (flash-decode or not), the page table and the static scales stay whole
+    scales = (np.ones((TC.n_layers, TC.n_kv_heads)), np.ones((TC.n_layers, TC.n_kv_heads)))
+    eng = ServeEngine(TC, tparams, kv_cache="paged", page_size=4, kv_scales=scales,
+                      flash_decode=True, mesh=tp.TwoRankMesh(1), n_slots=2, max_len=8)
+    assert eng._cache["k"].shape[3] == TC.n_kv_heads // 2
+    assert tuple(eng._cache["k_scale"].shape) == (TC.n_layers, TC.n_kv_heads)

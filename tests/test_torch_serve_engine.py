@@ -273,15 +273,16 @@ def test_setup_and_engine_reject_unported_options(trees):
     from repro_torch.models.context import ParallelCtx
 
     tparams = trees[1]
-    # the lockstep loop serves over more than one rank, but not the recurrent and
-    # enc-dec families on a model axis of more than one (ROADMAP item 4d), nor
-    # flash-decode there (item 4c); flash-decode without a mesh has nothing to
-    # shard (no context), as in the JAX package
+    # the lockstep loop and the engine serve over more than one rank, but not the
+    # recurrent and enc-dec families on a model axis of more than one (ROADMAP item
+    # 4d); flash-decode runs there; without a mesh it has nothing to shard (no
+    # context), as in the JAX package
     with pytest.raises(NotImplementedError, match="queue 1 item 4d"):
         ServeSetup(cfg=TCfg(**{**KW, "family": "hybrid"}), mesh=tp.TwoRankMesh(), max_len=8,
                    batch=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
-        ServeSetup(cfg=TC, mesh=tp.TwoRankMesh(), max_len=8, batch=1, flash_decode=True)
+    pctx = ServeSetup(cfg=TC, mesh=tp.TwoRankMesh(), max_len=8, batch=1,
+                      flash_decode=True).pctx()
+    assert pctx.flash_decode and pctx.model_size == 2
     assert ServeSetup(cfg=TC, mesh=None, max_len=8, batch=1, flash_decode=True).pctx() is None
     # MoE models serve (the dense form without a mesh); over a mesh the experts
     # must be the rank's shard of them
@@ -290,12 +291,29 @@ def test_setup_and_engine_reject_unported_options(trees):
                    "we3": torch.zeros(4, 1, 1), "we2": torch.zeros(4, 1, 1)},
                   torch.zeros(2, TC.d_model), TCfg(**{**KW, "n_experts": 4, "topk": 2}),
                   pctx=ParallelCtx(mesh=tp.TwoRankMesh()))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
-        ServeEngine(TC, tparams, mesh=tp.TwoRankMesh())
+    # the engine on model rank 1 of two, with flash-decode: its blocks of the
+    # weights, and every KV head for its half of the positions
+    eng = ServeEngine(TC, tparams, n_slots=2, max_len=8, mesh=tp.TwoRankMesh(1),
+                      flash_decode=True)
+    assert eng.params["blocks"]["wq"].shape[-1] == TC.n_heads * TC.hd // 2
+    assert tuple(eng._cache["k"].shape) == (TC.n_layers, 2, 4, TC.n_kv_heads, TC.hd)
+    assert eng.stats()["mesh"] == {"data": 1, "model": 2}
     with pytest.raises(ValueError, match="DeviceMesh"):
         ServeEngine(TC, tparams, mesh="everywhere")
-    # "auto" lays a mesh only over a process group of more than one rank
+    # "auto" lays a mesh only over a process group of more than one rank: none
+    # without a group, make_mesh's over a group of 4
+    import torch.distributed as dist
+
+    import repro_torch.runtime.elastic as elastic
+    from repro_torch.serve.engine import _resolve_mesh
+
     assert ServeEngine(TC, tparams, mesh="auto").mesh is None
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(dist, "is_initialized", lambda: True)
+        mp.setattr(dist, "get_world_size", lambda group=None: 4)
+        mp.setattr(elastic, "make_mesh", lambda **kw: ("mesh", kw))
+        assert _resolve_mesh("auto", "cpu", 16) == ("mesh", {"target_model": 16,
+                                                            "device": "cpu"})
     with pytest.raises(ValueError, match="families"):
         ServeEngine(TCfg(**{**KW, "family": "ssm"}), tparams)
 

@@ -135,11 +135,11 @@ def test_report_and_front_door():
         api.quantize(tc, tparams, api.QuantScheme(granularity="per_channel"), device="cpu")
     with pytest.raises(ValueError, match="dynamic"):
         api.quantize(tc, tparams, api.QuantScheme(act="dynamic"), device="cpu")
-    # serving over a mesh of more than one rank runs (test_torch_tensor_parallel.py);
-    # flash-decode on a model axis that splits the heads waits for ROADMAP item 4c
+    # serving over a mesh of more than one rank runs (test_torch_tensor_parallel.py),
+    # and flash-decode on a model axis that splits the heads (test_torch_engine_ranks.py)
     assert ServeSetup(cfg=tc, mesh=tp.TwoRankMesh(), max_len=8, batch=1).pctx().model_size == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 4c"):
-        ServeSetup(cfg=tc, mesh=tp.TwoRankMesh(), max_len=8, batch=1, flash_decode=True)
+    assert ServeSetup(cfg=tc, mesh=tp.TwoRankMesh(), max_len=8, batch=1,
+                      flash_decode=True).pctx().flash_decode
 
 
 def test_lm_entry_points_raise_without_a_card(monkeypatch):

@@ -420,9 +420,9 @@ def _port_layout(res, inp, meshes, out_dir) -> None:
 
 
 def _port_raises(res, inp, meshes, out_dir) -> None:
-    """The boundary of the ported mesh paths: the engine over more than one rank
-    (ROADMAP item 4c), the recurrent and enc-dec families on a model axis of more
-    than one rank (item 4d)."""
+    """The boundary of the ported mesh paths: the recurrent and enc-dec families on
+    a model axis of more than one rank (ROADMAP item 4d); the engine over the 4
+    ranks of the data-only mesh serves, each rank its slot (item 4c)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ArchConfig
     from repro_torch.models import get_model
@@ -434,8 +434,13 @@ def _port_raises(res, inp, meshes, out_dir) -> None:
     ssm = get_config("mamba2_780m").reduced()
     hybrid = get_config("recurrentgemma_2b").reduced()
     encdec = get_config("seamless_m4t_large_v2").reduced()
+    reqs = [(np.arange(1 + i, 4 + 2 * i, dtype=np.int32) % cfg.vocab, 3 + i % 2)
+            for i in range(6)]
+    outs = ServeEngine(cfg, _params(inp), n_slots=4, max_len=12, mesh=meshes["4x1"]).serve(reqs)
+    plain = ServeEngine(cfg, _params(inp), n_slots=4, max_len=12, mesh=None).serve(reqs)
+    res["raises/engine_same"] = all(np.array_equal(a, b) for a, b in zip(outs, plain))
+    res["raises/engine_tokens"] = np.concatenate(outs)
     calls = {
-        "engine": lambda: ServeEngine(cfg, _params(inp), n_slots=4, max_len=8, mesh=meshes["4x1"]),
         "ssm": lambda: TrainSetup(cfg=ssm, mesh=m22),
         "hybrid": lambda: ServeSetup(cfg=hybrid, mesh=m22, max_len=8, batch=4),
         "encdec": lambda: get_model(encdec).loss_fn(
@@ -454,8 +459,9 @@ def _port_raises(res, inp, meshes, out_dir) -> None:
 
 def _port_defaults(res, inp, meshes, out_dir) -> None:
     """The defaults inside a group of 4 ranks: ``ServeEngine``'s ``mesh="auto"``
-    serves without a mesh, and the train launcher's default model axis (16,
-    halved to what 4 ranks divide) trains tensor parallel over every rank."""
+    lays the elastic mesh over every rank (the model axis' target 16, halved to
+    4) and serves the meshless engine's tokens, and the train launcher's default
+    model axis trains tensor parallel over every rank."""
     import torch.distributed as dist
 
     from repro_torch.configs.base import ArchConfig
@@ -463,8 +469,12 @@ def _port_defaults(res, inp, meshes, out_dir) -> None:
     from repro_torch.serve.engine import ServeEngine
 
     eng = ServeEngine(ArchConfig(**LM_KW), _params(inp), n_slots=1, max_len=8)
-    res["defaults/serve_meshless"] = eng.mesh is None
+    mesh = eng.stats()["mesh"]
+    res["defaults/serve_mesh"] = np.asarray([mesh["data"], mesh["model"]])
     res["defaults/serve_tokens"] = eng.serve([(np.arange(1, 4, dtype=np.int32), 3)])[0]
+    res["defaults/serve_meshless_tokens"] = ServeEngine(
+        ArchConfig(**LM_KW), _params(inp), n_slots=1, max_len=8, mesh=None).serve(
+        [(np.arange(1, 4, dtype=np.int32), 3)])[0]
     os.environ["WORLD_SIZE"] = str(dist.get_world_size())  # as torchrun sets it
     out = launch_train.main(["--arch", "qwen3_8b", "--smoke", "--device", "cpu", "--steps", "1",
                              "--batch", "4", "--seq", "8"])

@@ -67,12 +67,19 @@ def cpu_group():
 
 class TwoRankMesh:
     """A (1, 2) ("data", "model") mesh as the port's setups, rules and MoE read it
-    before any collective: its axis names and sizes, and its rank count."""
+    before any collective: its axis names and sizes, its rank count and the
+    coordinate of its model rank ``rank``."""
 
     mesh_dim_names, shape = ("data", "model"), (1, 2)
 
+    def __init__(self, rank: int = 0):
+        self.rank = rank
+
     def size(self):
         return 2
+
+    def get_coordinate(self):
+        return [0, self.rank]
 
 
 # ---------------------------------------------------------------------------
