@@ -47,7 +47,7 @@ stays held and timed).
   cache with static int8 K/V, (c) (b) with ngram speculative decoding, (d) a
   ``QuantScheme.speculative`` artifact (a4 draft, float verify tier), its
   save/load held bit-identical on the draft tier and one verify layer,
-  serving the first 12 requests from memory with model drafts; each run's
+  serving the first 8 requests from memory with model drafts; each run's
   launches exact per model call, every request complete, admissions in
   submission order, the page pool
   drained and its prefix hits those the requests imply (a shared-prefix
@@ -129,12 +129,14 @@ stays held and timed).
   held there; their launches join the kernels line;
 * tensor parallelism (the TP phase, last but one): two processes share the
   card over a ``gloo`` group (NCCL refuses two ranks on one device) on a
-  (1, 2) mesh, each loading the checksummed artifacts that the LM and MoE
-  phases saved and resharding them: (a) qwen3-8b through
+  (1, 2) mesh, each loading the checksummed artifacts that the LM, MoE and
+  family phases saved and resharding them: (a) qwen3-8b through
   ``ServeSetup(mesh)`` + ``static_generate`` at the lockstep geometry,
   launches per route per rank exact, collectives by kind exact, the model
   teacher-forced on the meshless tokens within the LM gate of the meshless
-  kernels' logits, prefill and decode ms and peak memory per rank; (b)
+  kernels' logits, prefill and decode ms and peak memory per rank, with the
+  same comparison on float activations in bf16 and in a float32 copy of the
+  tree (within 1e-4) as its controls; (b)
   olmoe-1b-7b, the prefill and 3 decode steps through ``moe_ep`` (launches
   and collectives exact, the dropped share), then with the routing forced
   to the meshless plain run's: the MoE gates; every new sharded kernel
@@ -145,8 +147,15 @@ stays held and timed).
   qwen3-8b continuous-batching engine over the ranks (``_tp_engine``) on the
   (1, 2) mesh and a (2, 1) one: launches and collectives exact, tokens equal
   on both ranks and in the gate, prefix hits the meshless engine's, every
-  kernel shape of its runs held against its plain version. Its times are of
-  two ranks sharing one card over a host wire.
+  kernel shape of its runs held against its plain version; (e) mamba2-780m,
+  recurrentgemma-2b and seamless-m4t-large-v2 at full width and depth from
+  their family phases' artifacts through ``static_generate`` (the first 8 of
+  the family phase's new tokens; launches and
+  collectives exact, tokens equal on both ranks, the model teacher-forced on
+  the meshless tokens within the family's gate, every kernel shape held),
+  then mamba2-780m at 4 of 48 layers in float32, 2 train steps on the mesh
+  against 2 without it. Its times are of two ranks sharing one card over a
+  host wire.
 
     python3 chip_smoke.py
 
@@ -235,7 +244,7 @@ ENGINE_SPEC_K = 4
 # (d), model drafts against the float verify tier (each round W - 1 draft
 # steps and one verify), serves the first ENGINE_SPEC_REQUESTS requests; the
 # profiled run makes PROFILED_NEW tokens a request (5 decode steps and more).
-ENGINE_SPEC_REQUESTS = 12
+ENGINE_SPEC_REQUESTS = 8
 PROFILED_NEW = 8
 
 
@@ -1602,7 +1611,7 @@ VLM_LOGIT_REL_TOL = 0.15
 ROUTE_FLIP_LIMIT = 0.25
 MOE_LOGIT_REL_TOL = 0.15
 MOE_CONTROL_STEPS = 4
-MOE_ENGINE_REQUESTS = 12  # the MoE engine runs' share of the engine phase's requests
+MOE_ENGINE_REQUESTS = 8  # the MoE engine runs' share of the engine phase's requests
 
 
 class RouteTap:
@@ -2177,8 +2186,9 @@ def family_phase(torch, dev, failures, rows, arch: str) -> dict:
     exact); prefill and decode timed; the generated tokens teacher-forced
     through the packed model with its kernels and with their plain versions
     under the LM gate, beside its controls; every kernel shape of the generate
-    held against its plain version on the run's own inputs. Returns the
-    generate's launches."""
+    held against its plain version on the run's own inputs; the artifact, the
+    prompts and the meshless run's tokens and teacher-forced kernel logits saved
+    for the TP phase's part (e). Returns the generate's launches."""
     import repro_torch.kernels.ops as ops_mod
     from repro_torch import api
     from repro_torch.configs import get_config
@@ -2298,6 +2308,9 @@ def family_phase(torch, dev, failures, rows, arch: str) -> dict:
         failures.append(f"{tag} {cfg.name}: logits, kernels vs plain {rel:.3e}")
     print(f"{tag} teacher-forced checks {time.perf_counter() - t0:.1f} s")
     hold_tapped(torch, dev, f"{cfg.name} generate", tap, rows, failures)
+    tp_save(torch, qm, arch, prompts=batch["tokens"], frames=batch.get("frontend"), tokens=new,
+            logits=k_logits, prefill_ms=statistics.median(pre_ms),
+            decode_ms=statistics.median(step_ms))
     del qm, p, k_logits, p_logits, state
     torch.cuda.empty_cache()
     print(f"[time] {cfg.family} phase ({cfg.name}): {time.perf_counter() - t_phase:.1f} s")
@@ -3019,7 +3032,9 @@ def lm_ptq_phase(torch, dev, failures) -> None:
 MESH_REQUESTS = 8  # (a): the first 8 of the engine phase's requests, into 8 slots
 MESH_MOE_NEW = 4  # (b): olmoe pays its per-call expert dequantize at every step
 MESH_MOE_TOKENS = 512  # (b): the float64 control over the first 4 prompts' tokens
-MESH_TRAIN_STEPS, MESH_TRAIN_CKPT = 20, 10
+# (c): lm-100m steps and the checkpoint's step; the script's time limit, not the
+# checks, sets them
+MESH_TRAIN_STEPS, MESH_TRAIN_CKPT = 10, 5
 FLASH_DECODE_REL_TOL = 1e-5
 MESH_COLLECTIVE_N = 1 << 24
 
@@ -3336,9 +3351,13 @@ def mesh_collective_phase(torch, dev, failures, mesh, report) -> None:
 TP_WORLD = 2  # ranks on the one card, a (1, 2) ("data", "model") mesh over gloo
 TP_DIR = os.path.join(ROOT, "build", "tp")
 TP_MOE_STEPS = 4  # olmoe: the prefill and 3 decode steps
-TP_TRAIN_STEPS, TP_TRAIN_CKPT = 20, 10  # lm-100m: the mesh phase's (c) steps
+TP_TRAIN_STEPS, TP_TRAIN_CKPT = MESH_TRAIN_STEPS, MESH_TRAIN_CKPT  # the mesh phase's (c)
 TP_TRAIN_REL_TOL = 1e-5
 TP_TIMEOUT_S = 900
+TP_M2_TRAIN_LAYERS, TP_M2_TRAIN_STEPS = 4, 2  # (e): mamba2-780m training, full width
+# (e): each family model's first TP_FAMILY_NEW new tokens of its family phase's
+# LM_NEW: the script's time limit, not the checks, sets it
+TP_FAMILY_NEW = 8
 # (d): the first MESH_REQUESTS engine requests, each cut to its first TP_ENGINE_NEW new
 # tokens (the engine phase's profiled run's cut): the script's time limit, not the
 # checks, sets it
@@ -3365,7 +3384,8 @@ def tp_phase(torch, failures, rows, straight) -> dict:
     """The tensor-parallel phase: TP_WORLD processes share the card (NCCL refuses
     two ranks on one device, so a ``gloo`` group on a ``FileStore`` carries the
     card's tensors over the host) on a (1, 2) mesh, each loading the artifacts
-    that the LM and MoE phases saved and resharding them (``tp_rank_main``). A
+    that the LM, MoE and family phases saved and resharding them
+    (``tp_rank_main``). A
     rank that fails (or outlives TP_TIMEOUT_S) fails the run, and the other is
     stopped. Returns the launches of the ranks' main-path runs, by route; their
     held kernel shapes join ``rows``."""
@@ -3415,8 +3435,9 @@ def tp_phase(torch, failures, rows, straight) -> dict:
 
 def tp_rank_main(rank: int, world: int, store: str) -> None:
     """One rank of the TP phase on ``cuda:0``: qwen3-8b (``_tp_qwen3``), olmoe-1b-7b
-    (``_tp_olmoe``) and lm-100m training (``_tp_train``) over the (1, 2) mesh; its
-    failures, launches, held kernel rows and report to TP_DIR/rank<r>.json."""
+    (``_tp_olmoe``), lm-100m training (``_tp_train``) and the recurrent and enc-dec
+    families (``_tp_families``) over the (1, 2) mesh; its failures, launches, held
+    kernel rows and report to TP_DIR/rank<r>.json."""
     import datetime
     import traceback
 
@@ -3435,7 +3456,7 @@ def tp_rank_main(rank: int, world: int, store: str) -> None:
     out = {"failures": [], "rows": {k: [] for k in KERNEL_ROUTES}, "launches": {},
            "report": {"mesh": str(mesh), "backend": dist.get_backend()}}
     try:
-        for part in (_tp_qwen3, _tp_olmoe, _tp_train):  # (d) runs inside _tp_qwen3
+        for part in (_tp_qwen3, _tp_olmoe, _tp_train, _tp_families):  # (d) inside _tp_qwen3
             part(torch, dev, mesh, rank, out)
             dist.barrier()
     except BaseException:
@@ -3576,18 +3597,34 @@ def _strip_act(tree):
     return tree
 
 
+def _float32_tree(tree):
+    """``tree`` with every float leaf outside its packed weights in float32 (the
+    codes and their scales as they are)."""
+    from repro_torch.kernels.ops import PackedWeight
+
+    if isinstance(tree, dict):
+        return {k: _float32_tree(v) for k, v in tree.items()}
+    return tree if isinstance(tree, PackedWeight) else tree.float()
+
+
 def _tp_float_control(torch, dev, setup, qm, prompts, new, rel_static, rank, out) -> None:
-    """The control of (a)'s logit reading: the same teacher-forced comparison, the
+    """The controls of (a)'s logit reading: the same teacher-forced comparison, the
     (1, 2) run against the meshless one, both on the kernels, on the loaded tree
-    with its static activation scales taken off. Where the float reading is not
+    with its static activation scales taken off, in the model's bf16 and in a
+    float32 copy (the float leaves in float32, the matmuls on the bf16x3 routes,
+    the attention on the float32 flash kernel). Where the float reading is not
     well below the static one, the static 8-bit activations are not what parts
-    the two runs."""
+    the two runs; where the float32 copy reads within FLOAT_LOGIT_REL_TOL, the
+    tensor-parallel path computes the meshless function and what parts the bf16
+    runs is bf16 rounding of float32 sums taken in another order."""
     import repro_torch.models.transformer as transformer
 
-    cfg = setup.cfg
     tree = _strip_act(qm.params)
 
-    def forced(params, pctx, cache) -> list:
+    def forced(cfg, params, pctx) -> list:
+        cache = transformer.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW, device=dev)
+        if pctx is not None:
+            params, cache = setup.layout(params, cache)
         logits, cache = transformer.prefill(params, cfg, prompts, cache, pctx=pctx)
         outs = [logits]
         for i in range(LM_NEW - 1):
@@ -3596,21 +3633,28 @@ def _tp_float_control(torch, dev, setup, qm, prompts, new, rel_static, rank, out
             outs.append(logits)
         return outs
 
-    t0 = time.perf_counter()
-    meshless = forced(tree, None, transformer.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW,
-                                                         device=dev))
-    params, cache = setup.layout(tree, transformer.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW,
-                                                              device=dev))
-    rel = _rel(forced(params, setup.pctx(), cache), meshless)
-    print(f"[tp r{rank}] (a) control: float activations (the tree's static scales taken off), "
-          f"teacher-forced (1, 2) against meshless on the kernels, max |logit diff| / max "
-          f"|logit| {rel:.3e}; with the static 8-bit activations {rel_static:.3e} "
-          f"({time.perf_counter() - t0:.1f} s)")
-    if not math.isfinite(rel):
-        out["failures"].append(f"[tp] (a) rank {rank}: float control reading {rel}")
-    out["report"]["qwen3_float_control"] = {"logit_rel_float": rel, "logit_rel_static": rel_static}
-    del params, cache, meshless
-    torch.cuda.empty_cache()
+    readings = {}
+    for label, cfg, params in (
+            ("bf16", setup.cfg, tree),
+            ("float32", dataclasses.replace(setup.cfg, dtype_str="float32"), _float32_tree(tree))):
+        t0 = time.perf_counter()
+        meshless = forced(cfg, params, None)
+        readings[label] = _rel(forced(cfg, params, setup.pctx()), meshless)
+        del meshless
+        torch.cuda.empty_cache()
+        print(f"[tp r{rank}] (a) control: float activations (the tree's static scales taken "
+              f"off), {label}, teacher-forced (1, 2) against meshless on the kernels, max "
+              f"|logit diff| / max |logit| {readings[label]:.3e}"
+              f"{f' (limit {FLOAT_LOGIT_REL_TOL:g})' if label == 'float32' else ''}; with the "
+              f"static 8-bit activations {rel_static:.3e} ({time.perf_counter() - t0:.1f} s)")
+    if not math.isfinite(readings["bf16"]):
+        out["failures"].append(f"[tp] (a) rank {rank}: float control reading {readings['bf16']}")
+    if not readings["float32"] <= FLOAT_LOGIT_REL_TOL:
+        out["failures"].append(f"[tp] (a) rank {rank}: float32 control reading "
+                               f"{readings['float32']:.3e}")
+    out["report"]["qwen3_float_control"] = {"logit_rel_float": readings["bf16"],
+                                            "logit_rel_float32": readings["float32"],
+                                            "logit_rel_static": rel_static}
 
 
 def _tp_engine(torch, dev, mesh, rank, out, qm, cfg, calib) -> None:
@@ -3912,6 +3956,215 @@ def _tp_train(torch, dev, mesh, rank, out) -> None:
             out["failures"].append(f"[tp] (c) rank {rank} {label}: collectives {issued}")
         report[f"seq_parallel={sp}"] = {"loss_rel": rel, "step_ms": step_ms, "issued": issued}
     out["report"]["lm100m"] = report
+
+
+def _family_collectives(cfg, m: int) -> tuple[dict, dict]:
+    """Collectives by kind of one prefill and of one decode step of a recurrent or
+    enc-dec model on a model axis of ``m`` ranks, where every rule block divides:
+    the embedding's vocab blocks summed (its feature blocks gathered where the
+    vocab does not divide) and the head's vocab blocks gathered (its feature
+    blocks' partial logits summed); a mamba2 layer gathers ``in_proj``'s columns
+    and the conv's channels and sums the gated norm's squares and ``out_proj``'s
+    rows; an RG-LRU layer gathers the conv output and sums ``w_out``'s and
+    ``w2``'s rows; a local-attention layer gathers ``wk``'s and ``wv``'s columns
+    where they split the KV heads and sums ``wo``'s and ``w2``'s rows; an
+    encoder layer sums two row-parallel products, a decoder layer three (self,
+    cross, MLP), and the prefill gathers ``frontend_proj``'s columns."""
+    vocab_split = cfg.vocab % m == 0
+    call = collections.Counter({"all_reduce" if vocab_split else "all_gather": 1})
+    call["all_gather" if vocab_split else "all_reduce"] += 1
+    if cfg.family == "ssm":
+        call.update({"all_gather": 2 * cfg.n_layers, "all_reduce": 2 * cfg.n_layers})
+        return dict(call), dict(call)
+    if cfg.family == "hybrid":
+        n_attn = sum(cfg.period[i % len(cfg.period)] == "attn" for i in range(cfg.n_layers))
+        call.update({"all_reduce": 2 * cfg.n_layers,
+                     "all_gather": cfg.n_layers - n_attn
+                     + (2 * n_attn if cfg.n_kv_heads % m else 0)})
+        return dict(call), dict(call)
+    step = call + collections.Counter({"all_reduce": 3 * cfg.n_dec_layers})
+    prefill = step + collections.Counter({"all_reduce": 2 * cfg.n_layers, "all_gather": 1})
+    return dict(prefill), dict(step)
+
+
+def _tp_families(torch, dev, mesh, rank, out) -> None:
+    """(e) The recurrent and enc-dec families over the (1, 2) mesh: each model of
+    FAMILY_ARCHS from its family phase's artifact (``_tp_family``), then
+    mamba2-780m training (``_tp_family_train``)."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    for arch in FAMILY_ARCHS:
+        _tp_family(torch, dev, mesh, rank, out, arch)
+        dist.barrier()
+    _tp_family_train(torch, dev, mesh, rank, out)
+    print(f"[tp r{rank}] (e) {time.perf_counter() - t0:.1f} s")
+
+
+def _tp_family(torch, dev, mesh, rank, out, arch: str) -> None:
+    """(e) One recurrent or enc-dec model at full width and depth, a4 per slice,
+    float activations, from its family phase's artifact: ``static_generate``
+    through ``ServeSetup(mesh)`` at the family phase's geometry (its first
+    TP_FAMILY_NEW new tokens), launches per
+    route per model call exact (every packed slice once a call, at this rank's
+    block), collectives by kind exact (``_family_collectives``), the tokens
+    equal on both ranks; the model teacher-forced on the meshless run's tokens
+    within the family's logit gate of the meshless kernels' logits; prefill and
+    decode ms and peak memory per rank; every kernel shape of the run held
+    against its plain version on its own inputs."""
+    import torch.distributed as dist
+
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.models import get_model
+    from repro_torch.runtime import collectives
+
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    tag = f"[tp r{rank}] (e) {cfg.name}"
+    t0 = time.perf_counter()
+    d = os.path.join(TP_DIR, arch)
+    qm = api.load(d, device=dev)
+    refs = torch.load(d + ".refs.pt")
+    batch = {"tokens": refs["prompts"].to(dev)}
+    if refs["frames"] is not None:
+        batch["frontend"] = refs["frames"].to(dev)
+    n = TP_FAMILY_NEW
+    new = refs["tokens"][:, :n].to(dev)
+    ref_logits = [t.to(dev) for t in refs["logits"][:n]]
+    print(f"{tag}: artifact loaded in {time.perf_counter() - t0:.1f} s")
+    max_len = LM_PROMPT + n
+    setup = engine_mod.ServeSetup(cfg=cfg, mesh=mesh, max_len=max_len, batch=LM_BATCH)
+    tap = KernelTap()
+    collectives.reset()
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tap:
+        got, phases = _phased(torch, lambda: engine_mod.static_generate(
+            setup, qm.params, batch, n))
+    gen_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(zip(KERNEL_ROUTES, _counts()))
+    out["launches"] = dict(collections.Counter(out["launches"]) + collections.Counter(launches))
+    prefill_counts, step_counts = _family_launches(cfg, qm.params)
+    want = [("prefill", prefill_counts)] + [("decode", step_counts)] * (n - 1)
+    frames = f" + {batch['frontend'].shape[1]} frames" if "frontend" in batch else ""
+    print(f"{tag}: static_generate over {setup.mesh} ({LM_BATCH} x {LM_PROMPT} prompts{frames}, "
+          f"{n} new) in {gen_s:.2f} s; launches by phase exact {phases == want} (prefill "
+          f"{phases[0][1] if phases else None}, decode steps "
+          f"{sorted(set(p_[1] for p_ in phases[1:]))}); max_memory_allocated {peak} B")
+    if phases != want:
+        out["failures"].append(f"[tp] (e) {cfg.name} rank {rank}: launches by phase {phases}")
+    pre, step = _family_collectives(cfg, mesh.size())
+    _tp_issued_ok(f"r{rank} (e) {cfg.name} static_generate", collectives.ISSUED,
+                  {k: pre.get(k, 0) + (n - 1) * step.get(k, 0)
+                   for k in ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")}, out)
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, got.tolist())
+    if any(e != everyone[0] for e in everyone) or tuple(got.shape) != (LM_BATCH, n):
+        out["failures"].append(f"[tp] (e) {cfg.name} rank {rank}: tokens differ between the "
+                               f"ranks or of shape {tuple(got.shape)}")
+
+    # teacher-forced on the meshless tokens, timed per call
+    params, state = setup.layout(qm.params, model.init_cache(cfg, LM_BATCH, max_len, device=dev))
+    pctx = setup.pctx()
+    step_ms = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, state = model.prefill(params, cfg, batch, state, pctx=pctx)
+    torch.cuda.synchronize()
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    forced = [logits]
+    for i in range(n - 1):
+        t0 = time.perf_counter()
+        logits, state = model.decode_step(params, cfg, new[:, i:i + 1], state, LM_PROMPT + i,
+                                          pctx=pctx)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        forced.append(logits)
+    tol = FAMILY_LOGIT_REL_TOL.get(arch, LM_LOGIT_REL_TOL)
+    rel = _rel(forced, ref_logits)
+    same = int((got == new).all(dim=1).sum())
+    print(f"{tag}: teacher-forced on the meshless tokens, max |logit diff| / max |logit| "
+          f"against the meshless kernels' {rel:.3e} (limit {tol:g}); rows identical to the "
+          f"meshless tokens {same}/{LM_BATCH}; prefill ms {pre_ms:.2f}, decode ms a step median "
+          f"{statistics.median(step_ms):.2f} (meshless {refs['prefill_ms']:.2f} and "
+          f"{refs['decode_ms']:.2f}, one process alone)")
+    if not rel <= tol:
+        out["failures"].append(f"[tp] (e) {cfg.name} rank {rank}: logits {rel:.3e} against "
+                               "the meshless")
+    out["report"][arch] = {"logit_rel": rel, "rows_same": same, "prefill_ms": pre_ms,
+                           "decode_ms_median": statistics.median(step_ms), "peak_bytes": peak,
+                           "generate_s": gen_s}
+    del params, state, forced, logits, ref_logits
+    _tp_held(torch, dev, mesh, rank, f"{cfg.name} static_generate", tap, out)
+    del qm, tap
+    torch.cuda.empty_cache()
+
+
+def _tp_family_train(torch, dev, mesh, rank, out) -> None:
+    """(e) mamba2-780m at full width, TP_M2_TRAIN_LAYERS of its 48 layers, in
+    float32 (where a loss within TP_TRAIN_REL_TOL is a float32 sum in another
+    order, not a bf16 rounding): TP_M2_TRAIN_STEPS ``TrainSetup`` steps on one
+    card without a mesh and then on the (1, 2) mesh, on the same seeded weights
+    and batches; the losses and the gradient norms (where a gradient summed over
+    the model axis once too often shows, as the losses barely do) within
+    TP_TRAIN_REL_TOL relative, no kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import LmDataset, shard_batch
+    from repro_torch.models import get_model
+    from repro_torch.runtime import collectives
+    from repro_torch.runtime.train_loop import (
+        TrainSetup,
+        init_opt_state,
+        local_params,
+        make_train_step,
+    )
+
+    cfg = dataclasses.replace(get_config("mamba2_780m"), n_layers=TP_M2_TRAIN_LAYERS,
+                              dtype_str="float32")
+    ds = LmDataset(cfg, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, seed=0)
+    losses, gnorms, ms = {}, {}, {}
+    for name, m in (("meshless", None), ("tp", mesh)):
+        setup = TrainSetup(cfg=cfg, mesh=m, lr_peak=6e-4, warmup=0, total_steps=10, remat=True)
+        whole = get_model(cfg).init_params(cfg, seed=3, device=dev)
+        p, opt, step = local_params(setup, whole), init_opt_state(setup, whole), \
+            make_train_step(setup)
+        del whole
+        collectives.reset()
+        _zero_counts()
+        losses[name], gnorms[name], times = [], [], []
+        for i in range(TP_M2_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, opt, _, mt = step(p, opt, None, shard_batch(ds.np_batch(i), m, device=dev))
+            losses[name].append(float(mt["loss"]))
+            gnorms[name].append(float(mt["gnorm"]))
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = times
+        issued = dict(collectives.ISSUED)
+        _no_kernel_launches(f"[tp] (e) rank {rank} mamba2-780m training {name}",
+                            out["failures"])
+        del p, opt
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["tp"], losses["meshless"]))
+    g_rel = max(abs(a - b) / abs(b) for a, b in zip(gnorms["tp"], gnorms["meshless"]))
+    print(f"[tp r{rank}] (e) mamba2-780m training, {TP_M2_TRAIN_LAYERS} of 48 layers, float32, "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, remat: losses on (1, 2) {losses['tp']}, meshless "
+          f"{losses['meshless']}, largest relative difference {rel:.3e} (limit "
+          f"{TP_TRAIN_REL_TOL:g}); gradient norms on (1, 2) {gnorms['tp']}, meshless "
+          f"{gnorms['meshless']}, largest relative difference {g_rel:.3e} (limit "
+          f"{TP_TRAIN_REL_TOL:g}); step ms (1, 2) {[round(t, 1) for t in ms['tp']]}, meshless "
+          f"{[round(t, 1) for t in ms['meshless']]}; collectives on (1, 2) {issued}")
+    finite = all(math.isfinite(v) for run in (*losses.values(), *gnorms.values()) for v in run)
+    if (not finite or not max(rel, g_rel) <= TP_TRAIN_REL_TOL or not issued["all_reduce"]
+            or issued["reduce_scatter"]):
+        out["failures"].append(f"[tp] (e) rank {rank} mamba2-780m training: loss {rel:.3e}, "
+                               f"gradient norm {g_rel:.3e}, collectives {issued}")
+    out["report"]["mamba2_train"] = {"loss_rel": rel, "gnorm_rel": g_rel, "losses": losses["tp"],
+                                     "step_ms": ms, "issued": issued}
 
 
 def main() -> int:

@@ -9,9 +9,7 @@ auto-resume, the straggler monitor and optional gradient compression.
 target, halved until it divides the rank count
 (:func:`~repro_torch.runtime.elastic.choose_mesh_shape`); the products
 split over it, and ``--seq-parallel`` splits the residual along the
-sequence there. The ``ssm``, ``hybrid`` and ``encdec``/``audio`` families
-on a model axis of more than one rank raise ``NotImplementedError``
-(ROADMAP.md, queue 1 item 4d). ``--smoke`` runs the reduced config of the
+sequence there (in the transformer stacks). ``--smoke`` runs the reduced config of the
 same family; ``--device cpu`` runs on the host (default: the card). Two
 ranks may share one card over a ``gloo`` group (start it before calling
 :func:`main`): NCCL refuses two ranks on one device.

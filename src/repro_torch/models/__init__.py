@@ -20,7 +20,9 @@ next-token cross entropy, differentiable (each family's ``loss_fn``; the
 attention in the reference's torch ops, no kernel). The cache is each
 family's own: a KV cache, mamba2's ``(conv, ssd)`` state, rglru's
 recurrent state and ring, and for enc-dec the ``(cache, enc_out)`` pair
-that prefill returns.
+that prefill returns. Over a model axis of more than one rank each family
+runs on this rank's blocks of the parameters and takes its cache as
+``api.tp_cache(cache, cfg, pctx)`` lays it out (``ServeSetup.layout``).
 """
 from __future__ import annotations
 
@@ -35,6 +37,9 @@ class ModelApi:
     init_cache: Callable[..., Any]
     prefill: Callable[..., Any]
     decode_step: Callable[..., Any]
+    # tp_cache(cache, cfg, pctx): a whole cache's blocks on this rank of a model
+    # axis of more than one rank
+    tp_cache: Callable[..., Any]
 
 
 def _tf_api() -> ModelApi:
@@ -51,52 +56,47 @@ def _tf_api() -> ModelApi:
     def decode(params, cfg, token, cache, pos, *, pctx=None):
         return transformer.decode_step(params, cfg, token, cache, pos, pctx=pctx)
 
-    return ModelApi(transformer.init_params, loss, transformer.init_cache, prefill, decode)
+    return ModelApi(transformer.init_params, loss, transformer.init_cache, prefill, decode,
+                    transformer.tp_cache)
 
 
 def _ssm_api() -> ModelApi:
     from repro_torch.models import mamba2
-    from repro_torch.models.transformer import check_model_axis
 
     def loss(params, cfg, batch, *, pctx=None, remat=True):
-        check_model_axis(pctx, cfg.family)
-        return mamba2.loss_fn(params, cfg, batch["tokens"], batch["labels"], remat=remat)
+        return mamba2.loss_fn(params, cfg, batch["tokens"], batch["labels"], remat=remat,
+                              pctx=pctx)
 
     def init_cache(cfg, batch, max_len, *, device=None):
         return mamba2.init_state(cfg, batch, device=device)
 
     def prefill(params, cfg, batch, cache, *, pctx=None):
-        check_model_axis(pctx, cfg.family)
-        return mamba2.prefill(params, cfg, batch["tokens"], cache)
+        return mamba2.prefill(params, cfg, batch["tokens"], cache, pctx=pctx)
 
     def decode(params, cfg, token, cache, pos, *, pctx=None):
-        check_model_axis(pctx, cfg.family)
-        return mamba2.decode_step(params, cfg, token, cache, pos)
+        return mamba2.decode_step(params, cfg, token, cache, pos, pctx=pctx)
 
-    return ModelApi(mamba2.init_params, loss, init_cache, prefill, decode)
+    return ModelApi(mamba2.init_params, loss, init_cache, prefill, decode, mamba2.tp_state)
 
 
 def _hybrid_api() -> ModelApi:
     from repro_torch.models import rglru
-    from repro_torch.models.transformer import check_model_axis
 
     def loss(params, cfg, batch, *, pctx=None, remat=True):
-        check_model_axis(pctx, cfg.family)
-        return rglru.loss_fn(params, cfg, batch["tokens"], batch["labels"], remat=remat)
+        return rglru.loss_fn(params, cfg, batch["tokens"], batch["labels"], remat=remat,
+                             pctx=pctx)
 
     def prefill(params, cfg, batch, cache, *, pctx=None):
-        check_model_axis(pctx, cfg.family)
-        return rglru.prefill(params, cfg, batch["tokens"], cache)
+        return rglru.prefill(params, cfg, batch["tokens"], cache, pctx=pctx)
 
     def decode(params, cfg, token, cache, pos, *, pctx=None):
-        check_model_axis(pctx, cfg.family)
-        return rglru.decode_step(params, cfg, token, cache, pos)
+        return rglru.decode_step(params, cfg, token, cache, pos, pctx=pctx)
 
-    return ModelApi(rglru.init_params, loss, rglru.init_cache, prefill, decode)
+    return ModelApi(rglru.init_params, loss, rglru.init_cache, prefill, decode, rglru.tp_state)
 
 
 def _encdec_api() -> ModelApi:
-    from repro_torch.models import encdec
+    from repro_torch.models import encdec, transformer
 
     def loss(params, cfg, batch, *, pctx=None, remat=True):
         return encdec.loss_fn(params, cfg, batch["tokens"], batch["labels"],
@@ -109,7 +109,8 @@ def _encdec_api() -> ModelApi:
     def decode(params, cfg, token, cache, pos, *, pctx=None):
         return encdec.decode_step(params, cfg, token, cache, pos, pctx=pctx)
 
-    return ModelApi(encdec.init_params, loss, encdec.init_cache, prefill, decode)
+    return ModelApi(encdec.init_params, loss, encdec.init_cache, prefill, decode,
+                    transformer.tp_cache)
 
 
 _FAMILIES = {

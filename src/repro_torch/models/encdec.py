@@ -10,6 +10,13 @@ whose blocks add cross-attention over the encoder output
 The serve state is ``(cache, enc_out)``: the decoder's dense KV cache
 (written in place) and the encoder output, which each decode step's
 cross-attention reads through ``xk``/``xv`` again, as the reference does.
+
+Over a model axis of more than one rank (``pctx``) both stacks run the
+transformer's tensor-parallel blocks: the encoder output is whole on every
+rank of the model axis (its blocks' row-parallel sums), cross-attention's
+``xq``/``xk``/``xv`` are column-parallel and ``xo`` row-parallel, the KV
+cache keeps this rank's heads (``transformer.tp_cache``), and ``enc_out`` in
+the serve state is the rank's rows, as the reference batch-shards it.
 """
 from __future__ import annotations
 
@@ -19,11 +26,13 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.layers import (
+    TPInput,
     cross_entropy,
     dense_init,
     init_generator,
-    matmul,
     rms_norm,
+    tp_full,
+    tp_matmul,
 )
 
 
@@ -50,8 +59,11 @@ def encode(params, cfg: ArchConfig, src, *, pctx=None, remat: bool = False,
     -> the normed encoder output ``[B, S_enc, D]``. ``remat`` and ``attn_impl`` as
     in :func:`repro_torch.models.transformer.stack_apply`."""
     src = torch.as_tensor(src).to(params["embed"].device).to(cfg.dtype)
-    x, _ = T.stack_apply(params["encoder"], cfg, matmul(src, params["frontend_proj"]),
-                         causal=False, pctx=pctx, remat=remat, attn_impl=attn_impl)
+    y, form = tp_matmul(TPInput(src, pctx), params["frontend_proj"], cfg.d_model, cfg.d_model,
+                        pctx)
+    x = tp_full(y, form, pctx, cfg.dtype)
+    x, _ = T.stack_apply(params["encoder"], cfg, x, causal=False, pctx=pctx, remat=remat,
+                         attn_impl=attn_impl)
     return rms_norm(x, params["enc_norm"])
 
 
@@ -59,9 +71,10 @@ def forward(params, cfg: ArchConfig, tokens, *, frontend, pctx=None, **_) -> tor
     """Cache-less forward: float32 logits ``[B, S, V]``."""
     with torch.no_grad():
         enc_out = encode(params, cfg, frontend, pctx=pctx)
-        x, _ = T.stack_apply(params["decoder"], cfg, T.embed_tokens(params, cfg, tokens),
+        x, _ = T.stack_apply(params["decoder"], cfg, T.embed_tokens(params, cfg, tokens,
+                                                                     pctx=pctx),
                              causal=True, enc_out=enc_out, pctx=pctx)
-        return T.unembed(params, cfg, x)
+        return T.unembed(params, cfg, x, pctx)
 
 
 def loss_fn(params, cfg: ArchConfig, tokens, labels, *, frontend, pctx=None,
@@ -70,10 +83,10 @@ def loss_fn(params, cfg: ArchConfig, tokens, labels, *, frontend, pctx=None,
     differentiable: attention in the reference's torch ops in both stacks, each
     block recomputed in the backward pass with ``remat``."""
     enc_out = encode(params, cfg, frontend, pctx=pctx, remat=remat, attn_impl="reference")
-    x, _ = T.stack_apply(params["decoder"], cfg, T.embed_tokens(params, cfg, tokens),
+    x, _ = T.stack_apply(params["decoder"], cfg, T.embed_tokens(params, cfg, tokens, pctx=pctx),
                          causal=True, enc_out=enc_out, pctx=pctx, remat=remat,
                          attn_impl="reference")
-    return cross_entropy(T.unembed(params, cfg, x), labels)
+    return cross_entropy(T.unembed(params, cfg, x, pctx), labels)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device=None) -> dict:
@@ -86,10 +99,10 @@ def prefill(params, cfg: ArchConfig, tokens, cache: dict, *, frontend, pctx=None
     position's logits and the serve state ``(cache, enc_out)``."""
     with torch.no_grad():
         enc_out = encode(params, cfg, frontend, pctx=pctx)
-        x, cache = T.stack_apply(params["decoder"], cfg, T.embed_tokens(params, cfg, tokens),
-                                 causal=True, cache=cache, cache_pos=0, enc_out=enc_out,
-                                 pctx=pctx)
-        return T.unembed(params, cfg, x[:, -1:]), (cache, enc_out)
+        x, cache = T.stack_apply(params["decoder"], cfg,
+                                 T.embed_tokens(params, cfg, tokens, pctx=pctx), causal=True,
+                                 cache=cache, cache_pos=0, enc_out=enc_out, pctx=pctx)
+        return T.unembed(params, cfg, x[:, -1:], pctx), (cache, enc_out)
 
 
 def decode_step(params, cfg: ArchConfig, token, state, pos, *, pctx=None, **_):
@@ -97,8 +110,8 @@ def decode_step(params, cfg: ArchConfig, token, state, pos, *, pctx=None, **_):
     serve state ``(cache, enc_out)``; returns ``[B, s, V]`` logits and the state."""
     cache, enc_out = state
     with torch.no_grad():
-        x = T.embed_tokens(params, cfg, token)
+        x = T.embed_tokens(params, cfg, token, pctx=pctx)
         pos, positions = T.step_positions(pos, token.shape[1], x.device)
         x, cache = T.stack_apply(params["decoder"], cfg, x, causal=True, positions=positions,
                                  cache=cache, cache_pos=pos, enc_out=enc_out, pctx=pctx)
-        return T.unembed(params, cfg, x), (cache, enc_out)
+        return T.unembed(params, cfg, x, pctx), (cache, enc_out)

@@ -226,7 +226,9 @@ def matmul(x: torch.Tensor, w, *, f32: bool = False) -> torch.Tensor:
 # float32 partial sum over the model axis of this rank's rows), or neither
 # (the whole product on every rank). Gradients follow the conjugate pairs of
 # ``runtime.collectives``: a whole activation carries its whole gradient on
-# every rank, and a rank's block carries the gradient of that block.
+# every rank, and a rank's block carries the gradient of that block. Without
+# such a context every product is ``"full"`` and the helpers below are the
+# plain ops, so one body serves a block with and without a model axis.
 def tp_active(pctx) -> bool:
     """Whether ``pctx`` spreads the model over more than one rank."""
     return pctx is not None and pctx.model_size > 1
@@ -314,18 +316,23 @@ def tp_full(y: torch.Tensor, form: str, pctx, dtype) -> torch.Tensor:
 def tp_take(x: torch.Tensor, dim: int, start: int, stop: int, pctx) -> torch.Tensor:
     """Rows ``[start, stop)`` along ``dim`` of a whole ``x``, this rank's share of it
     (the blocks of the ranks may overlap): the gradients of every rank's share are
-    summed back into the whole."""
+    summed back into the whole. Without a model axis, the rows as they are."""
     from repro_torch.runtime import collectives
 
-    return collectives.copy_to_model(x, pctx.model_group).narrow(dim, start, stop - start)
+    if tp_active(pctx):
+        x = collectives.copy_to_model(x, pctx.model_group)
+    return x.narrow(dim, start, stop - start)
 
 
 def tp_residual(y: torch.Tensor, form: str, pctx, seq_local: bool, dtype) -> torch.Tensor:
     """A block's output in the residual's layout: whole rows, or this rank's
     sequence block (``seq_local``); partial sums summed (``reduce_scatter`` onto the
-    sequence blocks), column blocks gathered."""
+    sequence blocks), column blocks gathered. Without a model axis (every product
+    ``"full"``), ``y`` as it is."""
     from repro_torch.runtime import collectives
 
+    if not tp_active(pctx):
+        return y
     g = pctx.model_group
     if form == "partial":
         if seq_local:
@@ -339,7 +346,8 @@ def tp_mlp(p: dict, inp: TPInput, kind: str, d: int, ff: int, pctx, dtype):
     """:func:`mlp_apply` on this rank's blocks: ``(y, form)`` of the down product.
     With the up products column-parallel and the down product row-parallel on
     the same blocks (the rules' layout when ``ff`` divides) the hidden stays in
-    this rank's columns; otherwise it is made whole first."""
+    this rank's columns; otherwise it is made whole first. Without a model axis,
+    :func:`mlp_apply`'s products."""
     a, fa = tp_matmul(inp, p["w1"], d, ff, pctx)
     gated = kind in ("swiglu", "geglu")
     b, fb = tp_matmul(inp, p["w3"], d, ff, pctx) if gated else (None, fa)
@@ -354,12 +362,28 @@ def tp_mlp(p: dict, inp: TPInput, kind: str, d: int, ff: int, pctx, dtype):
         h = F.gelu(a, approximate="tanh")
     else:
         raise ValueError(kind)
-    m = pctx.model_size
     if fa == fb == "cols":
+        m = pctx.model_size
         if local_kn(p["w2"])[0] != ff and row_blocks(p["w2"], ff, m) == [ff // m] * m:
             return matmul(h, p["w2"], f32=True), "partial"
         h = tp_full(h, "cols", pctx, dtype)
     return tp_matmul(TPInput(h, pctx), p["w2"], ff, d, pctx)
+
+
+def tp_rms_norm(x: torch.Tensor, scale: torch.Tensor, n: int, pctx,
+                eps: float = 1e-6) -> torch.Tensor:
+    """:func:`rms_norm` over ``n`` features split over the model axis: ``x`` and
+    ``scale`` are this rank's blocks of them, and the rows' float32 sums of squares
+    are summed over the model axis (one ``all_reduce``). Without a model axis,
+    :func:`rms_norm`."""
+    from repro_torch.runtime import collectives
+
+    if not tp_active(pctx):
+        return rms_norm(x, scale, eps)
+    ss = torch.sum(torch.square(x).to(F32), dim=-1, keepdim=True)
+    var = collectives.all_reduce(ss, pctx.model_group) / n
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    return x * inv * (1.0 + scale).to(x.dtype)
 
 
 def tp_embed(embed: torch.Tensor, tokens: torch.Tensor, vocab: int, d: int, pctx,

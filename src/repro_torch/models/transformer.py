@@ -71,9 +71,10 @@ gathers its vocab blocks (or sums its feature blocks). With
 ``pctx.seq_parallel`` the residual stream between the blocks is split
 along the sequence over the model axis, gathered at each block's entry
 and reduce-scattered at its exit (the reference's sequence-parallel
-layout). The ``ssm``, ``hybrid`` and ``encdec``/``audio`` families on a
-model axis of more than one rank raise ``NotImplementedError``
-(:func:`check_model_axis`; ROADMAP.md, queue 1 item 4d).
+layout). The enc-dec model's blocks run the same way, cross-attention's
+``xk``/``xv`` column-parallel on the whole encoder output; mamba2 and the
+hybrid lay out their own blocks (:mod:`~repro_torch.models.mamba2`,
+:mod:`~repro_torch.models.rglru`).
 
 Prefill-shaped attention without a window goes through
 :func:`repro_torch.kernels.flash_attention.flash_attention`, the CUDA
@@ -147,22 +148,6 @@ FLASH_BLOCK = 128  # the flash kernel's sequence block (callers pad to it)
 # Prefill-shaped attention: on the flash kernel, or the reference's torch ops
 # (the training forward, which the kernel's lack of a backward rules out).
 ATTN_IMPLS = ("flash", "reference")
-
-
-# The families whose blocks run tensor parallel over a model axis.
-TP_FAMILIES = ("dense", "moe", "vlm")
-
-
-def check_model_axis(pctx, family: str) -> None:
-    """Raise for a ``family`` outside :data:`TP_FAMILIES` on a model axis of more
-    than one rank: mamba2's ``in_proj`` concatenates z/x/B/C/dt along its
-    columns, so a column block cuts across them, and the RG-LRU's and the
-    encoder's projections need layouts of their own."""
-    if tp_active(pctx) and family not in TP_FAMILIES:
-        raise NotImplementedError(
-            f"the {family!r} family on a model axis of {pctx.model_size} ranks is not ported "
-            "to repro_torch yet (tensor parallelism runs the dense, moe and vlm families); "
-            "see ROADMAP.md (queue 1 item 4d)")
 
 
 def head_blocks(cfg: ArchConfig, pctx) -> tuple[int, int, int, int]:
@@ -550,19 +535,21 @@ def _flash_prefill(q, k, v, q_offset: int, causal: bool = True) -> torch.Tensor:
 
 
 def _tp_heads(lp: dict, cfg: ArchConfig, inp: TPInput, pctx, prefix: str, *,
-              whole_q: bool = False, whole_kv: bool = False):
+              whole_q: bool = False, whole_kv: bool = False, kv_inp: TPInput | None = None):
     """This rank's query, key and value heads ``[B, S, heads, hd]`` under tensor
     parallelism, and the local KV head each local query head reads (None where
     that is the plain GQA grouping of the local heads, or where the query heads
     are whole). ``whole_q``/``whole_kv`` gather every query/KV head instead
     (flash-decode's sequence-sharded cache holds every KV head, and a decode run
-    attends every query head over the rank's block of the positions)."""
+    attends every query head over the rank's block of the positions).
+    ``kv_inp`` is the keys' and values' input where it is not ``inp`` (the
+    encoder output of cross-attention)."""
     h, kv, hd, d = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
     m = pctx.model_size
     q_lo, q_hi, kv_lo, kv_hi = head_blocks(cfg, pctx)
 
-    def heads(name, n_heads, lo, hi, whole):
-        y, form = tp_matmul(inp, lp[prefix + name], d, n_heads * hd, pctx)
+    def heads(name, n_heads, lo, hi, whole, src=inp):
+        y, form = tp_matmul(src, lp[prefix + name], d, n_heads * hd, pctx)
         if whole:
             y, lo, hi = tp_full(y, form, pctx, cfg.dtype), 0, n_heads
         elif not (form == "cols" and n_heads % m == 0 and h % m == 0):
@@ -571,7 +558,8 @@ def _tp_heads(lp: dict, cfg: ArchConfig, inp: TPInput, pctx, prefix: str, *,
         return y.reshape(*y.shape[:2], hi - lo, hd)
 
     q = heads("q", h, q_lo, q_hi, whole_q)
-    k, v = heads("k", kv, kv_lo, kv_hi, whole_kv), heads("v", kv, kv_lo, kv_hi, whole_kv)
+    kv_inp = kv_inp or inp
+    k, v = (heads(name, kv, kv_lo, kv_hi, whole_kv, kv_inp) for name in ("k", "v"))
     return q, k, v, None if whole_q else _kv_index(cfg, pctx)
 
 
@@ -643,7 +631,9 @@ def _attention(
     Under tensor parallelism ``tp_in`` holds the input rows (``x`` is unused),
     the heads and the cache are this rank's (:func:`head_blocks`), and the
     output is ``(y, form)`` of the output projection
-    (:func:`~repro_torch.models.layers.tp_matmul`).
+    (:func:`~repro_torch.models.layers.tp_matmul`); cross-attention's
+    ``xk``/``xv`` run column-parallel on the encoder output, whole on every
+    rank.
     """
     if kv_layout not in _CACHE_KEYS:
         raise ValueError(f"unknown KV-cache layout {kv_layout!r}")
@@ -662,11 +652,9 @@ def _attention(
                      and (tp_in.seq_local or tp_in.x.shape[1] > 1)
                      and attn_impl == "flash" and not window)
     if tp_in is not None:
-        if kv_override is not None:
-            raise NotImplementedError("cross-attention on a model axis of more than one rank; "
-                                      "see ROADMAP.md (queue 1 item 4d)")
-        q, k, v, kv_idx = _tp_heads(lp, cfg, tp_in, pctx, prefix, whole_q=seq and not fresh,
-                                    whole_kv=seq)
+        q, k, v, kv_idx = _tp_heads(
+            lp, cfg, tp_in, pctx, prefix, whole_q=seq and not fresh, whole_kv=seq,
+            kv_inp=None if kv_override is None else TPInput(kv_override, pctx))
         b, s, h, _ = q.shape
         kv = k.shape[2]
     else:
@@ -812,11 +800,11 @@ def block_apply(
     (feeds w2; the dense MLP only).
     """
     if tp_active(pctx):
-        if acts is not None or enc_out is not None:
-            raise ValueError("tensor-parallel blocks take no activation taps and no encoder")
+        if acts is not None:
+            raise ValueError("tensor-parallel blocks take no activation taps")
         return _tp_block(lp, cfg, x, rope=rope, causal=causal, window=window,
-                         kv_cache=kv_cache, kv_layout=kv_layout, cache_pos=cache_pos, pctx=pctx,
-                         attn_impl=attn_impl)
+                         kv_cache=kv_cache, kv_layout=kv_layout, cache_pos=cache_pos,
+                         enc_out=enc_out, pctx=pctx, attn_impl=attn_impl)
     attn_in = rms_norm(x, lp["ln1"])
     if acts is not None:
         acts["attn_in"] = attn_in
@@ -843,21 +831,27 @@ def block_apply(
 
 
 def _tp_block(lp: dict, cfg: ArchConfig, x: torch.Tensor, *, rope, causal: bool, window: int,
-              kv_cache, kv_layout: str, cache_pos, pctx, attn_impl: str):
+              kv_cache, kv_layout: str, cache_pos, enc_out, pctx, attn_impl: str):
     """:func:`block_apply` on this rank's blocks (a model axis of more than one
     rank). ``x`` is the residual: whole rows, or this rank's block of the
-    sequence under ``pctx.seq_parallel`` (where the sequence divides)."""
+    sequence under ``pctx.seq_parallel`` (where the sequence divides);
+    ``enc_out`` is whole."""
     seq_local = _seq_local(pctx, rope[0].shape[-2])
     g = pctx.model_group
     # on a sequence block the norms' gradients are partial sums over the blocks
-    ln1, ln2 = ((collectives.copy_to_model(lp[k], g) for k in ("ln1", "ln2")) if seq_local
-                else (lp["ln1"], lp["ln2"]))
-    inp = TPInput(rms_norm(x, ln1), pctx, seq_local)
+    norms = ("ln1", "ln2") + (("ln_x",) if enc_out is not None else ())
+    ln = {k: collectives.copy_to_model(lp[k], g) if seq_local else lp[k] for k in norms}
+    inp = TPInput(rms_norm(x, ln["ln1"]), pctx, seq_local)
     (y, form), new_cache = _attention(
         lp, cfg, None, rope=rope, causal=causal, window=window, kv_cache=kv_cache,
         kv_layout=kv_layout, cache_pos=cache_pos, pctx=pctx, attn_impl=attn_impl, tp_in=inp)
     x = x + tp_residual(y, form, pctx, seq_local, x.dtype)
-    inp = TPInput(rms_norm(x, ln2), pctx, seq_local)
+    if enc_out is not None:
+        inp = TPInput(rms_norm(x, ln["ln_x"]), pctx, seq_local)
+        (y, form), _ = _attention(lp, cfg, None, rope=None, causal=False, prefix="x",
+                                  kv_override=enc_out, pctx=pctx, attn_impl=attn_impl, tp_in=inp)
+        x = x + tp_residual(y, form, pctx, seq_local, x.dtype)
+    inp = TPInput(rms_norm(x, ln["ln2"]), pctx, seq_local)
     if cfg.is_moe:
         y, form = moe_lib.moe_tp({k: lp[k] for k in ("router", "we1", "we3", "we2")}, inp, cfg,
                                  pctx)
@@ -909,7 +903,6 @@ def stack_apply(
     not with ``collect``) recomputes each block in the backward pass;
     ``attn_impl`` as in :func:`_attention`.
     """
-    check_model_axis(pctx, cfg.family)
     if collect and cache is not None:
         raise ValueError("collect=True is for the cache-less forward")
     if remat and (collect or cache is not None):

@@ -28,9 +28,9 @@ on top of the tensor-parallel specs: each rank keeps and updates its blocks
 of the moments and float32 masters, then the new parameter blocks are
 gathered over the batch axes (``all_gather``). Checkpoints hold the
 gathered, whole state and are written by rank 0; a restore reshards it
-onto whatever mesh the run has, or none. The ``ssm``, ``hybrid`` and
-``encdec``/``audio`` families on a model axis of more than one rank raise
-``NotImplementedError`` (ROADMAP.md, queue 1 item 4d).
+onto whatever mesh the run has, or none. Every family trains tensor
+parallel (mamba2 and the hybrid on their own blocks; ``seq_parallel`` acts in
+the transformer stacks, the enc-dec model's included).
 
 Gradient compression quantizes each rank's gradient blocks with error
 feedback before the mean. The reference quantizes the global gradient in
@@ -56,7 +56,6 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import tree_leaves, tree_map
 from repro_torch.models import ModelApi, get_model
 from repro_torch.models.context import ParallelCtx
-from repro_torch.models.transformer import check_model_axis
 from repro_torch.obs.metrics import NULL_REGISTRY, Registry
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import init_error_state, tree_quantize_with_feedback
@@ -83,9 +82,6 @@ class TrainSetup:
     compress: str | None = None
     moe_impl: str = "ep"
     seq_parallel: bool = False
-
-    def __post_init__(self):
-        check_model_axis(self.pctx(), self.cfg.family)
 
     def pctx(self) -> ParallelCtx | None:
         if self.mesh is None:

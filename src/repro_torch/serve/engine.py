@@ -64,10 +64,10 @@ one rank, as the JAX package does over more than one device, and serves
 without one otherwise; a ``DeviceMesh`` is taken as given. Under a mesh
 every model call runs with the setup's
 :class:`~repro_torch.models.context.ParallelCtx`: an MoE model through the
-expert-parallel exchange (``moe_impl`` defaults to ``"ep"``), the
-``dense``, ``moe`` and ``vlm`` families' products split over the model axis
-(the ``ssm``, ``hybrid`` and ``encdec``/``audio`` families take data-only
-meshes: ROADMAP.md, queue 1 item 4d), and with ``flash_decode=True`` each
+expert-parallel exchange (``moe_impl`` defaults to ``"ep"``), every family's
+products split over the model axis (each family's state laid out by its
+``ModelApi.tp_cache``: the KV heads, mamba2's conv channels and SSD heads, the
+hybrid's recurrence channels and ring heads), and with ``flash_decode=True`` each
 decode step's attention through
 :func:`~repro_torch.models.flash_decode.flash_decode_attention` over the
 cache's sequence (on a model axis that splits the heads, a dense cache holds
@@ -119,7 +119,6 @@ from repro_torch.device import host_to_device
 from repro_torch.models import get_model
 from repro_torch.models.context import ParallelCtx, axes_group, axes_index, axes_size
 from repro_torch.models.layers import tp_active
-from repro_torch.models.transformer import check_model_axis
 from repro_torch.obs.metrics import NULL_REGISTRY, Registry
 from repro_torch.obs.trace import ProfileHook, TraceLog
 from repro_torch.runtime import collectives
@@ -166,9 +165,7 @@ class ServeSetup:
     scales. ``mesh`` (a ``DeviceMesh`` or None) carries the model calls'
     :meth:`pctx`; ``moe_impl`` (``"ep"`` or ``"dense"``) and
     ``flash_decode`` take effect only over a mesh, as in the JAX package.
-    ``batch`` is the whole batch; each rank serves its :meth:`rows`. A
-    family outside the tensor-parallel ones on a model axis of more than one
-    rank raises ``NotImplementedError`` (ROADMAP.md, queue 1 item 4d).
+    ``batch`` is the whole batch; each rank serves its :meth:`rows`.
     """
 
     cfg: ArchConfig
@@ -181,8 +178,6 @@ class ServeSetup:
     kv_bits: int = 0
 
     def __post_init__(self) -> None:
-        pctx = self.pctx()
-        check_model_axis(pctx, self.cfg.family)
         if self.moe_impl not in ("ep", "dense"):
             raise ValueError(f'moe_impl is "ep" or "dense", got {self.moe_impl!r}')
         if self.kv_bits not in (0, 8):
@@ -231,17 +226,16 @@ class ServeSetup:
 
     def layout(self, params, cache):
         """``(params, cache)`` laid out on the mesh: the parameters resharded by the
-        sharding rules, the cache (made for this rank's rows) keeping this rank's
-        KV heads on a model axis of more than one rank (``transformer.tp_cache``);
-        as given without a mesh."""
+        sharding rules, the cache (made for this rank's rows) in its family's
+        layout on a model axis of more than one rank (``ModelApi.tp_cache``: this
+        rank's KV heads, or its blocks of a recurrent state); as given without a
+        mesh."""
         if self.mesh is None:
             return params, cache
         params = reshard(params, self.mesh, shr.param_specs(params, self.mesh))
         pctx = self.pctx()
         if tp_active(pctx):
-            from repro_torch.models.transformer import tp_cache
-
-            cache = tp_cache(cache, self.cfg, pctx)
+            cache = get_model(self.cfg).tp_cache(cache, self.cfg, pctx)
         return params, cache
 
 

@@ -147,3 +147,25 @@ def test_prefill_two_chunks_then_decode_matches_reference(model):
 
 def test_noncausal_flash_at_a_ragged_key_count():
     tp.check_noncausal_ragged_flash(4, b=1, h=4, kvh=2, sq=128, sk=72, hd=16, block_k=8)
+
+
+def test_ssd_gradient_finite_where_the_decay_overflows():
+    """One chunk of 256 positions whose decay spans more than e^88 (mamba2-780m's
+    48 heads at its init reach it): the port's outputs equal the reference's,
+    and its gradient is finite where the reference's, which masks ``exp(seg)``
+    after the exponential overflows above the diagonal, is NaN."""
+    rng = np.random.default_rng(5)
+    b, s, nh, hd, st = 1, 256, 4, 8, 8
+    xh = rng.normal(size=(b, s, nh, hd)).astype(np.float32)
+    dt = np.full((b, s, nh), 0.1, np.float32)
+    a = -np.arange(1, nh + 1, dtype=np.float32) * 12.0  # a decay of up to e^(4.8 * 255)
+    bm, cm = (rng.normal(size=(b, s, st)).astype(np.float32) for _ in range(2))
+    want, _ = jm._ssd_chunked(*map(jnp.asarray, (xh, dt, a, bm, cm)))
+    args = [torch.from_numpy(v).requires_grad_(True) for v in (xh, dt, a, bm, cm)]
+    got, _ = tm._ssd_chunked(*args)
+    _close(got.detach(), want, 1e-4)
+    got.sum().backward()
+    assert all(bool(torch.isfinite(t.grad).all()) for t in args)
+    jgrad = jax.grad(lambda d: jm._ssd_chunked(jnp.asarray(xh), d, *map(jnp.asarray, (a, bm, cm)))
+                     [0].sum())(jnp.asarray(dt))
+    assert not np.isfinite(np.asarray(jgrad)).all()

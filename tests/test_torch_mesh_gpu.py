@@ -211,6 +211,38 @@ def test_tensor_parallel_train_steps_on_one_card(two_ranks_on_one_card):
 
 
 @pytest.fixture(scope="module")
+def families_on_two_ranks(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.multiprocessing as mp
+
+    import torch_tp_recurrent_ranks as R
+
+    d = tmp_path_factory.mktemp("tp_recurrent_gpu")
+    mp.spawn(R.gpu_rank_main, args=(2, str(d / "store"), str(d)), nprocs=2, join=True)
+    return [dict(np.load(d / f"gpu_rank{r}.npz")) for r in range(2)]
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "recurrentgemma_2b", "seamless_m4t_large_v2"])
+def test_recurrent_families_two_ranks_on_one_card(families_on_two_ranks, arch):
+    """Each recurrent and enc-dec family's reduced config on a (1, 2) mesh over two
+    ranks that share the card: tokens equal on both ranks and to the meshless
+    run's, the launches per route the meshless run's, and every kernel call at
+    the sharded shapes within 2e-5 of max |plain| of its plain version on the
+    same inputs."""
+    for res in families_on_two_ranks:
+        assert bool(res[f"{arch}/ranks_same"])
+        np.testing.assert_array_equal(res[f"{arch}/tp/tokens"], res[f"{arch}/meshless/tokens"])
+        routes = [k.split("/launches/")[1] for k in res if k.startswith(f"{arch}/tp/launches/")]
+        for r in routes:
+            assert int(res[f"{arch}/tp/launches/{r}"]) == int(res[f"{arch}/meshless/launches/{r}"])
+        assert sum(int(res[f"{arch}/tp/launches/{r}"]) for r in routes) > 0
+        assert int(res[f"{arch}/tp/all_reduce"]) > 0
+        held = {k: float(v) for k, v in res.items() if k.startswith(f"{arch}/held/")}
+        assert held and max(held.values()) <= 2e-5, held
+
+
+@pytest.fixture(scope="module")
 def engine_on_two_ranks(tmp_path_factory):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")

@@ -273,13 +273,12 @@ def test_setup_and_engine_reject_unported_options(trees):
     from repro_torch.models.context import ParallelCtx
 
     tparams = trees[1]
-    # the lockstep loop and the engine serve over more than one rank, but not the
-    # recurrent and enc-dec families on a model axis of more than one (ROADMAP item
-    # 4d); flash-decode runs there; without a mesh it has nothing to shard (no
-    # context), as in the JAX package
-    with pytest.raises(NotImplementedError, match="queue 1 item 4d"):
-        ServeSetup(cfg=TCfg(**{**KW, "family": "hybrid"}), mesh=tp.TwoRankMesh(), max_len=8,
-                   batch=1)
+    # the lockstep loop and the engine serve over more than one rank, the recurrent
+    # and enc-dec families' lockstep loop on a model axis of more than one too
+    # (test_torch_tp_recurrent.py); flash-decode runs there; without a mesh it has
+    # nothing to shard (no context), as in the JAX package
+    assert ServeSetup(cfg=TCfg(**{**KW, "family": "hybrid"}), mesh=tp.TwoRankMesh(), max_len=8,
+                      batch=1).pctx().model_size == 2
     pctx = ServeSetup(cfg=TC, mesh=tp.TwoRankMesh(), max_len=8, batch=1,
                       flash_decode=True).pctx()
     assert pctx.flash_decode and pctx.model_size == 2

@@ -12,12 +12,17 @@ they wrote:
   heads do not divide 4 (with a vocab that divides the model axis and one,
   63, that divides neither), a top-2 MoE through the expert exchange and
   through the dense form, a ``vlm`` with patch embeddings, the a4 codes with
-  static 8-bit activations and the dense static int8 cache: each step's
+  static 8-bit activations and with float activations, the dense static
+  int8 cache: each step's
   logits within 1e-5 of max |logit| (float; 5e-2 for static 8-bit
   activations, the port's caveat on static fake quant) of the reference's,
   its greedy tokens and
   ``static_generate``'s equal to the reference's, each rank's blocks of the
   shapes the rules give;
+* the a4 codes with float activations in a wider bfloat16 config, (1, 4)
+  against meshless teacher-forced in each package: the port's gap no larger
+  than the reference's own (the card's float-activation control, ROADMAP
+  queue 3);
 * ``batch_generate`` of an ``ssm`` config on the data-only ``(4, 1)`` mesh
   equal to the reference's tokens;
 * ``TrainSetup`` on ``(1, 4)`` and ``(2, 2)``, with and without
@@ -187,3 +192,18 @@ def test_launchers_over_the_model_axis(runs):
         assert int(res["issued/launch/reduce_scatter"]) > 0  # --seq-parallel took effect
         assert res["launch/serve_tokens"].shape == (4, 3)
         np.testing.assert_array_equal(res["launch/serve_tokens"], ranks[0]["launch/serve_tokens"])
+
+
+def test_bf16_gap_against_meshless(runs):
+    """A4 codes with float activations in a bfloat16 config of 4 layers at width
+    256, teacher-forced on each package's meshless greedy tokens: the port's (1, 4)
+    run parts from its meshless one (float32 sums in another order flip bf16
+    roundings, which the layers carry on) by no more than the reference's GSPMD
+    run parts from its own meshless one (both printed with ``-s``)."""
+    jx, ranks, _ = runs
+    port = [float(res["bf16/gap"]) for res in ranks]
+    ref = float(jx["bf16/gap"])
+    print(f"\nbf16 gap, (1, 4) against meshless, max |logit diff| / max |logit|: port "
+          f"{port[0]:.3e} (every rank {port}), reference {ref:.3e}")
+    assert port == [port[0]] * R.WORLD
+    assert 0 < ref and port[0] <= ref

@@ -162,12 +162,12 @@ def test_train_step_matches_reference(family_case):
         np.testing.assert_allclose(float(tout[3][key]), float(jout[3][key]), rtol=1e-5)
     _close_tree(_flat(tout[0]), _flat(jax.tree.map(np.asarray, jout[0])), 1e-5)
     assert int(tout[1]["step"]) == 1
-    # data and tensor parallel over a mesh: test_torch_distributed.py and
-    # test_torch_tensor_parallel.py; the ssm family on a model axis wider than one
-    # rank waits for ROADMAP item 4d
+    # data and tensor parallel over a mesh: test_torch_distributed.py,
+    # test_torch_tensor_parallel.py and, for the ssm, hybrid and enc-dec families,
+    # test_torch_tp_recurrent.py
     assert dataclasses.replace(tsetup, mesh=tp.TwoRankMesh()).pctx().model_size == 2
-    with pytest.raises(NotImplementedError, match="queue 1 item 4d"):
-        dataclasses.replace(tsetup, cfg=family_case("ssm")[0], mesh=tp.TwoRankMesh())
+    ssm = dataclasses.replace(tsetup, cfg=family_case("ssm")[0], mesh=tp.TwoRankMesh())
+    assert ssm.pctx().model_size == 2
 
 
 def test_train_resume_equals_straight_run(tmp_path):

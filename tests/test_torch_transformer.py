@@ -153,19 +153,21 @@ def test_model_api_and_unported_inputs():
     toks = torch.zeros(1, 4, dtype=torch.long)
     loss = api.loss_fn(params, tc, {"tokens": toks, "labels": toks})
     assert loss.ndim == 0 and bool(torch.isfinite(loss))
-    # over a mesh whose model axis holds more than one rank the projections are
-    # tensor parallel (test_torch_tensor_parallel.py) for the transformer families;
-    # the recurrent and enc-dec ones wait for ROADMAP item 4d
+    # over a mesh whose model axis holds more than one rank every family is tensor
+    # parallel (test_torch_tensor_parallel.py, test_torch_tp_recurrent.py), each
+    # laying out its own cache: here model rank 1 of two, before any collective
+    from repro_torch.models import mamba2
     from repro_torch.models.context import ParallelCtx
 
-    pctx = ParallelCtx(mesh=tp.TwoRankMesh())
-    ttr.check_model_axis(pctx, tc.family)
-    sc = type(tc)(**{**tc.__dict__, "family": "ssm"})
-    with pytest.raises(NotImplementedError, match="queue 1 item 4d"):
-        get_model(sc).prefill(params, sc, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, cache,
-                              pctx=pctx)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4d"):
-        ttr.check_model_axis(pctx, "encdec")
+    pctx = ParallelCtx(mesh=tp.TwoRankMesh(1))
+    assert tuple(api.tp_cache(cache, tc, pctx)["k"].shape) == (2, 1, 8, 1, tc.hd)
+    sc = type(tc)(**{**tc.__dict__, "family": "ssm", "expand": 2, "ssm_head_dim": 8,
+                     "ssm_state": 4})
+    state = get_model(sc).init_cache(sc, 1, 8, device="cpu")
+    conv, ssd = get_model(sc).tp_cache(state, sc, pctx)  # 8 SSD heads, 72 conv channels
+    assert tuple(conv.shape) == (2, 1, 3, 36) and tuple(ssd.shape) == (2, 1, 4, 8, 4)
+    assert mamba2.heads(sc, pctx) == (4, 8)
+    assert get_model(type(tc)(**{**tc.__dict__, "family": "encdec"})).tp_cache is ttr.tp_cache
     with pytest.raises(ValueError, match="unknown model family"):
         get_model(type(tc)(**{**tc.__dict__, "family": "rnn"}))
     with pytest.raises(ValueError, match="get_model"):  # the ssm family has its own tree

@@ -420,9 +420,13 @@ def _port_layout(res, inp, meshes, out_dir) -> None:
 
 
 def _port_raises(res, inp, meshes, out_dir) -> None:
-    """The boundary of the ported mesh paths: the recurrent and enc-dec families on
-    a model axis of more than one rank (ROADMAP item 4d); the engine over the 4
-    ranks of the data-only mesh serves, each rank its slot (item 4c)."""
+    """What was the boundary of the ported mesh paths: the recurrent and enc-dec
+    families on a model axis of more than one rank (ROADMAP item 4d, ported: an
+    enc-dec loss under the (2, 2) context on whole weights, every product whole on
+    each rank, beside the meshless loss); the engine over the 4 ranks of the
+    data-only mesh serves, each rank its slot (item 4c)."""
+    import torch
+
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ArchConfig
     from repro_torch.models import get_model
@@ -440,21 +444,29 @@ def _port_raises(res, inp, meshes, out_dir) -> None:
     plain = ServeEngine(cfg, _params(inp), n_slots=4, max_len=12, mesh=None).serve(reqs)
     res["raises/engine_same"] = all(np.array_equal(a, b) for a, b in zip(outs, plain))
     res["raises/engine_tokens"] = np.concatenate(outs)
+    eparams = get_model(encdec).init_params(encdec, 0, device="cpu")
+    ebatch = {"tokens": torch.arange(8).reshape(2, 4) % encdec.vocab,
+              "labels": torch.arange(1, 9).reshape(2, 4) % encdec.vocab,
+              "frontend": torch.linspace(-1, 1, 2 * 4 * encdec.d_model).reshape(
+                  2, 4, encdec.d_model)}
+
+    def eloss(pctx):
+        return float(get_model(encdec).loss_fn(eparams, encdec, ebatch, pctx=pctx))
+
     calls = {
         "ssm": lambda: TrainSetup(cfg=ssm, mesh=m22),
         "hybrid": lambda: ServeSetup(cfg=hybrid, mesh=m22, max_len=8, batch=4),
-        "encdec": lambda: get_model(encdec).loss_fn(
-            get_model(encdec).init_params(encdec, 0, device="cpu"), encdec,
-            {"tokens": np.zeros((2, 4), np.int64), "labels": np.zeros((2, 4), np.int64),
-             "frontend": np.zeros((2, 4, encdec.d_model), np.float32)},
-            pctx=TrainSetup(cfg=cfg, mesh=m22).pctx()),
+        "encdec": lambda: eloss(TrainSetup(cfg=cfg, mesh=m22).pctx()),
     }
     for name, call in calls.items():
         try:
-            call()
+            out = call()
             res[f"raises/{name}"] = ""
         except NotImplementedError as e:
-            res[f"raises/{name}"] = str(e)
+            out, res[f"raises/{name}"] = None, str(e)
+        if name == "encdec":
+            res["raises/encdec_loss"] = np.float64(np.nan if out is None else out)
+    res["raises/encdec_meshless_loss"] = np.float64(eloss(None))
 
 
 def _port_defaults(res, inp, meshes, out_dir) -> None:

@@ -10,13 +10,16 @@ embeddings and static KV scales) go to two runs:
   GSPMD-sharded serving step (``ServeSetup`` on a ``(1, 4)`` or ``(2, 2)``
   mesh of ``Auto`` axes, the prefill and 4 greedy decode steps, each step's
   logits) on the float and the packed trees, the dense static int8 cache,
-  ``static_generate`` for an ``ssm`` config, and 2 train steps on one device
-  on the whole batch;
+  the bf16 gap of its ``(1, 4)`` step against its meshless one,
+  ``static_generate`` for an ``ssm`` config (meshless; the ssm family on a
+  model axis is ``tests/test_torch_tp_recurrent.py``'s), and 2 train steps on
+  one device on the whole batch;
 * :func:`rank_main`, the body of each of 4 ``gloo`` ranks started by
   ``torch.multiprocessing.spawn``: the port's ``ServeSetup`` over the same
   meshes of ranks (each rank on its rows and its blocks of the parameters,
-  the same steps by hand and through ``static_generate``), the data-only
-  ``(4, 1)`` ``batch_generate`` of the ``ssm`` config, ``TrainSetup`` on
+  the same steps by hand and through ``static_generate``), the bf16 gap of
+  its ``(1, 4)`` run against its meshless one, the data-only ``(4, 1)``
+  ``batch_generate`` of the ``ssm`` config, ``TrainSetup`` on
   ``(1, 4)`` and ``(2, 2)`` with and without ``seq_parallel``, a checkpoint
   written by ``train`` on ``(2, 2)`` and restored on ``(1, 1)``, and a
   row-parallel packed product at an odd K; each rank writes what it got.
@@ -47,8 +50,9 @@ SSM = dict(name="tp-ssm", family="ssm", n_layers=2, d_model=64, n_heads=4, n_kv_
            vocab=64, head_dim=16, tie_embeddings=True, ssm_state=16, expand=2, ssm_head_dim=16,
            conv_width=4, sub_quadratic=True, dtype_str="float32")
 # (config, scheme, cache, moe_impl, meshes): float weights and activations, a4 codes
-# with static 8-bit activations, the dense static int8 cache. Each case runs on the
-# meshes that exercise it (each one is a sharded compile of the reference's step).
+# with static 8-bit activations and the same codes with float activations, the
+# dense static int8 cache. Each case runs on the meshes that exercise it (each one
+# is a sharded compile of the reference's step).
 SERVE_CASES = {
     "dense": ("dense", "float", "dense", "ep", ("1x4", "2x2")),
     "dense_v63": ("dense_v63", "float", "dense", "ep", ("1x4",)),
@@ -56,6 +60,7 @@ SERVE_CASES = {
     "moe_dense": ("moe", "float", "dense", "dense", ("2x2",)),
     "vlm": ("vlm", "float", "dense", "ep", ("1x4",)),
     "dense_a4_static": ("dense", "a4", "dense", "ep", ("1x4", "2x2")),
+    "dense_a4_float": ("dense", "a4_float", "dense", "ep", ("1x4", "2x2")),
     "dense_int8_cache": ("dense", "float", "static", "ep", ("1x4",)),
 }
 SERVE_RUNS = [(case, mesh) for case, spec in SERVE_CASES.items() for mesh in spec[4]]
@@ -65,6 +70,12 @@ TRAIN = dict(lr_peak=1e-2, warmup=0, total_steps=10, remat=True)
 TRAIN_EPS = 1e-3
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 16, 2
 ODD_K, ODD_N = 63, 32  # a row-parallel packed product whose nibble pad row is the last rank's
+# the bf16 gap: a4 codes with float activations in a bfloat16 dense config wide and
+# deep enough for float32 sums in another order to flip bf16 roundings, teacher-forced
+# on the meshless run's tokens, (1, 4) against meshless
+BF16 = dict(BASE, name="tp-bf16", n_layers=4, d_model=256, n_heads=8, head_dim=32, d_ff=512,
+            vocab=256, qk_norm=True)
+BF16_MESH, BF16_STEPS = "1x4", 8
 
 
 def flatten(tree, prefix: str) -> dict:
@@ -125,14 +136,28 @@ def make_inputs(path: str) -> None:
                     inp[f"{key}/fmt"] = np.asarray(leaf.fmt_name)
                 else:
                     inp[key] = leaf.numpy()
+    cfg = ArchConfig(**BF16)
+    params = get_model(cfg).init_params(cfg, seed=5, device="cpu")
+    packed = api.quantize(cfg, params, api.QuantScheme(fmt="elp_bsd_a4"), device="cpu").params
+    for key, leaf in flatten(packed, "a4/bf16").items():
+        if isinstance(leaf, PackedWeight):
+            inp[f"{key}/codes"], inp[f"{key}/sf"] = leaf.codes.numpy(), leaf.sf.numpy()
+            inp[f"{key}/meta"] = np.asarray([leaf.shape[0], leaf.shape[1], leaf.nibble, 0],
+                                            np.int64)
+            inp[f"{key}/fmt"] = np.asarray(leaf.fmt_name)
+        else:
+            inp[key] = leaf.numpy()
+    inp["tokens/bf16"] = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
     inp["odd/x"] = rng.normal(size=(3, ODD_K)).astype(np.float32)
     inp["odd/w"] = (rng.normal(size=(ODD_K, ODD_N)) / 8).astype(np.float32)
     np.savez(path, **inp)
 
 
-def packed_tree(inp, name, packed_cls, wrap) -> dict:
+def packed_tree(inp, name, packed_cls, wrap, float_act: bool = False) -> dict:
     """The a4 tree ``name`` of the inputs, packed weights as ``packed_cls`` (the
-    JAX package's or the port's ``PackedWeight``) of ``wrap``-ped arrays."""
+    JAX package's or the port's ``PackedWeight``) of ``wrap``-ped arrays; with
+    ``float_act`` without their static activation quantizers (float activations
+    into the same codes)."""
     prefix = f"a4/{name}"
     leaves = {}
     for key, v in inp.items():
@@ -141,13 +166,30 @@ def packed_tree(inp, name, packed_cls, wrap) -> dict:
         head, _, last = key.rpartition("/")
         if last == "meta":
             k, n, nibble, bits = (int(a) for a in v)
+            act = {} if float_act else dict(act_scale=float(inp[f"{head}/act_scale"]),
+                                            act_bits=bits or None)
             leaves[head] = packed_cls(
                 codes=wrap(inp[f"{head}/codes"]), sf=wrap(inp[f"{head}/sf"]),
-                fmt_name=str(inp[f"{head}/fmt"]), nibble=bool(nibble), shape=(k, n),
-                act_scale=float(inp[f"{head}/act_scale"]), act_bits=bits or None)
+                fmt_name=str(inp[f"{head}/fmt"]), nibble=bool(nibble), shape=(k, n), **act)
         elif last not in ("codes", "sf", "act_scale", "fmt"):
             leaves[key] = wrap(v)
     return unflatten(leaves, prefix, lambda a: a)
+
+
+def case_params(inp, cname, scheme, packed_cls, wrap) -> dict:
+    """The tree of a serving case: float weights, or the a4 codes with their static
+    activation scales (``"a4"``) or without them (``"a4_float"``)."""
+    if scheme.startswith("a4"):
+        return packed_tree(inp, cname, packed_cls, wrap, float_act=scheme == "a4_float")
+    return unflatten(inp, f"params/{cname}", wrap)
+
+
+def bf16_tree(tree, packed_cls, cast):
+    """``tree`` with each float leaf outside its packed weights ``cast`` to bfloat16
+    (the codes and their float32 scales as they are), as a bf16 model holds it."""
+    if isinstance(tree, dict):
+        return {k: bf16_tree(v, packed_cls, cast) for k, v in tree.items()}
+    return tree if isinstance(tree, packed_cls) else cast(tree)
 
 
 def _case_batch(inp, cfg_name):
@@ -187,8 +229,7 @@ def jax_reference(in_path: str, out_path: str) -> None:
               for m, shape in MESHES.items()}
     for case, (cname, scheme, cache_kind, impl, mesh_names) in SERVE_CASES.items():
         cfg = ArchConfig(**CONFIGS[cname])
-        params = (packed_tree(inp, cname, PackedWeight, jnp.asarray) if scheme == "a4"
-                  else unflatten(inp, f"params/{cname}", jnp.asarray))
+        params = case_params(inp, cname, scheme, PackedWeight, jnp.asarray)
         batch = {k: jnp.asarray(v) for k, v in _case_batch(inp, cname).items()}
         for mname in mesh_names:
             mesh = meshes[mname]
@@ -214,6 +255,32 @@ def jax_reference(in_path: str, out_path: str) -> None:
                     logits, cache = decode(params, jax.device_put(tok, tok_sharding), cache,
                                            jnp.int32(pos + i))
             res[f"serve/{case}/{mname}/tokens"] = jnp.concatenate(toks, axis=1)
+
+    # the bf16 gap of the GSPMD step against the meshless one, teacher-forced
+    cfg = ArchConfig(**dict(BF16, dtype_str="bfloat16"))
+    params = bf16_tree(case_params(inp, "bf16", "a4_float", PackedWeight, jnp.asarray),
+                       PackedWeight, lambda a: a.astype(jnp.bfloat16))
+    batch = {"tokens": jnp.asarray(inp["tokens/bf16"])}
+    runs, max_len = {}, S + BF16_STEPS + 1
+    for mname, mesh in (("meshless", None), (BF16_MESH, meshes[BF16_MESH])):
+        setup = ServeSetup(cfg=cfg, mesh=mesh, max_len=max_len, batch=B)
+        prefill, decode = build_serve_fns(setup, get_model(cfg),
+                                          aparams=jax.eval_shape(lambda: params))
+        logits, cache = prefill(params, batch, get_model(cfg).init_cache(cfg, B, max_len))
+        outs = [logits[:, -1].astype(jnp.float32)]
+        for i in range(BF16_STEPS):
+            tok = (jnp.argmax(outs[-1], axis=-1)[:, None].astype(jnp.int32) if mesh is None
+                   else res["bf16/tokens"][:, i:i + 1])
+            if mesh is not None:
+                tok = jax.device_put(tok, NamedSharding(mesh, shr.input_spec((B, 1), mesh)))
+            logits, cache = decode(params, tok, cache, jnp.int32(S + i))
+            outs.append(logits[:, -1].astype(jnp.float32))
+        if mesh is None:
+            res["bf16/tokens"] = jnp.stack([jnp.argmax(o, axis=-1) for o in outs[:-1]],
+                                           axis=1).astype(jnp.int32)
+        runs[mname] = outs
+    res["bf16/gap"] = max(float(jnp.abs(a - b).max() / jnp.abs(b).max())
+                          for a, b in zip(runs[BF16_MESH], runs["meshless"]))
 
     # the ssm config, meshless (a data-only mesh computes the same function)
     cfg = ArchConfig(**SSM)
@@ -262,7 +329,8 @@ def rank_main(rank: int, world: int, store_path: str, in_path: str, out_dir: str
         "1x1": make_mesh(devices=[0], target_model=1, device="cpu"),
     }
     res = {"rank": rank}
-    for name, fn in (("serve", _port_serve), ("ssm", _port_ssm), ("train", _port_train),
+    for name, fn in (("serve", _port_serve), ("bf16", _port_bf16_gap), ("ssm", _port_ssm),
+                     ("train", _port_train),
                      ("ckpt", _port_ckpt), ("odd", _port_odd_k), ("launch", _port_launchers)):
         collectives.reset()
         fn(res, inp, meshes, out_dir)
@@ -294,8 +362,8 @@ def _port_serve(res, inp, meshes, out_dir) -> None:
 
     for case, (cname, scheme, cache_kind, impl, mesh_names) in SERVE_CASES.items():
         cfg = ArchConfig(**CONFIGS[cname])
-        params = (packed_tree(inp, cname, PackedWeight, lambda a: torch.from_numpy(a.copy()))
-                  if scheme == "a4" else _params(inp, cname))
+        params = case_params(inp, cname, scheme, PackedWeight,
+                             lambda a: torch.from_numpy(a.copy()))
         batch = {k: torch.from_numpy(v) for k, v in _case_batch(inp, cname).items()}
         kv_scales = _kv_scales(inp) if cache_kind == "static" else None
         for mname in mesh_names:
@@ -331,6 +399,42 @@ def _port_serve(res, inp, meshes, out_dir) -> None:
                 wo = lp["blocks"]["wo"]
                 res[f"serve/{case}/{mname}/wo_local"] = np.asarray(
                     [wo.shape[0], wo.shape[1], wo.codes.shape[-2]])
+
+
+def _port_bf16_gap(res, inp, meshes, out_dir) -> None:
+    """The bf16 gap of the (1, 4) run against the port's meshless one: the a4 codes
+    with float activations of :data:`BF16` in bfloat16, teacher-forced on the
+    meshless run's greedy tokens (the JAX side measures its own)."""
+    import torch
+
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.kernels.ops import PackedWeight
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import ServeSetup
+
+    cfg = ArchConfig(**dict(BF16, dtype_str="bfloat16"))
+    params = bf16_tree(case_params(inp, "bf16", "a4_float", PackedWeight,
+                                   lambda a: torch.from_numpy(a.copy())),
+                       PackedWeight, lambda t: t.to(torch.bfloat16))
+    tokens = torch.from_numpy(inp["tokens/bf16"])
+    runs, forced, max_len = {}, None, S + BF16_STEPS + 1
+    for mname, mesh in (("meshless", None), (BF16_MESH, meshes[BF16_MESH])):
+        setup = ServeSetup(cfg=cfg, mesh=mesh, max_len=max_len, batch=B)
+        lp, cache = setup.layout(params, transformer.init_cache(cfg, B, max_len, device="cpu"))
+        logits, cache = transformer.prefill(lp, cfg, tokens, cache, pctx=setup.pctx())
+        outs = [logits[:, -1].float()]
+        for i in range(BF16_STEPS):
+            tok = (torch.argmax(outs[-1], -1)[:, None] if forced is None
+                   else forced[:, i:i + 1])
+            logits, cache = transformer.decode_step(lp, cfg, tok, cache, S + i,
+                                                    pctx=setup.pctx())
+            outs.append(logits[:, -1].float())
+        if forced is None:
+            forced = torch.stack([torch.argmax(o, -1) for o in outs[:-1]], dim=1)
+        runs[mname] = outs
+    res["bf16/tokens"] = forced
+    res["bf16/gap"] = max(float((a - b).abs().max() / b.abs().max())
+                          for a, b in zip(runs[BF16_MESH], runs["meshless"]))
 
 
 def _port_ssm(res, inp, meshes, out_dir) -> None:
