@@ -68,7 +68,7 @@ stays held and timed).
   the kernels) with their rows and claim lines, each Fig. 15(b) accuracy held
   within the search's ``ac`` (0.01) of the same weights on the CPU, exact
   launches per packed forward (3 tiled + 2 decode-step bf16x3 for
-  ALEXNET_MINI, 4 + 2 for VGG_MINI); the quickstart flow
+  ALEXNET_MINI, 4 + 2 for VGG_MINI); the quickstart example's flow
   (``api.quantize(..., eval_fn=...)`` on card and CPU: the same CBW_A, the
   codes that differ counted; the packed artifact's eval on the kernels,
   ``save``, ``load``, a bit-identical forward); the same search on
@@ -155,7 +155,20 @@ stays held and timed).
   the meshless tokens within the family's gate, every kernel shape held),
   then mamba2-780m at 4 of 48 layers in float32, 2 train steps on the mesh
   against 2 without it. Its times are of two ranks sharing one card over a
-  host wire.
+  host wire;
+* the dry-run and step-cost tooling (the cost phase, last): (a)
+  ``python -m repro_torch.launch.dryrun`` for qwen3-8b x decode_32k (elp4)
+  and olmoe-1b-7b x train_4k on the 16 x 16 mesh of a fake process group,
+  each in a process of its own, each cell ``ok``, its roofline terms
+  printed; (b) the dry-run's (1, 1) cell of qwen3-8b elp4 at 16 slots x 4096
+  positions counted on ``meta``, then the same decode step on the card with
+  seeded random codes under ``count_cost``: FLOPs, bytes, wire bytes,
+  kernel calls by route (equal to the launch counters) and argument bytes
+  equal to the meta count, the predicted peak within 15 % of
+  ``max_memory_allocated``, the step's time beside its roofline terms, every
+  kernel shape held; (c) ``repro_torch.experiments.serve_quantized
+  --speculative`` (both drafters token-identical to static generation),
+  every kernel shape held.
 
     python3 chip_smoke.py
 
@@ -166,7 +179,7 @@ with each kernel route's numbers: ``launches`` counts its launches on the
 main paths (one AlexNet forward, the Sec. V phases, one generate, the
 engine phase, the MoE and VLM phases, one generate of each recurrent and
 enc-dec model, one VGG16 forward, the paper-results phase, the mesh phase, both
-ranks of the TP phase), and
+ranks of the TP phase, the cost phase's counted step and serve_quantized), and
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are the per-shape
 times of those launches, each shape weighted by its launches (a Sec. V shape
 is timed once per format, an engine shape at the inputs of its first call). The three ``/f32`` routes have no
@@ -2498,24 +2511,20 @@ def mini_phase(torch, dev, failures, forwards) -> tuple:
 
 
 def quickstart_phase(torch, dev, trained, failures, forwards) -> tuple:
-    """``examples/quickstart.py``'s flow on the card and on the CPU: the Sec. V
-    search on the trained ALEXNET_MINI, then the packed artifact's eval on the
-    kernels, save, load and a bit-identical reloaded forward. Returns launches."""
-    from repro_torch import api
-    from repro_torch.experiments import common
+    """The quickstart example's flow (``repro_torch.experiments.quickstart``'s
+    ``convert`` and ``round_trip``) on the card and on the CPU: the Sec. V search
+    on the trained ALEXNET_MINI, then the packed artifact's eval on the kernels,
+    save, load and a bit-identical reloaded forward. Returns launches."""
+    from repro_torch.experiments import common, quickstart
     from repro_torch.kernels.ref import unpack_nibbles_k
-    from repro_torch.models import cnn
 
-    spec = cnn.ALEXNET_MINI
-    scheme = api.QuantScheme(fmt="elp_bsd_a4", act="dynamic", ac=AC, bw_max=8, bw_min=4)
+    spec = quickstart.SPEC
     t0 = time.perf_counter()
-    qm = api.quantize(spec, trained, scheme, eval_fn=common.make_eval_fn(spec, device=dev),
-                      device=dev)
+    qm = quickstart.convert(trained, dev)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    qc = api.quantize(spec, {k: v.cpu() for k, v in trained.items()}, scheme,
-                      eval_fn=common.make_eval_fn(spec, device="cpu"), device="cpu")
+    qc = quickstart.convert({k: v.cpu() for k, v in trained.items()}, "cpu")
     cpu_s = time.perf_counter() - t0
     r, rc = qm.report, qc.report
     differ = sum(int((unpack_nibbles_k(v.codes.cpu()) != unpack_nibbles_k(qc.params[k].codes))
@@ -2531,18 +2540,15 @@ def quickstart_phase(torch, dev, trained, failures, forwards) -> tuple:
         failures.append(f"quickstart CBW_A card {r.act_bits} vs CPU {rc.act_bits}")
 
     eval_fn = common.make_eval_fn(spec, device=dev)
-    x, _ = common.CnnDataset(32, 3, 10, EVAL_BATCH).np_batch(10_000)
+    x = quickstart.eval_batch(EVAL_BATCH, index=10_000, device=dev)
     _zero_counts()
     packed_acc = eval_fn(qm.params, r.act_bits)
-    first = qm.forward(x)
     path = os.path.join(ROOT, "build", "chip_smoke", "alexnet_mini_elp4")
-    qm.save(path)
-    again = api.load(path, device=dev).forward(x)
+    _, _, same = quickstart.round_trip(qm, x, path, dev)
     torch.cuda.synchronize()
     c = _counts()
     forwards[(spec.name, EVAL_BATCH, "elp_bsd_a4")] += EVAL_BATCHES + 2
     want = _times(per_forward(spec), EVAL_BATCHES + 2)
-    same = bool(torch.equal(first, again))
     print(f"[quickstart] packed accuracy on the kernels {packed_acc:.4f} (act bits {r.act_bits}; "
           f"float twin {r.accuracy:.4f}); reloaded forward bit-identical {same}; launches "
           f"{dict(zip(KERNEL_ROUTES, c))} (expected {want})")
@@ -3346,6 +3352,173 @@ def mesh_collective_phase(torch, dev, failures, mesh, report) -> None:
     _mesh_report(report, "(d) compressed_mean", t0)
     if not _issued()["all_reduce"]:
         failures.append("[mesh] (d): no all_reduce issued")
+
+
+# The cost phase: (a) the dry-run's cells on the 16 x 16 mesh (host only, each in a
+# process of its own); (b) the (1, 1) cell of qwen3-8b elp4 at a decode shape the
+# card holds, counted on meta and run for real; (c) serve_quantized --speculative.
+COST_DRYRUN = (("qwen3_8b", "decode_32k", "elp4"), ("olmoe_1b_7b", "train_4k", None))
+COST_ARCH, COST_CONTEXT, COST_SLOTS = "qwen3_8b", 4096, 16
+COST_MEM_REL = 0.15  # predicted peak (baseline + arguments + step) within 15 % of the allocator's
+COST_TIMED_STEPS = 5
+SERVE_DEMO_STEPS = 30
+
+
+def cost_phase(torch, dev, failures, rows, mesh) -> dict:
+    """The dry-run and step-cost tooling on the card: (a) ``python -m
+    repro_torch.launch.dryrun`` for qwen3-8b x decode_32k (elp4) and olmoe-1b-7b x
+    train_4k on the 16 x 16 mesh of a fake group, in two processes at once, started
+    once (b)'s steps are timed, each cell ``ok``, its roofline terms printed; (b)
+    the dry-run's (1, 1) cell of
+    qwen3-8b elp4 at COST_SLOTS slots and COST_CONTEXT positions, counted on
+    ``meta`` (``dryrun.count_cell``), then the same step (``dryrun.cell_step``) on
+    the card with seeded random weights (``dryrun.materialize``) under
+    ``count_cost`` after ``reset_peak_memory_stats``: FLOPs, bytes and wire bytes
+    equal to the meta count, kernel calls by route equal to the launch counters,
+    argument bytes equal to the real tensors', the predicted peak within
+    COST_MEM_REL of ``max_memory_allocated``, the step's time beside its roofline
+    terms (eager traffic and least traffic); the step's kernel shapes held
+    against their plain versions; (c)
+    ``repro_torch.experiments.serve_quantized --speculative`` in this process
+    (SERVE_DEMO_STEPS training steps), every kernel shape of it held. Returns the
+    launches of (b)'s counted step and of (c)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun, hlo_stats
+
+    t_phase = time.perf_counter()
+
+    # (b): meta, then the card
+    cfg = get_config(COST_ARCH)
+    shape = ShapeConfig("decode_4k", COST_CONTEXT, COST_SLOTS, "decode")
+    t0 = time.perf_counter()
+    rec = dryrun.count_cell(cfg, shape, mesh, "elp4")
+    meta_s = time.perf_counter() - t0
+    _collect(torch)
+    base = torch.cuda.memory_allocated()
+    step, args = dryrun.cell_step(cfg, shape, mesh, "elp4", device=dev,
+                                  materialize=lambda t: dryrun.materialize(t, dev))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    arg_bytes = hlo_stats.tree_bytes(args)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with hlo_stats.count_cost() as real:
+        out = step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(zip(KERNEL_ROUTES, _counts()))
+    finite = bool(torch.isfinite(out[0]).all())
+    del out
+    m, cost = rec["memory"], rec["cost"]
+    predicted = base + m["argument_bytes"] + m["output_bytes"] + m["temp_bytes"]
+    gap = predicted / peak - 1.0
+    step_gap = (predicted - base) / max(peak - base, 1) - 1.0
+    want_launches = {k: v for k, v in rec["kernels"].items() if v}
+    got_launches = {k: v for k, v in launches.items() if v}
+    print(f"[cost] (b) qwen3-8b elp4 decode, {COST_SLOTS} slots x {COST_CONTEXT} positions, "
+          f"(1, 1) mesh: meta count in {meta_s:.1f} s: FLOPs {cost['flops_per_device']:.6e}, "
+          f"bytes {cost['bytes_per_device']:.6e}, wire bytes "
+          f"{rec['collectives']['per_device_bytes']:.1f}, kernels {rec['kernels']}; on the "
+          f"card: FLOPs {real.flops:.6e}, bytes {real.bytes_accessed:.6e}, wire bytes "
+          f"{real.collective_bytes:.1f}, kernel calls {real.kernels}, launches {got_launches}; "
+          f"logits finite {finite}")
+    print(f"[cost] (b) memory: arguments predicted {m['argument_bytes']} B, real tensors "
+          f"{arg_bytes} B (allocator {held} B); outputs {m['output_bytes']} B, temp "
+          f"{m['temp_bytes']} B; held before the step {base} B; predicted peak {predicted} B "
+          f"against max_memory_allocated {peak} B: gap {gap:+.4f} (the step's own "
+          f"{step_gap:+.4f}; limit {COST_MEM_REL:g})")
+    for label, got, want in (("FLOPs", real.flops, cost["flops_per_device"]),
+                             ("bytes", real.bytes_accessed, cost["bytes_per_device"]),
+                             ("wire bytes", real.collective_bytes,
+                              rec["collectives"]["per_device_bytes"]),
+                             ("kernel calls", real.kernels, rec["kernels"]),
+                             ("launches", got_launches, want_launches),
+                             ("argument bytes", arg_bytes, m["argument_bytes"])):
+        if got != want:
+            failures.append(f"[cost] (b) {label} on the card {got} != meta {want}")
+    if abs(gap) > COST_MEM_REL:
+        failures.append(f"[cost] (b) predicted peak off by {gap:+.4f}")
+    if not finite:
+        failures.append("[cost] (b) non-finite logits")
+    times = []
+    for _ in range(COST_TIMED_STEPS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step(*args)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    # (a)'s processes start once (b)'s steps are timed: the step is launch-bound on
+    # the host, and two meta evaluations beside it would slow it
+    out_dir = os.path.join(ROOT, "build", "dryrun")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         *(["--quant", quant] if quant else []), "--out", out_dir], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for arch, shape, quant in COST_DRYRUN]
+    t = rec["roofline"]
+    step_ms = statistics.median(times)
+    print(f"[cost] (b) step time {step_ms:.3f} ms (median of {COST_TIMED_STEPS}, CUDA events; "
+          f"runs {[round(x, 3) for x in times]}) against compute_s "
+          f"{t['compute_s'] * 1e3:.4f} ms, memory_s {t['memory_s'] * 1e3:.3f} ms of eager "
+          f"traffic ({cost['bytes_per_device']:.6e} B, every op's reads and writes) and "
+          f"min_memory_s {t['min_memory_s'] * 1e3:.3f} ms of least traffic "
+          f"({cost['min_bytes_per_device']:.6e} B, arguments read and outputs written once; "
+          f"H100 datasheet rates): {t['memory_s'] * 1e3 / step_ms:.4f} of the eager-traffic "
+          f"term, {t['min_memory_s'] * 1e3 / step_ms:.4f} of the least-traffic term")
+    tap = KernelTap()
+    with tap:
+        step(*args)
+    torch.cuda.synchronize()
+    hold_tapped(torch, dev, "cost (b)", tap, rows, failures)
+    del step, args, tap
+    _collect(torch)
+
+    # (a): the dry-run's processes
+    for (arch, shape_name, quant), proc in zip(COST_DRYRUN, procs):
+        out_text, err = proc.communicate(timeout=600)
+        tail = out_text.strip().splitlines()[-1:] or [""]
+        path = os.path.join(out_dir, f"{arch}__{shape_name}__16x16"
+                                     f"{'__' + quant if quant else ''}.json")
+        if proc.returncode != 0 or not os.path.exists(path):
+            failures.append(f"[cost] (a) dryrun {arch} {shape_name}: rc {proc.returncode} "
+                            f"{err[-1500:]}")
+            continue
+        with open(path) as f:
+            cell = json.load(f)
+        r = cell.get("roofline", {})
+        print(f"[cost] (a) dryrun {arch} x {shape_name} x 16x16 quant={cell['quant']}: "
+              f"{cell['status']} ({tail[0]}); counted in {cell.get('count_s', 0):.1f} s; "
+              f"{cell.get('memory', {}).get('total_per_device_gib', 0):.3f} GiB a device; "
+              f"compute_s {r.get('compute_s', 0):.6f} memory_s {r.get('memory_s', 0):.6f} "
+              f"(eager traffic; least {r.get('min_memory_s', 0):.6f}) collective_s {r.get('collective_s', 0):.6f} -> {r.get('bottleneck')}; "
+              f"useful-FLOP ratio {r.get('useful_flop_ratio', 0):.3f}")
+        if cell["status"] != "ok":
+            failures.append(f"[cost] (a) dryrun {arch} {shape_name}: {cell.get('error')}")
+
+    # (c): serve_quantized --speculative
+    from repro_torch.experiments import serve_quantized
+
+    os.environ["SERVE_DEMO_STEPS"] = str(SERVE_DEMO_STEPS)
+    tap = KernelTap()
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with tap:
+            serve_quantized.main(["--speculative"])
+    except SystemExit as e:
+        failures.append(f"[cost] (c) serve_quantized --speculative: {e}")
+    torch.cuda.synchronize()
+    c_launches = dict(zip(KERNEL_ROUTES, _counts()))
+    print(f"[cost] (c) serve_quantized --speculative ({SERVE_DEMO_STEPS} training steps): "
+          f"{time.perf_counter() - t0:.1f} s, launches {({k: v for k, v in c_launches.items() if v})}")
+    hold_tapped(torch, dev, "cost (c)", tap, rows, failures)
+    _collect(torch)
+    print(f"[time] cost phase: {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches[k] + c_launches[k] for k in KERNEL_ROUTES}
 
 
 TP_WORLD = 2  # ranks on the one card, a (1, 2) ("data", "model") mesh over gloo
@@ -4550,6 +4723,8 @@ def main() -> int:
     mesh_collective_phase(torch, dev, failures, mesh, mesh_report)
     # -- the TP phase: two ranks on the card over gloo, a (1, 2) mesh ----------------
     tp_launches = tp_phase(torch, failures, rows, straight)
+    # -- the cost phase: the dry-run and step-cost tooling, and the examples --------
+    cost_launches = cost_phase(torch, dev, failures, rows, mesh)
     # (e) the collectives issued by each part of the mesh phase
     mesh_launches = collections.Counter()
     for label, rec in mesh_report.items():
@@ -4601,7 +4776,7 @@ def main() -> int:
             "launches": (cnn_launches.get(name, 0) + lm_launches[name] + sec5_launches[name]
                          + engine_launches[name] + moe_launches[name] + vlm_launches[name]
                          + family_launches[name] + vgg_launches[name] + paper_launches[name]
-                         + mesh_launches[name] + tp_launches[name]),
+                         + mesh_launches[name] + tp_launches[name] + cost_launches[name]),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": wsum("ms"),
             "plain_ms": wsum("plain_ms"),

@@ -4,10 +4,10 @@ An :class:`ArchConfig` is the JAX package's frozen, hashable description
 of a model, field for field, so a config written for one package reads
 the same in the other. ``dtype`` maps ``dtype_str`` to a torch dtype, and
 ``reduced()`` derives the CPU-sized variant of the same family (same code
-paths, tiny dims).
-
-The JAX package's ``input_specs`` (abstract inputs for its XLA dry-run)
-has no counterpart here: the port runs eagerly and lowers nothing.
+paths, tiny dims). :class:`ShapeConfig` and :data:`SHAPES` are the four
+assigned (arch x shape) workloads of the dry-run
+(:mod:`repro_torch.launch.dryrun`), :func:`applicable_shapes` which of them
+an architecture runs.
 """
 from __future__ import annotations
 
@@ -112,3 +112,28 @@ class ArchConfig:
             frontend_tokens=min(self.frontend_tokens, 8),
             dtype_str="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ArchConfig) -> list[str]:
+    """Which of the four assigned shapes run for ``cfg``: the long-context decode only
+    for a sub-quadratic architecture."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        out.append("long_500k")
+    return out

@@ -44,8 +44,18 @@ build or launch raises: nothing retries on another route.
 :func:`elp_bsd_matmul` takes the plain version (:func:`elp_bsd_matmul_plain`)
 only for tensors on the CPU; on a CUDA tensor it launches the routed kernel
 or raises. ``elp_bsd_matmul.launches`` counts every route's launches and
-``elp_bsd_matmul.launches_by_route[route]`` each one's. An input that
-requires grad, with grad mode on, raises (:func:`refuse_grad`).
+``elp_bsd_matmul.launches_by_route[route]`` each one's: real launches only.
+An input that requires grad, with grad mode on, raises (:func:`refuse_grad`).
+
+A ``meta`` x (the dry-run's abstract evaluation,
+:mod:`repro_torch.launch.hlo_stats`) is counted, never computed: the wrapper
+returns an empty ``meta`` ``[M, N]`` of ``out_dtype`` and launches nothing, so
+no value comes out that a caller could take for a result. Under an active
+cost counter (:mod:`repro_torch.runtime.cost`) every call, on any device,
+counts as one operation: ``2·M·K·N`` FLOPs and the bytes of x, the codes, the
+scale factor and the float32 output, each once, under the route that a CUDA
+x of its dtype takes (``"plain"`` on the CPU). What runs inside is not
+counted on top of it.
 """
 from __future__ import annotations
 
@@ -55,6 +65,7 @@ import functools
 import torch
 
 from repro_torch.core.elp_bsd import ElpBsdFormat
+from repro_torch.runtime import cost
 from repro_torch.kernels.ref import (
     bf16_exact,
     decode_table,
@@ -168,6 +179,30 @@ def route(x: torch.Tensor, fmt: ElpBsdFormat) -> str:
     return "f32"
 
 
+def device_route(name: str, x: torch.Tensor, fmt: ElpBsdFormat) -> str:
+    """``"plain"`` for a CPU x; :func:`route`'s for a CUDA or ``meta`` one (a meta
+    call counts under the route a CUDA x of its dtype takes). Any other device
+    raises."""
+    if x.device.type == "cpu":
+        return "plain"
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors (or meta, counted only), "
+                         f"got {x.device}")
+    with cost.paused():  # the format's table check is no part of the call's cost
+        return route(x, fmt)
+
+
+def count_matmul(name: str, r: str, x: torch.Tensor, codes: torch.Tensor,
+                 out: torch.Tensor) -> None:
+    """Report one packed-matmul call to the active cost counter (nothing to do
+    without one)."""
+    if cost.active() is None:
+        return
+    m, kdim = x.shape
+    n = out.shape[1]
+    cost.kernel(name, r, 2.0 * m * kdim * n, cost.matmul_bytes(x, codes, m, n), out)
+
+
 @functools.lru_cache(maxsize=None)
 def _table_words(fmt: ElpBsdFormat, nibble: bool) -> ctypes.Array:
     """:func:`decode_table` as the 256 unsigned words the wgmma kernel's entry point reads."""
@@ -229,22 +264,26 @@ def elp_bsd_matmul(
     logical K (the nibble pad row) meet zero activations. ``sf`` is one
     float32 scale factor. On the card the kernel is :func:`route`'s.
     """
-    check_kernel_args("elp_bsd_matmul", x, codes, nibble)
+    n = check_kernel_args("elp_bsd_matmul", x, codes, nibble)
     refuse_grad("elp_bsd_matmul", x)
     out_dtype = out_dtype or x.dtype
-    sf = as_scale(sf, x.device)
-    if x.device.type == "cpu":
-        return elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=nibble, out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"elp_bsd_matmul runs on cuda or cpu tensors, got {x.device}")
-    r = route(x, fmt)
-    if r in ("wgmma", "bf16x3"):
-        out = launch_wgmma(x, codes, sf, fmt, nibble, route=r)
-    else:
-        out = launch_checked("elp_bsd_matmul", x, codes, sf, fmt, nibble)
-    elp_bsd_matmul.launches += 1
-    elp_bsd_matmul.launches_by_route[r] += 1
-    return out.to(out_dtype)
+    r = device_route("elp_bsd_matmul", x, fmt)
+    with cost.paused():
+        sf = as_scale(sf, x.device)
+        if r == "plain":
+            out = elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=nibble, out_dtype=out_dtype)
+        elif x.is_meta:
+            out = torch.empty((x.shape[0], n), dtype=out_dtype, device="meta")
+        else:
+            if r in ("wgmma", "bf16x3"):
+                out = launch_wgmma(x, codes, sf, fmt, nibble, route=r)
+            else:
+                out = launch_checked("elp_bsd_matmul", x, codes, sf, fmt, nibble)
+            elp_bsd_matmul.launches += 1
+            elp_bsd_matmul.launches_by_route[r] += 1
+            out = out.to(out_dtype)
+    count_matmul("elp_bsd_matmul", r, x, codes, out)
+    return out
 
 
 elp_bsd_matmul.launches = 0

@@ -45,8 +45,17 @@ without it each zero key would add ``exp(0 - m)`` to every row's softmax.
 (:func:`flash_attention_plain`) only for tensors on the CPU; on a CUDA
 tensor it launches the routed kernel or raises. ``flash_attention.launches``
 counts both kernels' launches and ``flash_attention.launches_by_route[route]``
-each one's. Inputs that require grad, with grad mode on, raise (the kernels
-have no backward).
+each one's: real launches only. Inputs that require grad, with grad mode on,
+raise (the kernels have no backward).
+
+A ``meta`` q (the dry-run's abstract evaluation) is counted, never computed:
+the wrapper returns an empty ``meta`` tensor of q's shape, dtype and strides
+and launches nothing. Under an active cost counter
+(:mod:`repro_torch.runtime.cost`) every call counts as one operation on every
+device: ``4·hd`` FLOPs for each query-key pair the mask keeps (the QK and PV
+products; every pair without ``causal``) and the bytes of q, k, v and the
+output, each once, under :func:`route`'s route for a CUDA q of its dtype
+(``"plain"`` on the CPU).
 """
 from __future__ import annotations
 
@@ -56,6 +65,7 @@ import math
 import torch
 
 from repro_torch.kernels.elp_bsd_matmul import refuse_grad
+from repro_torch.runtime import cost
 from repro_torch.models.layers import NEG_INF
 
 F32 = torch.float32
@@ -191,9 +201,14 @@ def flash_attention(
     if q_offset < 0:
         raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
+        with cost.paused():  # the output in q's strides, as the kernels write it
+            out = torch.empty_like(q).copy_(
+                flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset))
+        _count(q, k, v, out, causal, q_offset, "plain")
+        return out
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors (or meta, counted "
+                         f"only), got {q.device}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k and v must share a device; got {q.device}, {k.device}, {v.device}")
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -203,13 +218,37 @@ def flash_attention(
         )
     if q.shape[3] > MAX_HD:
         raise ValueError(f"the CUDA kernel takes head_dim <= {MAX_HD}, got {q.shape[3]}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    out = torch.empty_like(q)
     r = route(q, k, v)
-    _launch(r, q, k, v, out, group, causal, q_offset)
-    flash_attention.launches += 1
-    flash_attention.launches_by_route[r] += 1
+    with cost.paused():
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+        out = torch.empty_like(q)
+        if not q.is_meta:
+            _launch(r, q, k, v, out, group, causal, q_offset)
+            flash_attention.launches += 1
+            flash_attention.launches_by_route[r] += 1
+    _count(q, k, v, out, causal, q_offset, r)
     return out
+
+
+def attention_pairs(sq: int, sk: int, causal: bool, q_offset: int = 0) -> int:
+    """Query-key pairs of one (batch, head) that attention computes: query ``i`` at
+    position ``q_offset + i`` sees keys ``0 .. min(q_offset + i, sk - 1)`` when
+    causal, every key otherwise."""
+    if not causal:
+        return sq * sk
+    # sum over i < sq of min(q_offset + i + 1, sk)
+    full = max(0, min(sq, sk - q_offset))  # rows below the key count's cap
+    rows = full * (q_offset + 1) + full * (full - 1) // 2
+    return rows + (sq - full) * sk
+
+
+def _count(q, k, v, out, causal: bool, q_offset: int, r: str) -> None:
+    if cost.active() is None:
+        return
+    b, h, sq, hd = q.shape
+    pairs = b * h * attention_pairs(sq, k.shape[2], causal, q_offset)
+    nbytes = sum(cost.tensor_bytes(t) for t in (q, k, v, out))
+    cost.kernel("flash_attention", r, 4.0 * hd * pairs, nbytes, out)
 
 
 flash_attention.launches = 0

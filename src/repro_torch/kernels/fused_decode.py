@@ -37,22 +37,31 @@ or launch raises: nothing retries on another route.
 a second name: the product is the same) only for tensors on the CPU; on a
 CUDA tensor it launches the routed kernel or raises.
 ``fused_decode_matmul.launches`` counts every route's launches and
-``fused_decode_matmul.launches_by_route[route]`` each one's. An input
-that requires grad, with grad mode on, raises.
+``fused_decode_matmul.launches_by_route[route]`` each one's: real launches
+only. An input that requires grad, with grad mode on, raises.
+
+A ``meta`` x is counted, never computed, as in the tiled kernel's wrapper:
+an empty ``meta`` ``[M, N]`` of ``out_dtype`` comes back and nothing
+launches. Under an active cost counter each call is one operation of
+``2·M·K·N`` FLOPs and the bytes of x, codes, scale factor and float32 output
+(:mod:`repro_torch.runtime.cost`), on every device alike.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.elp_bsd import ElpBsdFormat
+from repro_torch.runtime import cost
 from repro_torch.kernels.elp_bsd_matmul import (
     ROUTES,
     as_scale,
     check_kernel_args,
+    count_matmul,
+    device_route,
     launch_checked,
     launch_wgmma,
     refuse_grad,
-    route,
+    route,  # noqa: F401  (the tiled kernel's rule is this kernel's: fused_decode.route)
 )
 from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul_plain as fused_decode_matmul_plain
 
@@ -76,7 +85,7 @@ def fused_decode_matmul(
     meets zero activations); M rides whole. ``sf`` is one float32 scale.
     On the card the kernel is :func:`route`'s.
     """
-    check_kernel_args("fused_decode_matmul", x, codes, nibble)
+    n = check_kernel_args("fused_decode_matmul", x, codes, nibble)
     refuse_grad("fused_decode_matmul", x)
     m = x.shape[0]
     if m > MAX_FUSED_M:
@@ -85,19 +94,25 @@ def fused_decode_matmul(
             f"{MAX_FUSED_M} — use elp_bsd_matmul for prefill-sized batches"
         )
     out_dtype = out_dtype or x.dtype
-    sf = as_scale(sf, x.device)
-    if x.device.type == "cpu":
-        return fused_decode_matmul_plain(x, codes, sf, fmt, nibble=nibble, out_dtype=out_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_decode_matmul runs on cuda or cpu tensors, got {x.device}")
-    r = route(x, fmt)
-    if r in ("wgmma", "bf16x3"):
-        out = launch_wgmma(x, codes, sf, fmt, nibble, name="fused_decode_wgmma", route=r)
-    else:
-        out = launch_checked("fused_decode", x, codes, sf, fmt, nibble)
-    fused_decode_matmul.launches += 1
-    fused_decode_matmul.launches_by_route[r] += 1
-    return out.to(out_dtype)
+    r = device_route("fused_decode_matmul", x, fmt)
+    with cost.paused():
+        sf = as_scale(sf, x.device)
+        if r == "plain":
+            out = fused_decode_matmul_plain(x, codes, sf, fmt, nibble=nibble,
+                                            out_dtype=out_dtype)
+        elif x.is_meta:
+            out = torch.empty((m, n), dtype=out_dtype, device="meta")
+        else:
+            if r in ("wgmma", "bf16x3"):
+                out = launch_wgmma(x, codes, sf, fmt, nibble, name="fused_decode_wgmma",
+                                   route=r)
+            else:
+                out = launch_checked("fused_decode", x, codes, sf, fmt, nibble)
+            fused_decode_matmul.launches += 1
+            fused_decode_matmul.launches_by_route[r] += 1
+            out = out.to(out_dtype)
+    count_matmul("fused_decode_matmul", r, x, codes, out)
+    return out
 
 
 fused_decode_matmul.launches = 0

@@ -168,9 +168,13 @@ def _moe_ep_local(x_loc: torch.Tensor, router, we1, we3, we2, *, cfg: ArchConfig
     e_loc = cfg.n_experts // n_shards
     r = ep_dispatch(x_loc, router, cfg, n_shards, logits)
     cap, keep = r["cap"], ~r["dropped"]
-    send = torch.zeros((n_shards, e_loc, cap, d), dtype=x_loc.dtype, device=x_loc.device)
-    send = send.index_put((r["dst"][keep], r["local"][keep], r["slot"][keep]),
-                          x_loc[r["token"][keep]])
+    # every choice writes a row of the flat send buffer: a kept one its (dst, local,
+    # slot), a dropped one the trash row past the end, which is cut off. No shape
+    # depends on the routing, so nothing waits for the device.
+    trash = n_shards * e_loc * cap
+    flat = torch.where(keep, (r["dst"] * e_loc + r["local"]) * cap + r["slot"], trash)
+    send = torch.zeros((trash + 1, d), dtype=x_loc.dtype, device=x_loc.device)
+    send = send.index_put((flat,), x_loc[r["token"]])[:trash].view(n_shards, e_loc, cap, d)
     recv = collectives.all_to_all(send, group)  # [source rank, E_loc, cap, D]
     h = recv.transpose(0, 1).reshape(e_loc, n_shards * cap, d)
     y = _expert_ffn(h, we1, we3, we2, cfg.mlp_kind)

@@ -302,7 +302,7 @@ def _ring_qkv(lp: dict, cfg: ArchConfig, xn: torch.Tensor, positions: torch.Tens
 
 def _per_head(t: torch.Tensor, h: int, kv_idx) -> torch.Tensor:
     """``t[B, S, KV, hd]`` as each of the ``h`` query heads reads it."""
-    return t[:, :, kv_idx] if kv_idx is not None else repeat_kv(t, h // t.shape[2])
+    return t[:, :, kv_idx] if kv_idx is not None else repeat_kv(t, T.per_kv(h, t.shape[2]))
 
 
 def _ring_prefill(lp: dict, cfg: ArchConfig, xn: torch.Tensor, kv_cache: tuple, pctx=None):

@@ -152,14 +152,23 @@ ATTN_IMPLS = ("flash", "reference")
 
 def head_blocks(cfg: ArchConfig, pctx) -> tuple[int, int, int, int]:
     """``(q_lo, q_hi, kv_lo, kv_hi)``: this rank's block of the query heads (near
-    equal blocks in rank order) and the KV heads that its query heads read."""
+    equal blocks in rank order) and the KV heads that its query heads read. With
+    fewer heads than model ranks some ranks' blocks are empty (recurrentgemma-2b's
+    10 heads over 16): such a rank attends no head and reads no KV head, and its
+    part of the output projection is zero."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
     m, r = pctx.model_size, pctx.model_rank
-    if h < m:
-        raise ValueError(f"{h} query heads leave some of {m} model ranks without a head")
     q_lo, q_hi = r * h // m, (r + 1) * h // m
     g = h // kv
+    if q_lo == q_hi:
+        return q_lo, q_hi, q_lo // g, q_lo // g
     return q_lo, q_hi, q_lo // g, (q_hi - 1) // g + 1
+
+
+def per_kv(h: int, kv: int) -> int:
+    """Query heads a KV head serves among ``h`` local query heads and ``kv`` local
+    KV heads (1 where a rank holds none of either)."""
+    return h // kv if kv else 1
 
 
 def seq_sharded(pctx, layout: str) -> bool:
@@ -568,6 +577,8 @@ def _kv_index(cfg: ArchConfig, pctx):
     that is the plain GQA grouping of the rank's heads (:func:`head_blocks`)."""
     q_lo, q_hi, kv_lo, kv_hi = head_blocks(cfg, pctx)
     g, hq, nkv = cfg.n_heads // cfg.n_kv_heads, q_hi - q_lo, kv_hi - kv_lo
+    if hq == 0:
+        return None
     idx = [(q_lo + i) // g - kv_lo for i in range(hq)]
     uniform = hq % nkv == 0 and idx == [i // (hq // nkv) for i in range(hq)]
     return None if uniform else idx
@@ -753,15 +764,15 @@ def _attention(
     if flash_decode:
         out = flash_decode_attention(q, k, v, cache_pos, pctx=pctx, window=window, ks=ks, vs=vs)
     elif decode:
-        out = attention_dot(q, repeat_kv(k, h // kv), repeat_kv(v, h // kv), causal=causal,
-                            window=window, q_offset=q_offset)
+        out = attention_dot(q, repeat_kv(k, per_kv(h, kv)), repeat_kv(v, per_kv(h, kv)),
+                            causal=causal, window=window, q_offset=q_offset)
     elif flash and causal:
         n = q_offset + s  # the written key prefix
         out = _flash_prefill(q, k[:, :n], v[:, :n], q_offset)
     elif flash and s > 1:
         out = _flash_prefill(q, k, v, 0, causal=False)
     else:
-        kf, vf = repeat_kv(k, h // kv), repeat_kv(v, h // kv)
+        kf, vf = repeat_kv(k, per_kv(h, kv)), repeat_kv(v, per_kv(h, kv))
         attend = attention_chunked if kf.shape[1] >= CHUNKED_ATTN_THRESHOLD else attention_dot
         extra = {"chunk": ATTN_CHUNK} if attend is attention_chunked else {}
         out = attend(q, kf, vf, causal=causal, window=window, q_offset=q_offset, **extra)

@@ -20,7 +20,9 @@ this side by side cannot collide; the store removes the file when the
 group is destroyed), with an explicit timeout (:data:`GROUP_TIMEOUT`). A
 group whose backend is not the device's raises, except a ``gloo`` group
 for the card: its caller chose to carry CUDA tensors over the host (two
-ranks that share one card, which NCCL refuses); nothing switches backend.
+ranks that share one card, which NCCL refuses); nothing switches backend. The
+dry-run's one-process ``fake`` group (:mod:`repro_torch.launch.dryrun`) serves
+any device: nothing is issued over it.
 
 :func:`reshard` gives each packed weight its local logical ``shape``.
 Codes are nibble-packed along K, so a block of a row-parallel weight's
@@ -76,7 +78,8 @@ def ensure_group(device=None) -> None:
     backend = backend_for(device)
     if dist.is_initialized():
         have = dist.get_backend()
-        if have != backend and not (have == "gloo" and device.type == "cuda"):
+        if have != backend and have != "fake" and not (have == "gloo"
+                                                       and device.type == "cuda"):
             raise ValueError(f"the process group runs {have!r}, but {device} needs {backend!r}")
         return
     if device.type == "cuda":  # NCCL binds the group to the current card

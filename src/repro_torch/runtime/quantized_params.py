@@ -106,6 +106,21 @@ def quantize_params_for_serving(params: dict, cfg, fmt, *, compensate: bool = Tr
     return pack_lm_params(params, cfg, resolve_format(fmt), compensate=compensate, calib=calib)
 
 
+def abstract_quantize_tree(aparams: dict, cfg, fmt) -> dict:
+    """The packed tree of ``aparams`` (a ``meta`` tree, e.g.
+    ``get_model(cfg).init_params(cfg, 0, device="meta")``) on ``meta``, without
+    storage: every quantizable leaf a stacked :class:`PackedWeight` whose codes
+    (``[L, K', N]`` or ``[L, E, K', N]``, nibble-packed along K for a 4-bit
+    format), scale factors and flags are what real packing gives. ``fmt`` is a
+    format or any spelling :func:`repro_torch.core.elp_bsd.resolve_format`
+    takes; an unknown one raises ``ValueError`` before any leaf is visited."""
+    from repro_torch.api_schemes import pack_lm_params
+    from repro_torch.core.elp_bsd import resolve_format
+
+    fmt = resolve_format(fmt)
+    return pack_lm_params(aparams, cfg, fmt, compensate=False)
+
+
 def packed_bytes(params) -> int:
     """Total weight bytes of a (possibly partially) packed tree."""
     return packed_tree_bytes(params)

@@ -1142,21 +1142,20 @@ class ServeEngine:
         return out
 
     def decode_cost(self) -> dict:
-        """Modeled cost of one greedy decode step over every slot: weight
-        FLOPs (2 per weight-MAC per slot), bytes read (the whole params tree
-        once, plus every slot's KV cache at full context) and collective
-        bytes (0 on one card). The JAX package reads the same keys from
-        XLA's cost analysis of its compiled step."""
-        from repro_torch.core.energy import lm_cache_bytes_per_token, lm_weight_macs_per_token
-        from repro_torch.kernels.ops import packed_tree_bytes
+        """Cost of one greedy decode step over every slot, on this rank: the engine's
+        real greedy decode step run once on ``meta`` copies of this rank's parameters
+        and cache, at the current slots and positions, under
+        :func:`repro_torch.launch.hlo_stats.step_cost`. ``flops`` and
+        ``bytes_accessed`` are this rank's, ``collective_bytes`` the bytes the step
+        puts on this rank's wire and ``by_op`` those by collective kind (0 and empty
+        without a mesh). Nothing is computed: the live cache is not written and no
+        collective is issued. The JAX package reads the same keys from XLA's cost
+        analysis of its compiled step."""
+        from repro_torch.launch.hlo_stats import step_cost
 
-        n = self._sched.n_slots
-        cache = lm_cache_bytes_per_token(self.cfg, self.setup.max_len, kv_bits=self.setup.kv_bits)
-        return {
-            "flops": float(2 * lm_weight_macs_per_token(self.cfg) * n),
-            "bytes_accessed": float(packed_tree_bytes(self.params) + cache * n),
-            "collective_bytes": 0.0,
-        }
+        c = step_cost(self._decode_greedy, self.params, self._tok_dev, self._dispatch_cache(),
+                      self._pos_in())
+        return {k: c[k] for k in ("flops", "bytes_accessed", "collective_bytes", "by_op")}
 
     # -- internals -----------------------------------------------------------
     def _dispatch_cache(self, cache: Any = None) -> Any:
