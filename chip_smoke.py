@@ -168,7 +168,21 @@ stays held and timed).
   ``max_memory_allocated``, the step's time beside its roofline terms, every
   kernel shape held; (c) ``repro_torch.experiments.serve_quantized
   --speculative`` (both drafters token-identical to static generation),
-  every kernel shape held.
+  every kernel shape held;
+* the port's ``bench/`` (the bench phase, after the cost phase), on an
+  autotune cache of its own (every other phase dispatches on an empty one,
+  the heuristic): (a) the tuner at qwen3-8b's four decode-step [K, N] at M
+  16-384 (bf16, the wgmma routes) and AlexNet's eight GEMMs at batch 64
+  (float32, the bf16x3 routes), each impl and the library call timed, the M
+  at which the winner turns from the decode-step kernel to the tiled one,
+  and flash-decode's chunk at 16 x 32 x 128 x 4096; (b) ``impl="auto"``
+  launching a cache entry's kernel (held), flash-decode's ``block_s=None``
+  equal to the tuned chunk's call, ``QuantScheme(block_sizes="auto")`` on
+  the tuned cache against the default scheme on an empty one (logits within
+  1e-4 of max |logit|, the empty cache's launches the heuristic's); (c)
+  ``python -m repro_torch.bench --smoke`` in this process, both documents
+  validated and gated against themselves. Its launches are printed on a
+  line of their own and are not in the kernels line.
 
     python3 chip_smoke.py
 
@@ -1624,7 +1638,7 @@ VLM_LOGIT_REL_TOL = 0.15
 ROUTE_FLIP_LIMIT = 0.25
 MOE_LOGIT_REL_TOL = 0.15
 MOE_CONTROL_STEPS = 4
-MOE_ENGINE_REQUESTS = 8  # the MoE engine runs' share of the engine phase's requests
+MOE_ENGINE_REQUESTS = 4  # the MoE engine runs' share of the engine phase's requests
 
 
 class RouteTap:
@@ -3040,7 +3054,7 @@ MESH_MOE_NEW = 4  # (b): olmoe pays its per-call expert dequantize at every step
 MESH_MOE_TOKENS = 512  # (b): the float64 control over the first 4 prompts' tokens
 # (c): lm-100m steps and the checkpoint's step; the script's time limit, not the
 # checks, sets them
-MESH_TRAIN_STEPS, MESH_TRAIN_CKPT = 10, 5
+MESH_TRAIN_STEPS, MESH_TRAIN_CKPT = 6, 3
 FLASH_DECODE_REL_TOL = 1e-5
 MESH_COLLECTIVE_N = 1 << 24
 
@@ -4340,6 +4354,221 @@ def _tp_family_train(torch, dev, mesh, rank, out) -> None:
                                      "step_ms": ms, "issued": issued}
 
 
+BENCH_DIR = os.path.join(ROOT, "build", "bench_smoke")
+# Every phase but the bench phase dispatches on an empty autotune cache (a path
+# that is never written): the heuristic, whatever an earlier tune left in build/.
+EMPTY_CACHE = os.path.join(BENCH_DIR, "empty_autotune_cache.json")
+# qwen3-8b's four distinct decode-step [K, N] (q and o, k and v, gate and up,
+# down), a4 nibble codes, bf16 x, at the decode step's M and the engine's
+# admissions (48-400 tokens); flash-decode at the cost phase's decode geometry.
+BENCH_QWEN_KN = ((4096, 4096), (4096, 1024), (4096, 12288), (12288, 4096))
+BENCH_QWEN_MS = (16, 48, 128, 192, 256, 384)
+BENCH_FLASH = (16, 4096, 32, 128, 8)  # slots, positions, heads, head dim, KV heads
+BENCH_ITERS, BENCH_WARMUP = 2, 1  # (c)'s harness budget a measurement
+
+
+def bench_phase(torch, dev, failures, mesh) -> None:
+    """The port's ``bench/`` on the card, on a cache of its own under BENCH_DIR.
+
+    (a) ``autotune.autotune_matmul`` at qwen3-8b's decode-step shapes
+    (BENCH_QWEN_KN x BENCH_QWEN_MS, bf16 x: the wgmma routes) and at AlexNet's
+    five im2col conv and three fc shapes at batch 64 (float32 x: the bf16x3
+    routes), each impl the median of 7 cold-L2 launches; the M at which the
+    measured winner turns from ``fused`` to ``tiled`` per [K, N] against
+    MAX_FUSED_M; ``autotune_flash_decode`` at BENCH_FLASH on the (1, 1) mesh.
+    (b) dispatch follows the cache: an entry electing the tiled kernel where the
+    heuristic takes the decode-step one moves ``quantized_matmul(impl="auto")``'s
+    launch (held against the plain version); flash-decode's ``block_s=None``
+    equals the tuned chunk; ``api.quantize(ALEXNET, QuantScheme(block_sizes=
+    "auto"))`` on the tuned cache against the default scheme on an empty one,
+    logits within the CNN gate (float activations), the empty cache's launches
+    the heuristic's. (c) ``python -m repro_torch.bench --smoke`` in this
+    process, both documents validated and gated against themselves. The phase's
+    launches are printed on a line of their own: they are no main path's."""
+    from repro_torch import api
+    from repro_torch.bench import __main__ as bench_cli
+    from repro_torch.bench import autotune, schema
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul_plain
+    from repro_torch.kernels.fused_decode import MAX_FUSED_M
+    from repro_torch.models import cnn
+    from repro_torch.models.context import ParallelCtx
+    from repro_torch.models.flash_decode import flash_decode_attention
+
+    t_phase = time.perf_counter()
+    start = _counts()
+    tuned_cache = os.path.join(BENCH_DIR, "autotune_cache.json")
+
+    def use_cache(path):
+        os.environ[autotune.CACHE_ENV] = path
+        autotune.invalidate_memory_cache()
+
+    use_cache(tuned_cache)
+    try:
+        # (a) tune at full width
+        t0 = time.perf_counter()
+        for (kdim, n) in BENCH_QWEN_KN:
+            winners = []
+            for m in BENCH_QWEN_MS:
+                res = autotune.autotune_matmul(m, kdim, n, "elp_bsd_a4", nibble=True,
+                                               dtype=torch.bfloat16, device=dev)
+                _bench_row("qwen3-8b", m, kdim, n, res)
+                winners.append((m, res["impl"]))
+            flip = next((m for m, w in winners if w == "tiled"), None)
+            print(f"[bench] (a) qwen3-8b K={kdim} N={n}: winners "
+                  + ", ".join(f"M={m} {w}" for m, w in winners)
+                  + f"; the measured winner turns fused -> tiled at M={flip} "
+                  f"(MAX_FUSED_M = {MAX_FUSED_M}; fused runs up to it)")
+        for g in gemm_shapes(cnn.ALEXNET):
+            if g[0] == "conv":
+                _, hw, cin, k, stride, cout = g
+                m, kdim, n = BATCH * (-(-hw // stride)) ** 2, k * k * cin, cout
+            else:
+                m, (kdim, n) = BATCH, g[1:]
+            res = autotune.autotune_matmul(m, kdim, n, "elp_bsd_a4", nibble=True,
+                                           dtype=torch.float32, device=dev)
+            _bench_row(f"AlexNet {g[0]}", m, kdim, n, res)
+        b, s_len, h, hd, kv = BENCH_FLASH
+        pctx = ParallelCtx(mesh=mesh, flash_decode=True)
+        fres = autotune.autotune_flash_decode(b, s_len, h, hd, kv=kv, dtype=torch.bfloat16,
+                                              pctx=pctx, device=dev)
+        print(f"[bench] (a) flash-decode {b} slots x {h} heads x hd {hd} x {s_len} positions "
+              f"(KV {kv}, bf16, (1, 1) mesh): "
+              + ", ".join(f"block_s {r['block_s']} {r['wall_us'] / 1e3:.4f} ms"
+                          for r in fres["ranking"])
+              + f"; winner block_s {fres['blocks'][1]} (0 = one shot)")
+        n_entries = len(autotune.cache_entries())
+        print(f"[bench] (a) {len(BENCH_QWEN_KN) * len(BENCH_QWEN_MS) + 8} matmul shapes and 1 "
+              f"flash shape tuned, {n_entries} cache entries, in {time.perf_counter() - t0:.1f} s")
+
+        # (b) dispatch follows the cache
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(27)
+        m, kdim, n = 16, 4096, 4096
+        x = torch.randn(m, kdim, device=dev, generator=gen).to(torch.bfloat16)
+        w = torch.randn(kdim, n, device=dev, generator=gen) * 0.02
+        pw, _ = ops.pack_weight(w, "elp_bsd_a4")
+        del w
+        want = elp_bsd_matmul_plain(x, pw.codes, pw.sf, pw.fmt, nibble=True,
+                                    out_dtype=torch.float32)
+        limit = REL_TOL * want.abs().max().item()
+
+        def dispatched(label, expect):
+            before = _counts()
+            got = ops.quantized_matmul(x, pw, impl="auto", out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            delta = dict(zip(KERNEL_ROUTES, (a - c for a, c in zip(_counts(), before))))
+            err = (got - want).abs().max().item()
+            print(f"[bench] (b) {label}: impl=\"auto\" at M={m} K={kdim} N={n} launched "
+                  f"{ {k: v for k, v in delta.items() if v} }; max_abs_err {err:.3e} "
+                  f"(limit {limit:.3e})")
+            if delta != dict(zip(KERNEL_ROUTES, _expected({expect: 1}))) or not err <= limit:
+                failures.append(f"[bench] (b) {label}: launches {delta}, err {err:.3e}")
+
+        key = lambda impl: autotune.cache_key(m, kdim, n, "elp_bsd_a4", True, "cuda", impl)  # noqa: E731
+        autotune.write_entries({key("tiled"): {"blocks": list(autotune.DEFAULT_BLOCKS),
+                                               "wall_us": 1.0},
+                                key("fused"): {"blocks": list(autotune.DEFAULT_BLOCKS),
+                                               "wall_us": 2.0}})
+        dispatched("an entry electing the tiled kernel", "elp_bsd_matmul/wgmma")
+        use_cache(EMPTY_CACHE)
+        dispatched("the empty cache (heuristic: M <= 256)", "fused_decode_matmul/wgmma")
+        use_cache(tuned_cache)
+
+        # float32: the chunked and one-shot results then differ by float32 rounding
+        # only, not by a bf16 step of the output
+        q = torch.randn(b, 1, h, hd, device=dev, generator=gen)
+        ck, cv = (torch.randn(b, s_len, kv, hd, device=dev, generator=gen) for _ in range(2))
+        chunk = autotune.lookup_flash_block_s(b, h, hd, s_len, backend="cuda")
+        got = flash_decode_attention(q, ck, cv, s_len - 1, pctx=pctx)
+        tuned_out = flash_decode_attention(q, ck, cv, s_len - 1, pctx=pctx,
+                                           block_s=fres["blocks"][1])
+        one_shot = flash_decode_attention(q, ck, cv, s_len - 1, pctx=pctx, block_s=0)
+        fd_err = (got - one_shot).abs().max().item()
+        fd_limit = FLASH_DECODE_REL_TOL * one_shot.abs().max().item()
+        same = bool(torch.equal(got, tuned_out))
+        print(f"[bench] (b) flash-decode block_s=None looks up {chunk} (tuned "
+              f"{fres['blocks'][1]}): equal to the tuned chunk's call {same}; against the "
+              f"one-shot slice max_abs_err {fd_err:.3e} (limit {fd_limit:.3e})")
+        if chunk != (fres["blocks"][1] or None) or not same or not fd_err <= fd_limit:
+            failures.append(f"[bench] (b) flash-decode: lookup {chunk}, equal {same}, "
+                            f"err {fd_err:.3e}")
+        del q, ck, cv, got, tuned_out, one_shot, x, want
+
+        params = cnn.init_params(cnn.ALEXNET, seed=0)
+        images = torch.randn(BATCH, 224, 224, 3, device=dev, generator=gen)
+        def forward(qm):
+            before = _counts()
+            logits = qm.forward(images)
+            torch.cuda.synchronize()
+            return logits, dict(zip(KERNEL_ROUTES, (a - c for a, c in zip(_counts(), before))))
+
+        qm_auto = api.quantize(cnn.ALEXNET, params, api.QuantScheme(block_sizes="auto"))
+        logits_auto, tuned_launches = forward(qm_auto)
+        tuned_launches = {k: v for k, v in tuned_launches.items() if v}
+        use_cache(EMPTY_CACHE)
+        qm_default = api.quantize(cnn.ALEXNET, params, api.QuantScheme())
+        logits_default, empty_launches = forward(qm_default)
+        heuristic = dict(zip(KERNEL_ROUTES, _expected({"elp_bsd_matmul/bf16x3": 5,
+                                                       "fused_decode_matmul/bf16x3": 3})))
+        diff = (logits_auto - logits_default).abs().max().item()
+        cnn_limit = FLOAT_LOGIT_REL_TOL * logits_default.abs().max().item()
+        print(f"[bench] (b) ALEXNET b{BATCH}, QuantScheme(block_sizes=\"auto\") on the tuned "
+              f"cache (launches {tuned_launches}, tuned_blocks {qm_auto.report.tuned_blocks}) "
+              f"against the default scheme on the empty cache (launches "
+              f"{ {k: v for k, v in empty_launches.items() if v} }): max_abs_diff {diff:.3e} "
+              f"(limit {FLOAT_LOGIT_REL_TOL:g} * max|logit| = {cnn_limit:.3e})")
+        if not diff <= cnn_limit or empty_launches != heuristic:
+            failures.append(f"[bench] (b) ALEXNET auto blocks: diff {diff:.3e}, empty-cache "
+                            f"launches {empty_launches}")
+        del params, images, qm_auto, qm_default, logits_auto, logits_default
+        torch.cuda.empty_cache()
+        print(f"[bench] (b) {time.perf_counter() - t0:.1f} s")
+
+        # (c) the smoke tier of both suites in this process, on the tuned cache
+        use_cache(tuned_cache)
+        t0 = time.perf_counter()
+        out_dir = os.path.join(BENCH_DIR, "docs")
+        rc = bench_cli.main(["--smoke", "--out-dir", out_dir, "--iters", str(BENCH_ITERS),
+                             "--warmup", str(BENCH_WARMUP)])
+        paths = [os.path.join(out_dir, bench_cli.bench_filename(s)) for s in schema.SUITES]
+        docs = []
+        for path in paths:
+            with open(path) as f:
+                docs.append(json.load(f))
+            schema.validate(docs[-1])
+        ratios = [r for doc in docs for r in bench_cli._collect_ratios(doc, doc, 200.0)]
+        gate = bench_cli._gate(ratios, 0.20)
+        print(f"[bench] (c) python -m repro_torch.bench --smoke: exit {rc}; "
+              + "; ".join(f"{d['suite']} {len(d['entries'])} entries (backend {d['backend']}, "
+                          f"torch {d['torch_version']})" for d in docs)
+              + f"; validated; gated against itself: {len(ratios)} timings, "
+              f"{len(gate)} failures; {time.perf_counter() - t0:.1f} s")
+        for d in docs:
+            for name, e in d["entries"].items():
+                print(f"[bench] (c) {name}: "
+                      + ", ".join(f"{k} {t['min_us']:.1f} us" + (f" ({t['impl']})"
+                                                                 if "impl" in t else "")
+                                  for k, t in e["wall_us"].items() if t))
+        if rc != 0 or gate:
+            failures.append(f"[bench] (c): exit {rc}, gate {gate}")
+    finally:
+        use_cache(EMPTY_CACHE)
+    launches = {k: a - c for k, a, c in zip(KERNEL_ROUTES, _counts(), start)}
+    print(f"[bench] launches of the bench phase (tuning, checks and the suites; no main "
+          f"path's): { {k: v for k, v in launches.items() if v} }")
+    print(f"[time] bench phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def _bench_row(label, m, kdim, n, res) -> None:
+    """Print one tuned shape: each impl's ms and the voting winner."""
+    ms = {r["impl"]: r["wall_us"] / 1e3 for r in res["ranking"]}
+    print(f"[bench] (a) {label} M={m} K={kdim} N={n} a4/nib ({res['route']} route): tiled "
+          f"{ms['tiled']:.4f} ms, fused "
+          + (f"{ms['fused']:.4f} ms" if "fused" in ms else "n/a (M > MAX_FUSED_M)")
+          + f", library {ms['library']:.4f} ms; winner {res['impl']}")
+
+
 def main() -> int:
     # One card: the run uses device 0 and its record says so.
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -4351,6 +4580,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch import _build, api
+    from repro_torch.bench.autotune import CACHE_ENV
     from repro_torch.device import full_f32
     from repro_torch.kernels import ops
     from repro_torch.kernels.conv import extract_patches, pad_nhwc
@@ -4368,6 +4598,8 @@ def main() -> int:
     t_start = time.perf_counter()
     # what the phases hand the TP phase is this run's: nothing of an earlier run stays
     shutil.rmtree(TP_DIR, ignore_errors=True)
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
+    os.environ[CACHE_ENV] = EMPTY_CACHE  # the TP ranks inherit it
     # -- phase 1: card ---------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4725,6 +4957,9 @@ def main() -> int:
     tp_launches = tp_phase(torch, failures, rows, straight)
     # -- the cost phase: the dry-run and step-cost tooling, and the examples --------
     cost_launches = cost_phase(torch, dev, failures, rows, mesh)
+    # -- the bench phase: the autotuner, dispatch on its cache, the smoke suites -----
+    bench_phase(torch, dev, failures, mesh)
+    shutil.rmtree(BENCH_DIR, ignore_errors=True)
     # (e) the collectives issued by each part of the mesh phase
     mesh_launches = collections.Counter()
     for label, rec in mesh_report.items():

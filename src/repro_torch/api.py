@@ -38,11 +38,10 @@ package reads the other's, the speculative ``verify_params/`` tier
 included), with a SHA-256 checksum per leaf; a corrupted or incomplete
 artifact raises :class:`ArtifactError`. Entry points run on the card
 unless the caller passes ``device="cpu"``; with no card and no explicit
-CPU request they raise.
-
-Not ported yet: ``block_sizes="auto"`` (no autotune cache; it comes with
-the port of ``bench/``, ROADMAP.md queue 1 item 2) raises
-``NotImplementedError``.
+CPU request they raise. ``QuantScheme(block_sizes="auto")`` runs the CNN's
+packed convs and fc layers on the autotune cache's measured winners
+(:mod:`repro_torch.bench.autotune`; the default dispatch on a miss) and
+records the cache entries it matched in ``report.tuned_blocks``.
 """
 from __future__ import annotations
 
@@ -58,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.api_schemes import CnnAdapter, LmAdapter, QuantScheme, as_adapter
+from repro_torch.bench import autotune
 from repro_torch.calib.policy import CalibrationTable
 from repro_torch.checkpoint.manager import (
     CheckpointManager,
@@ -108,8 +108,9 @@ class ConversionReport:
     paper's Table II accounting with codes bit-packed at
     ``bits_per_weight``; ``energy_nj`` is the Table II network energy.
     ``baseline_accuracy`` / ``accuracy`` are the Sec. V search's readings
-    (with an ``eval_fn``). ``tuned_blocks`` is the JAX package's autotune
-    record, always empty here (no autotune cache yet).
+    (with an ``eval_fn``). ``tuned_blocks`` records the autotune-cache
+    entries that matched this artifact's weight shapes when
+    ``block_sizes="auto"`` (:func:`_tuned_blocks_for`).
     """
 
     fmt: str
@@ -181,6 +182,32 @@ def _tree_to_device(tree, device: torch.device):
                     else _to_device(v, device), tree)
 
 
+def _tuned_blocks_for(packed: dict, backend: str) -> tuple:
+    """Autotune-cache entries that apply to this tree's ``(K, N, fmt, layout)``
+    shapes on ``backend``: ``((key, blocks), ...)``, sorted.
+
+    The reference's parse, kept as it is: a key splits into four fields
+    (``backend|fmt|mode|MxKxN``, the schema-1 layout), so on a schema-2 cache,
+    whose keys have five, it returns ``()``; both packages record the same.
+    """
+    shapes = {(leaf.shape, leaf.fmt_name, leaf.nibble) for leaf in tree_leaves(packed)
+              if isinstance(leaf, PackedWeight)}
+    out = []
+    for key, ent in autotune.cache_entries().items():
+        try:
+            bk, fmt_name, mode, mkn = key.split("|")
+            _m, kdim, ndim = (int(v) for v in mkn.split("x"))
+        except ValueError:
+            continue
+        if bk != backend:
+            continue
+        for kn, fn, nib in shapes:
+            if fn == fmt_name and mode == ("nib" if nib else "u8") and kn == (kdim, ndim):
+                out.append((key, tuple(ent["blocks"])))
+                break
+    return tuple(sorted(out))
+
+
 def quantize(
     model,
     params: dict,
@@ -215,10 +242,6 @@ def quantize(
     """
     adapter = as_adapter(model)
     scheme = scheme if scheme is not None else QuantScheme()
-    if scheme.block_sizes == "auto":
-        raise NotImplementedError(
-            'block_sizes="auto" (the autotune cache) is not ported to repro_torch yet: it comes '
-            "with the port of bench/; see ROADMAP.md (queue 1 item 2)")
     device = resolve_device(device)
     params = _tree_to_device(params, device)
     raw_bytes = packed_tree_bytes(params)
@@ -288,6 +311,8 @@ def quantize(
         energy_nj=network_energy_nj(
             adapter.spec.macs(), encoded_bytes, scheme.format.name, act_bits or 8
         )["total_nj"] if adapter.kind == "cnn" else None,
+        tuned_blocks=(_tuned_blocks_for(packed, device.type)
+                      if scheme.block_sizes == "auto" else ()),
     )
     return QuantizedModel(packed, adapter, scheme, table=table, report=report,
                           verify_params=verify_params)

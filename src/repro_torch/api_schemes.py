@@ -38,8 +38,9 @@ class QuantScheme:
 
     ``fmt`` is a preset name, an alias or an :class:`ElpBsdFormat`;
     ``act`` is ``"float"``, ``"dynamic"`` or ``"static"`` (calibrated
-    scales, needs ``calib_data``); ``block_sizes`` is None or a
-    ``(block_m, block_n, block_k)`` tuple. ``spec_verify``/``spec_k``/
+    scales, needs ``calib_data``); ``block_sizes`` is None, a
+    ``(block_m, block_n, block_k)`` tuple, or ``"auto"`` (the autotune
+    cache's blocks and kernels, :mod:`repro_torch.bench.autotune`). ``spec_verify``/``spec_k``/
     ``spec_draft`` make the scheme speculative
     (:meth:`speculative`): ``quantize`` then also builds the verify tier.
     """

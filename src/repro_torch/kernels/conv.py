@@ -67,14 +67,16 @@ def quantized_conv2d(
     stride: int = 1,
     padding: str = "SAME",
     impl: str = "auto",
-    block_sizes: tuple[int, int, int] | None = None,
+    block_sizes: tuple[int, int, int] | str | None = None,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """``conv2d(x[B, H, W, Cin], pw)`` -> ``[B, Ho, Wo, Cout]`` on packed codes.
 
     ``pw`` must come from :func:`~repro_torch.kernels.ops.pack_conv_weight`.
-    The im2col matmul goes through :func:`quantized_matmul` with ``impl``
-    (``"auto"``: the decode-step kernel for ``B*Ho*Wo <= 256``, else tiled).
+    The im2col matmul goes through :func:`quantized_matmul` with ``impl`` and
+    ``block_sizes``, which resolve ``"auto"`` at the im2col shape
+    ``M = B*Ho*Wo``: the autotune cache's winner there, else the decode-step
+    kernel for ``M <= 256`` and the tiled one above.
     """
     if pw.source_shape is None or len(pw.source_shape) != 4:
         raise ValueError("quantized_conv2d needs a pack_conv_weight-packed weight")

@@ -12,8 +12,10 @@ nibble pad row fed zero activations, a per-channel ``sf`` applied after
 the kernel, and ``ValueError`` on a bad block tuple or an odd nibble
 ``block_k``. Where the JAX wrapper pads M, K and N to the tiles, the CUDA
 kernels mask those edges instead, so nothing is copied to pad them. Its
-``impl`` picks the kernel: ``"auto"`` takes the decode-step kernel for
-M <= 256 and the tiled kernel above, ``"tiled"`` and ``"fused"`` force one.
+``impl`` picks the kernel: ``"auto"`` takes the autotune cache's measured
+winner at the call's ``(M, K, N, fmt, layout)`` (:func:`resolve_impl`,
+:mod:`repro_torch.bench.autotune`) and, on a miss, the decode-step kernel
+for M <= 256 and the tiled kernel above; ``"tiled"`` and ``"fused"`` force one.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch.bench import autotune
 from repro_torch.core.convert import convert_tensor, nibble_pack
 from repro_torch.core.elp_bsd import ElpBsdFormat, resolve_format
 from repro_torch.core.quantize import fake_quant_uniform
@@ -217,6 +220,19 @@ def dequantize_tree(tree: dict) -> dict:
     return tree_map(lambda v: dequantize_nd(v) if isinstance(v, PackedWeight) else v, tree)
 
 
+def resolve_impl(m: int, pw: PackedWeight, backend: str) -> tuple[str, str]:
+    """The kernel ``impl="auto"`` takes for ``x[m, K] @ pw`` on ``backend``, and how it
+    was chosen: the autotune cache's measured winner (``"autotuned"``), else the
+    decode-step kernel for ``m <= MAX_FUSED_M`` and the tiled one above
+    (``"heuristic"``)."""
+    k, n = pw.shape
+    sel, _ = autotune.lookup_impl(m, k, n, fmt_name=pw.fmt_name, nibble=pw.nibble,
+                                  backend=backend)
+    if sel is not None:
+        return sel, "autotuned"
+    return ("fused" if m <= MAX_FUSED_M else "tiled"), "heuristic"
+
+
 def quantized_matmul(
     x: torch.Tensor,
     pw: PackedWeight,
@@ -225,15 +241,17 @@ def quantized_matmul(
     block_m: int = 128,
     block_n: int = 128,
     block_k: int = 128,
-    block_sizes: tuple[int, int, int] | None = None,
+    block_sizes: tuple[int, int, int] | str | None = None,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """``x[..., K] @ dequant(pw)[K, N]`` on the codes, through one of the two kernels.
 
     ``block_sizes`` overrides the ``block_*`` arguments with a
-    ``(block_m, block_n, block_k)`` tuple. They are the JAX package's
-    tiling arguments, checked as there; the CUDA kernels pick their own
-    tiles and mask the ragged edges.
+    ``(block_m, block_n, block_k)`` tuple, or ``"auto"`` for the autotune
+    cache's blocks of this shape and kernel (:data:`DEFAULT_BLOCKS
+    <repro_torch.bench.autotune.DEFAULT_BLOCKS>` on a miss). They are the JAX
+    package's tiling arguments, checked as there; the CUDA kernels pick their
+    own tiles and mask the ragged edges.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; pick from {IMPLS}")
@@ -246,12 +264,18 @@ def quantized_matmul(
     x2 = x.reshape(-1, x.shape[-1])
     m0 = x2.shape[0]
     out_dtype = out_dtype or x.dtype
+    backend = autotune.backend_of(x)
+    if impl == "auto":
+        impl, _ = resolve_impl(m0, pw, backend)
+    if block_sizes == "auto":
+        block_sizes = autotune.lookup_blocks(m0, k, n, fmt_name=pw.fmt_name, nibble=pw.nibble,
+                                             backend=backend, impl=impl)
     if block_sizes is not None:
         if isinstance(block_sizes, tuple) and len(block_sizes) == 3:
             block_m, block_n, block_k = block_sizes
         else:
             raise ValueError(
-                f"block_sizes must be a (block_m, block_n, block_k) tuple or None; "
+                f'block_sizes must be a (block_m, block_n, block_k) tuple, "auto", or None; '
                 f"got {block_sizes!r}"
             )
     if min(block_m, block_n, block_k) <= 0:
@@ -266,8 +290,6 @@ def quantized_matmul(
             "quantized_matmul takes a single [K, N] weight; slice a stacked leaf with "
             "PackedWeight.layer(i)"
         )
-    if impl == "auto":
-        impl = "fused" if m0 <= MAX_FUSED_M else "tiled"
     # No padding: the kernels mask ragged M, N and K, so K rows past the
     # logical K (the nibble pad row, whose code decodes to a nonzero
     # value) meet zero activations there.

@@ -154,7 +154,7 @@ def forward(
     calib=None,
     tap=None,
     impl: str = "auto",
-    block_sizes: tuple[int, int, int] | None = None,
+    block_sizes: tuple[int, int, int] | str | None = None,
 ) -> torch.Tensor:
     """``x[B, H, W, C]`` images -> logits ``[B, n_classes]``.
 

@@ -25,9 +25,9 @@ A paged cache feeds this through its LOGICAL view (the transformer
 gathers, and for int8 codes dequantizes, ``[B, Pmax * page, KV, hd]``
 first), so the sequence slicing never sees page boundaries. Plain torch
 ops in float32, as the reference leaves this to XLA (it has no Pallas
-kernel). ``block_s=None`` is the one-shot slice, which is what the
-reference runs when its autotune cache has no entry; the autotuned block
-waits for the port of ``bench/`` (ROADMAP.md, queue 1 item 2).
+kernel). ``block_s=None`` takes the autotune cache's chunk for the shape
+(:func:`repro_torch.bench.autotune.lookup_flash_block_s`), and the one-shot
+slice on a miss, as the reference does; ``block_s=0`` is the one-shot slice.
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ import math
 
 import torch
 
+from repro_torch.bench import autotune
 from repro_torch.device import full_f32
 from repro_torch.runtime import collectives
 
@@ -73,7 +74,7 @@ def _local_stats(q, k, v, ks, vs, pos, *, start: int, window: int, n_rep: int,
     positions ``start ..``. ``pos`` is a scalar or a ``[B]`` vector; query ``i`` of
     row ``b`` sits at ``pos[b] + i`` (a speculative verify run when ``sq > 1``).
     ``block_s`` streams the slice through the same running-max rescale in
-    chunks; ``None`` (or a block that does not tile the slice) is one shot."""
+    chunks; ``None`` or 0 (or a block that does not tile the slice) is one shot."""
     b, sq, h, hd = q.shape
     s_loc = k.shape[1]
     dev = q.device
@@ -84,7 +85,7 @@ def _local_stats(q, k, v, ks, vs, pos, *, start: int, window: int, n_rep: int,
     kf = torch.repeat_interleave(kf, n_rep, dim=2)  # [B, s, H, hd]
     vf = torch.repeat_interleave(vf, n_rep, dim=2)
     qf = q.to(F32) * (1.0 / math.sqrt(hd))
-    if block_s is None or block_s >= s_loc or s_loc % block_s:
+    if not block_s or block_s >= s_loc or s_loc % block_s:
         kpos = start + torch.arange(s_loc, device=dev)
         return _chunk_stats(qf, kf, vf, kpos, qpos, window=window)
     m = torch.full((b, h, sq), -math.inf, dtype=F32, device=dev)
@@ -110,9 +111,15 @@ def flash_decode_attention(q, ck, cv, pos, *, pctx, window: int = 0, ks=None, vs
 
     ``ks``/``vs`` are per-(token, head) scales of an int8 cache, dequantized
     on the rank. ``pos`` is a scalar or this rank's ``[B]`` rows' positions.
+    ``block_s=None`` looks the chunk up at (this rank's rows, ``H``, ``hd``, the
+    whole sequence ``s_loc * model_size``).
     """
     h, kv = q.shape[2], ck.shape[2]
     s_loc = ck.shape[1]
+    if block_s is None:
+        block_s = autotune.lookup_flash_block_s(q.shape[0], h, q.shape[3],
+                                                s_loc * pctx.model_size,
+                                                backend=autotune.backend_of(q))
     m, l, acc = _local_stats(q, ck, cv, ks, vs, pos, start=pctx.model_rank * s_loc,
                              window=window, n_rep=h // kv, block_s=block_s)
     group = pctx.model_group

@@ -1105,24 +1105,34 @@ class ServeEngine:
         return st
 
     def kernel_dispatch(self) -> dict:
-        """Which kernel route each packed decode-step GEMM takes.
+        """Which kernel route each packed decode-step GEMM takes, and how it was chosen.
 
         Walks the packed leaves and resolves every distinct ``[K, N]`` GEMM
         (this rank's block of it) at ``M`` = this rank's slot rows the way
-        ``models.layers.matmul`` does: the
-        decode-step kernel at M <= 256 rows, the tiled one above, and the
-        route :func:`repro_torch.kernels.elp_bsd_matmul.route` picks for the
-        model's activation dtype on the card (``"plain"`` on the CPU). Keyed
-        ``MxKxN|fmt|layout``, each value the kernel, its route, how it was
-        chosen (``"structural"``) and how many weights share the shape. An
-        MoE expert stack is dequantized whole and multiplied by ``bmm``
-        (``"moe_dense/dequantize"``), on no kernel.
+        ``models.layers.matmul`` does (:func:`repro_torch.kernels.ops.resolve_impl`):
+        the autotune cache's measured winner, else the decode-step kernel at
+        M <= 256 rows and the tiled one above, on the route
+        :func:`repro_torch.kernels.elp_bsd_matmul.route` picks for the model's
+        activation dtype on the card (``"plain"`` on the CPU). Keyed
+        ``MxKxN|fmt|layout``, each value the kernel and route, how it was
+        chosen and how many weights share the shape. An MoE expert stack is
+        dequantized whole and multiplied by ``bmm`` (``"moe_dense/dequantize"``),
+        on no kernel.
+
+        ``source`` is the reference's report, rule for rule
+        (``src/repro/serve/engine.py``): ``"structural"`` for a stacked leaf
+        or a mesh of more than one rank, else ``"autotuned"`` on a cache hit
+        and ``"heuristic"`` on a miss. The reference's scan slices a stacked
+        leaf per layer and consults the cache there, as the port's per-layer
+        call does, so ``impl`` follows the cache where ``source`` still reads
+        ``"structural"`` (ROADMAP.md, reference-side caveats).
         """
         from repro_torch.kernels.elp_bsd_matmul import route
-        from repro_torch.kernels.ops import MAX_FUSED_M, PackedWeight, tree_leaves
+        from repro_torch.kernels.ops import PackedWeight, resolve_impl, tree_leaves
 
         m = self._hi - self._lo
         probe = torch.empty(0, dtype=self.cfg.dtype)
+        multi = self.mesh is not None and self.mesh.size() > 1
         out: dict[str, dict] = {}
         for leaf in tree_leaves(self.params):
             if not isinstance(leaf, PackedWeight):
@@ -1133,12 +1143,15 @@ class ServeEngine:
                 out[key]["count"] += 1
                 continue
             if leaf.codes.ndim == 4:
-                impl = "moe_dense/dequantize"
+                impl, source = "moe_dense/dequantize", "structural"
             else:
-                kernel = "fused_decode_matmul" if m <= MAX_FUSED_M else "elp_bsd_matmul"
+                kind, source = resolve_impl(m, leaf, self.device.type)
+                kernel = "fused_decode_matmul" if kind == "fused" else "elp_bsd_matmul"
                 rt = route(probe, leaf.fmt) if self.device.type == "cuda" else "plain"
                 impl = f"{kernel}/{rt}"
-            out[key] = {"impl": impl, "source": "structural", "count": 1}
+                if leaf.codes.ndim != 2 or multi:
+                    source = "structural"
+            out[key] = {"impl": impl, "source": source, "count": 1}
         return out
 
     def decode_cost(self) -> dict:

@@ -69,8 +69,10 @@ def test_not_ported_features_raise_not_implemented(mini):
     with pytest.raises(ValueError, match="LM serving"):
         api.quantize(cnn.ALEXNET_MINI, params, api.QuantScheme(spec_verify="float", spec_k=4),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        api.quantize(cnn.ALEXNET_MINI, params, api.QuantScheme(block_sizes="auto"), device="cpu")
+    # block_sizes="auto" is ported (the autotune cache): it no longer raises
+    auto = api.quantize(cnn.ALEXNET_MINI, params, api.QuantScheme(block_sizes="auto"),
+                        device="cpu")
+    assert auto.report.tuned_blocks == ()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         api.quantize(object(), params, device="cpu")
     qm = api.quantize(cnn.ALEXNET_MINI, params, device="cpu")
@@ -123,3 +125,44 @@ def test_observers_and_policy_match_the_jax_package():
     with pytest.raises(KeyError, match="no calibration"):
         tt.site("fc9")
     assert tt.lookup("fc9") is None and tt.lookup("conv0") is tt.site("conv0")
+
+
+def test_block_sizes_auto_follows_the_autotune_cache(mini, tmp_path, monkeypatch):
+    """``QuantScheme(block_sizes="auto")``: on a cache miss the default dispatch (the
+    decode-step kernel up to 256 rows, M = B*Ho*Wo for a conv, the tiled one
+    above), on a hit the cache's winner."""
+    from repro_torch.bench import autotune
+    from repro_torch.kernels import ops
+
+    params, imgs = mini
+    monkeypatch.setenv(autotune.CACHE_ENV, str(tmp_path / "autotune_cache.json"))
+    autotune.invalidate_memory_cache()
+    calls = []
+    for name in ("elp_bsd_matmul", "fused_decode_matmul"):
+        real = getattr(ops, name)
+
+        def spy(x, codes, *a, _real=real, _name=name, **kw):
+            calls.append((_name, x.shape[0], x.shape[1], codes.shape[1]))
+            return _real(x, codes, *a, **kw)
+
+        monkeypatch.setattr(ops, name, spy)
+    qm = api.quantize(cnn.ALEXNET_MINI, params, api.QuantScheme(block_sizes="auto"),
+                      device="cpu")
+    x = torch.from_numpy(imgs[0])
+    default = qm.forward(x)
+    miss = list(calls)
+    assert len(miss) == 5 and miss[0][1] > 256
+    assert all(c[0] == ("fused_decode_matmul" if c[1] <= 256 else "elp_bsd_matmul")
+               for c in miss)
+    # the last conv's winner in the cache: the tiled kernel
+    i, (_, m, k, n) = 2, miss[2]
+    assert m <= 256
+    autotune.write_entries({autotune.cache_key(m, k, n, "elp_bsd_a4", True, "cpu", impl):
+                            {"blocks": [128, 128, 128], "wall_us": wall}
+                            for impl, wall in (("tiled", 1.0), ("fused", 2.0))})
+    calls.clear()
+    tuned = qm.forward(x)
+    assert [c[0] for c in calls] == [c[0] if j != i else "elp_bsd_matmul"
+                                     for j, c in enumerate(miss)]
+    np.testing.assert_allclose(tuned.numpy(), default.numpy(), rtol=1e-5, atol=1e-5)
+    autotune.invalidate_memory_cache()
