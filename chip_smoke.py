@@ -3,12 +3,14 @@
 
 Builds the six CUDA kernel sources from ``src/repro_torch/csrc`` (one
 ``nvcc`` each, in parallel) and drives the port's two main paths. The two
-packed matmuls have three routes each, flash attention two, picked by the
+packed matmuls have five routes each, flash attention two, picked by the
 wrapper's ``route``: ``<kernel>/wgmma`` (bf16 on the tensor cores; the LM's
 bf16 activations), ``<matmul>/bf16x3`` (float32 activations split exactly
-into three bf16 terms on the tensor cores; AlexNet) and ``<kernel>/f32``
-(float32 on CUDA cores; on no main path now, launched directly here so it
-stays held and timed).
+into three bf16 terms on the tensor cores; AlexNet), ``<matmul>/wgmma_digits``
+and ``<matmul>/bf16x3_digits`` (the same for a format that is not
+bf16-exact, one digit plane at a time) and ``<kernel>/f32`` (float32 on CUDA
+cores; the matmuls' on no main path now, launched directly here so they
+stay held and timed).
 
 * the packed CNN path: each matmul's bf16x3 route held against its plain
   PyTorch version at full-width AlexNet shapes (batch 64), and the float32
@@ -20,6 +22,21 @@ stays held and timed).
   seeded images, checking 5 tiled + 3 decode-step launches, all on the
   bf16x3 routes, and the logits against the same packed model run on the
   CPU;
+* the digit-plane slice (phase 4c), two formats that are not bf16-exact and
+  that no preset has (``wide_b7``: Table II B's shape with a second digit
+  reaching 2^9; ``wide3_d7``: three digits), registered by name for the
+  phase: every GEMM shape of the digit paths (AlexNet's at batch 64 on the
+  bf16x3_digits routes, qwen3-8b's at M = 2048 and 16 on the wgmma_digits
+  routes; one of each kind at wide3_d7) against its plain version with
+  controls (the last digit plane dropped, one bf16 term of x), timed beside
+  the plain version, one library call and the float32 CUDA-core kernel on
+  the same inputs; then the paths: (a) full-width AlexNet packed with
+  wide_b7 by ``api_schemes.pack_cnn_params`` (Algorithm 1) and
+  ``cnn.forward`` on 64 seeded images (5 tiled + 3 decode-step launches on
+  bf16x3_digits, logits against the CPU), (b) full-width qwen3-8b at 4 of
+  36 layers, bf16, ``pack_lm_params(..., wide_b7)`` and ``static_generate``
+  at the lockstep geometry (28 tiled launches a prefill, 28 decode-step a
+  step, on wgmma_digits), teacher-forced against the plain versions;
 * the packed LM serving path at full-width qwen3-8b: the flash-attention
   kernels held against their plain version (f32 route on float32 inputs,
   wgmma route on bf16, causal and not, at the prefill shape
@@ -113,7 +130,7 @@ stays held and timed).
 * the mesh layer on one card (the mesh phase): ``elastic.make_mesh()`` starts
   a one-rank NCCL group and lays the (1, 1) ("data", "model") mesh over it
   before the LM path; (a) inside the LM path, qwen3-8b on the engine with the
-  mesh and ``flash_decode=True`` (dense and paged int8, the first 8 engine
+  mesh and ``flash_decode=True`` (dense and paged int8, the first 4 engine
   requests) beside the meshless engine: launches exact per call and equal,
   the meshed tokens under the teacher-forced gate, ``flash_decode_attention``
   against ``attention_dot`` in float32 on the run's own first decode-step
@@ -141,7 +158,7 @@ stays held and timed).
   and collectives exact, the dropped share), then with the routing forced
   to the meshless plain run's: the MoE gates; every new sharded kernel
   shape of (a) and (b) held against its plain version on the run's own
-  inputs; (c) lm-100m 20 steps with and without ``seq_parallel``, the
+  inputs; (c) lm-100m 4 steps with and without ``seq_parallel``, the
   losses within 1e-5 relative of the meshless run's, no kernel launched, a
   checkpoint of the mesh run resumed on the mesh and without one; (d) the
   qwen3-8b continuous-batching engine over the ranks (``_tp_engine``) on the
@@ -149,7 +166,7 @@ stays held and timed).
   on both ranks and in the gate, prefix hits the meshless engine's, every
   kernel shape of its runs held against its plain version; (e) mamba2-780m,
   recurrentgemma-2b and seamless-m4t-large-v2 at full width and depth from
-  their family phases' artifacts through ``static_generate`` (the first 8 of
+  their family phases' artifacts through ``static_generate`` (the first 4 of
   the family phase's new tokens; launches and
   collectives exact, tokens equal on both ranks, the model teacher-forced on
   the meshless tokens within the family's gate, every kernel shape held),
@@ -193,15 +210,18 @@ with each kernel route's numbers: ``launches`` counts its launches on the
 main paths (one AlexNet forward, the Sec. V phases, one generate, the
 engine phase, the MoE and VLM phases, one generate of each recurrent and
 enc-dec model, one VGG16 forward, the paper-results phase, the mesh phase, both
-ranks of the TP phase, the cost phase's counted step and serve_quantized), and
+ranks of the TP phase, the cost phase's counted step and serve_quantized, the
+digit paths' AlexNet forward and qwen3-8b generate), and
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are the per-shape
 times of those launches, each shape weighted by its launches (a Sec. V shape
-is timed once per format, an engine shape at the inputs of its first call). The three ``/f32`` routes have no
-launch on either path: the matmuls' times are those of AlexNet's shapes
-(one forward's worth, the kernel launched directly), flash's those of the
-prefill's attention shape in float32, weighted as one generate's 36
-launches. Every time is the device's: a launch is queued behind a device
-sleep, so the host's own time to issue it is not counted.
+is timed once per format, an engine shape at the inputs of its first call).
+The two matmul ``/f32`` routes have no launch on any path: their times are
+those of AlexNet's a4 shapes (one forward's worth, the kernel launched
+directly). ``flash_attention/f32`` launches in the cost phase's float32
+serve_quantized prefills; its times are those shapes' and the prefill's
+attention shape in float32, weighted as one generate's 36 launches. Every
+time is the device's: a launch is queued behind a device sleep, so the
+host's own time to issue it is not counted.
 """
 from __future__ import annotations
 
@@ -222,8 +242,11 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W): operations by operand
 # type (float32 outside the tensor cores, bfloat16 on them) and device memory
 # bandwidth. A kernel's bound takes the rate of its arithmetic: its inputs'
-# type, or for the bf16x3 routes three bf16 passes over the product.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "bf16x3": 989e12 / 3}
+# type, or for the bf16x3 routes three bf16 passes over the product; the
+# digit routes of a D-digit format D (wgmma_digits) or 3 D (bf16x3_digits).
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "bf16x3": 989e12 / 3,
+              **{f"wgmma_digits_d{d}": 989e12 / d for d in (2, 3)},
+              **{f"bf16x3_digits_d{d}": 989e12 / (3 * d) for d in (2, 3)}}
 HBM_BYTES_PER_S = 3.35e12
 BATCH = 64
 REL_TOL = 2e-5  # kernel vs plain: float32 sums over K <= 12544 in another order
@@ -490,9 +513,11 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
               f"same inputs {old:.3f} ms ({old / new:.2f}x)")
 
 
-# The eight kernel routes, in the order of _counts().
-KERNEL_ROUTES = ("elp_bsd_matmul/wgmma", "elp_bsd_matmul/bf16x3", "elp_bsd_matmul/f32",
+# The twelve kernel routes, in the order of _counts().
+KERNEL_ROUTES = ("elp_bsd_matmul/wgmma", "elp_bsd_matmul/bf16x3", "elp_bsd_matmul/wgmma_digits",
+                 "elp_bsd_matmul/bf16x3_digits", "elp_bsd_matmul/f32",
                  "fused_decode_matmul/wgmma", "fused_decode_matmul/bf16x3",
+                 "fused_decode_matmul/wgmma_digits", "fused_decode_matmul/bf16x3_digits",
                  "fused_decode_matmul/f32", "flash_attention/wgmma", "flash_attention/f32")
 
 
@@ -1380,8 +1405,11 @@ def hold_tapped(torch, dev, label, tap, rows, failures, library_for=None) -> Non
                 library = lambda: torch.matmul(x, wq)  # noqa: E731
             tol = (0.0, REL_TOL)
             shape = f"M={m} K={kdim} N={n}"
+            r = name.split("/")[1]
+            rate = (f"{r}_d{len(fmt.digits)}" if r.endswith("_digits")
+                    else "bf16x3" if r == "bf16x3" else x.dtype)
             cost = bound(2.0 * m * kdim * n, x.numel() * x.element_size() + codes.numel() + 4
-                         + m * n * 4, "bf16x3" if name.endswith("/bf16x3") else x.dtype)
+                         + m * n * 4, rate)
         want = ref()
         got = rec["out"]
         err, w = (got.float() - want.float()).abs().max().item(), _worst(got, want, tol)
@@ -3049,12 +3077,14 @@ def lm_ptq_phase(torch, dev, failures) -> None:
 
 
 # -- the mesh phase: the mesh layer on a one-rank NCCL group -----------------
-MESH_REQUESTS = 8  # (a): the first 8 of the engine phase's requests, into 8 slots
+# (a): the first 4 of the engine phase's requests, into 8 slots: the script's
+# time limit, not the checks, sets it
+MESH_REQUESTS = 4
 MESH_MOE_NEW = 4  # (b): olmoe pays its per-call expert dequantize at every step
 MESH_MOE_TOKENS = 512  # (b): the float64 control over the first 4 prompts' tokens
 # (c): lm-100m steps and the checkpoint's step; the script's time limit, not the
 # checks, sets them
-MESH_TRAIN_STEPS, MESH_TRAIN_CKPT = 6, 3
+MESH_TRAIN_STEPS, MESH_TRAIN_CKPT = 4, 2
 FLASH_DECODE_REL_TOL = 1e-5
 MESH_COLLECTIVE_N = 1 << 24
 
@@ -3544,11 +3574,10 @@ TP_TIMEOUT_S = 900
 TP_M2_TRAIN_LAYERS, TP_M2_TRAIN_STEPS = 4, 2  # (e): mamba2-780m training, full width
 # (e): each family model's first TP_FAMILY_NEW new tokens of its family phase's
 # LM_NEW: the script's time limit, not the checks, sets it
-TP_FAMILY_NEW = 8
+TP_FAMILY_NEW = 4
 # (d): the first MESH_REQUESTS engine requests, each cut to its first TP_ENGINE_NEW new
-# tokens (the engine phase's profiled run's cut): the script's time limit, not the
-# checks, sets it
-TP_ENGINE_NEW = PROFILED_NEW
+# tokens: the script's time limit, not the checks, sets it
+TP_ENGINE_NEW = 4
 
 
 def tp_save(torch, qm, name, **refs) -> None:
@@ -4569,6 +4598,341 @@ def _bench_row(label, m, kdim, n, res) -> None:
           + f", library {ms['library']:.4f} ms; winner {res['impl']}")
 
 
+# The digit-plane slice: two user-defined formats whose decoded values are not
+# all exact in bf16, so the tensor cores take them as digit planes (the
+# wgmma_digits and bf16x3_digits routes). No preset has them; they live here
+# and in the tests. wide_b7: Table II B's shape with a second digit reaching
+# 2^9 (7 bits, 107 levels in +-640); wide3_d7: three digits in 7 bits.
+WIDE_FORMATS = {"wide_b7": ((0, 1, 2, 3, 4, 5, 6, 7), (0, 3, 6, 9)),
+                "wide3_d7": ((0, 1, 2, 3), (0, 9), (4, 13))}
+DIGIT_LM_LAYERS = 4  # qwen3-8b at full width, 4 of 36 layers (as internvl2's phase)
+DIGIT_ALEXNET = ("alexnet", BATCH, "wide_b7")  # the key of (a)'s kernel rows
+
+
+def wide_format(name: str):
+    from repro_torch.core.elp_bsd import DigitSpec, ElpBsdFormat
+
+    return ElpBsdFormat(tuple(DigitSpec(shifts=s) for s in WIDE_FORMATS[name]), name=name)
+
+
+def _registered(fmts):
+    """A context in which ``fmts`` are known by name: a PackedWeight names its
+    format, and the packing walks and ``PackedWeight.fmt`` look it up among the
+    presets (as the JAX package's do), so a user's format is registered for
+    the block and removed after it."""
+    import contextlib
+
+    from repro_torch.core.elp_bsd import PRESET_FORMATS
+
+    @contextlib.contextmanager
+    def ctx():
+        for f in fmts:
+            PRESET_FORMATS[f.name] = f
+        try:
+            yield
+        finally:
+            for f in fmts:
+                PRESET_FORMATS.pop(f.name, None)
+    return ctx()
+
+
+def _drop_last_plane(x, codes, sf, fmt, *, nibble=False, out_dtype=None):
+    """A control: the plain product without the format's last digit plane."""
+    from repro_torch.kernels.ref import digit_planes
+
+    w = digit_planes(codes, fmt, nibble)[:-1].float().sum(0)[: x.shape[1]]
+    return (x.float() @ w * sf.reshape(())).to(out_dtype or x.dtype)
+
+
+def digit_kernel_phase(torch, dev, rows, failures) -> None:
+    """The digit routes at every GEMM shape of the digit paths, wide_b7 codes:
+    AlexNet's five im2col convs (tiled, bf16x3_digits) and three fc layers
+    (decode-step, bf16x3_digits) at batch 64, and qwen3-8b's four block-matmul
+    shapes at M = 2048 (tiled, wgmma_digits) and M = 16 (decode-step,
+    wgmma_digits); one of each kind also at wide3_d7 (three digits, on no
+    path). Each against its plain version at REL_TOL, with controls (the
+    product without the last digit plane; bf16x3_digits: one bf16 term of x),
+    timed beside the plain version, one library call (cuDNN f32 conv or a
+    float32 ``torch.matmul`` on the dequantized weight) and the float32
+    CUDA-core kernel launched directly on the same inputs (the like-for-like
+    before), bound at the route's rate (D bf16 passes, 3 D for bf16x3_digits)
+    and at the float32 rate."""
+    import torch.nn.functional as F
+
+    from repro_torch.device import full_f32
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.conv import extract_patches, pad_nhwc
+    from repro_torch.kernels.elp_bsd_matmul import (
+        elp_bsd_matmul,
+        elp_bsd_matmul_plain,
+        launch_checked,
+        route,
+    )
+    from repro_torch.kernels.fused_decode import fused_decode_matmul, fused_decode_matmul_plain
+    from repro_torch.kernels.ref import elp_bsd_matmul_digits
+    from repro_torch.runtime.quantized_params import quantize_stacked
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(28)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    kernels = {"elp_bsd_matmul": (elp_bsd_matmul, elp_bsd_matmul_plain, "elp_bsd_matmul"),
+               "fused_decode_matmul": (fused_decode_matmul, fused_decode_matmul_plain,
+                                       "fused_decode")}
+    wide, wide3 = wide_format("wide_b7"), wide_format("wide3_d7")
+    lm_layers, steps = DIGIT_LM_LAYERS, LM_NEW - 1
+
+    def case(name, lhs, pw, label, library, weight):
+        wrapper, route_name = name.split("/")
+        kernel, plain, f32_source = kernels[wrapper]
+        m, kdim, n = lhs.shape[0], lhs.shape[1], pw.shape[1]
+        shape = f"{label} {pw.fmt.name} M={m} K={kdim} N={n}"
+        if route(lhs, pw.fmt) != route_name:
+            failures.append(f"{name} {shape}: routed to {route(lhs, pw.fmt)}")
+        args = (lhs, pw.codes, pw.sf, pw.fmt)
+        kw = {"nibble": pw.nibble, "out_dtype": torch.float32}
+        run = lambda: kernel(*args, **kw)  # noqa: E731
+        ref = lambda: plain(*args, **kw)  # noqa: E731
+        f32 = lambda: launch_checked(f32_source, lhs, pw.codes, pw.sf, pw.fmt,  # noqa: E731
+                                     pw.nibble)
+        before = dict(kernel.launches_by_route)
+        want = ref()
+        limit = REL_TOL * want.abs().max().item()
+        got = run()
+        if kernel.launches_by_route != {**before, route_name: before[route_name] + 1}:
+            failures.append(f"{name} {shape}: launches by route {kernel.launches_by_route}")
+        row = {"shape": shape, "weight": weight, "digits": True}
+        line = []
+        for label_, out in ((name, got), (f"{wrapper}/f32 (launched directly)", f32())):
+            err = (out - want).abs().max().item()
+            ok = bool(torch.isfinite(out).all()) and err <= limit
+            line.append(f"{label_} max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{label_} {shape}: max_abs_err {err:.3e} over {limit:.3e}")
+            row.setdefault("max_abs_err", err)
+        # Controls: the limit must see a missing digit plane and, on float32 x,
+        # a product of one bf16 term of x.
+        ctl = {"without its last digit plane": _drop_last_plane(*args, **kw)}
+        if route_name == "bf16x3_digits":
+            ctl["one bf16 term of x"] = elp_bsd_matmul_digits(*args, nibble=pw.nibble, terms=1)
+        for c_label, out in ctl.items():
+            ratio = (out - want).abs().max().item() / limit
+            line.append(f"control {c_label} {ratio:.1f} of the limit")
+            if ratio <= 1.0:
+                failures.append(f"the limit does not see a product {c_label}: {name} {shape}")
+        del want, got, ctl
+        print(f"[digits] {shape}: {'; '.join(line)} (limit {limit:.3e} = {REL_TOL:g} * "
+              "max|plain|)")
+        with full_f32():
+            row["library_ms"] = timed_ms(library, torch, flush)
+        row["ms"] = timed_ms(run, torch, flush)
+        row["plain_ms"] = timed_ms(ref, torch, flush)
+        row["f32_route_ms"] = timed_ms(f32, torch, flush)
+        flops = 2.0 * m * kdim * n
+        nbytes = lhs.numel() * lhs.element_size() + pw.codes.numel() + 4 + m * n * 4
+        row.update(bound(flops, nbytes, f"{route_name}_d{len(pw.fmt.digits)}"))
+        row["f32_bound_ms"] = bound(flops, nbytes, "float32")["bound_ms"]
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows[name].append(row)
+        print(f"[digits] {name} {shape}: kernel {row['ms']:.4f} ms ({row['tflops']:.1f} TFLOP/s, "
+              f"{row['bound_ms'] / row['ms']:.3f} of its bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), {row['f32_bound_ms'] / row['ms']:.3f} of the float32 bound "
+              f"{row['f32_bound_ms']:.4f} ms); f32 CUDA-core kernel {row['f32_route_ms']:.4f} ms "
+              f"({row['f32_route_ms'] / row['ms']:.2f}x), plain {row['plain_ms']:.4f} ms, library "
+              f"{row['library_ms']:.4f} ms; {weight} launches on the digit paths")
+
+    with _registered((wide, wide3)):
+        # (a): AlexNet's five convs at batch 64 (as the kernel phase's, float32
+        # im2col x; library cuDNN) and three fc layers at M = 64.
+        convs = [(224, 3, 11, 4, 96), (28, 96, 5, 1, 256), (14, 256, 3, 1, 384),
+                 (14, 384, 3, 1, 384), (14, 384, 3, 1, 256)]
+        for i, (hw, cin, k, stride, cout) in enumerate(convs):
+            img = torch.randn(BATCH, hw, hw, cin, device=dev, generator=gen)
+            w = torch.randn(k, k, cin, cout, device=dev, generator=gen) * (1.0 / k / math.sqrt(k))
+            patches = extract_patches(img, k, k, stride=stride).reshape(-1, k * k * cin)
+            xi = pad_nhwc(img, k, k, stride, "SAME").permute(0, 3, 1, 2).contiguous()
+            for f in (wide, wide3) if i == 2 else (wide,):
+                pw, _ = ops.pack_conv_weight(w, f)
+                wq = ops.dequantize_nd(pw).permute(3, 2, 0, 1).contiguous()
+                library = lambda: F.conv2d(xi, wq, stride=stride).permute(0, 2, 3, 1)  # noqa: E731
+                case("elp_bsd_matmul/bf16x3_digits", patches, pw, f"alexnet conv{i}", library,
+                     1 if f is wide else 0)
+            del img, patches, xi, wq
+        for i, (kdim, n) in enumerate([(12544, 4096), (4096, 4096), (4096, 1000)]):
+            xa = torch.relu(torch.randn(BATCH, kdim, device=dev, generator=gen))
+            w = torch.randn(kdim, n, device=dev, generator=gen) / math.sqrt(kdim)
+            for f in (wide, wide3) if i == 1 else (wide,):
+                pw, _ = ops.pack_weight(w, f)
+                wq = ops.dequantize(pw)
+                library = lambda: torch.matmul(xa, wq)  # noqa: E731
+                case("fused_decode_matmul/bf16x3_digits", xa, pw, f"alexnet fc{i}", library,
+                     1 if f is wide else 0)
+        # (b): qwen3-8b's block matmuls, bf16 x, one per-slice layer view; the
+        # weights per layer of each shape (wq/wo, wk/wv, w1/w3: 2; w2: 1).
+        for label, kdim, n, per_layer in (("wq/wo", 4096, 4096, 2), ("wk/wv", 4096, 1024, 2),
+                                          ("w1/w3", 4096, 12288, 2), ("w2", 12288, 4096, 1)):
+            w = (torch.randn(1, kdim, n, device=dev, generator=gen) / math.sqrt(kdim)).to(
+                torch.bfloat16)
+            for f in (wide, wide3) if label == "wq/wo" else (wide,):
+                pw = quantize_stacked(w, f).layer(0)
+                wq = ops.dequantize(pw)
+                for name, m, weight in (
+                        ("elp_bsd_matmul/wgmma_digits", LM_BATCH * LM_PROMPT,
+                         lm_layers * per_layer),
+                        ("fused_decode_matmul/wgmma_digits", LM_BATCH,
+                         steps * lm_layers * per_layer)):
+                    x = torch.randn(m, kdim, device=dev, generator=gen).to(torch.bfloat16)
+                    library = lambda: torch.matmul(x.float(), wq)  # noqa: E731
+                    case(name, x, pw, f"qwen3-8b {label}", library, weight if f is wide else 0)
+            del w, wq
+    del flush
+    torch.cuda.empty_cache()
+    for name in ("elp_bsd_matmul/bf16x3_digits", "fused_decode_matmul/bf16x3_digits",
+                 "elp_bsd_matmul/wgmma_digits", "fused_decode_matmul/wgmma_digits"):
+        rs = [r for r in rows[name] if r.get("digits") and r["weight"]]
+        tot = {k: sum(r["weight"] * r[k] for r in rs)
+               for k in ("ms", "f32_route_ms", "plain_ms", "library_ms", "bound_ms",
+                         "f32_bound_ms")}
+        print(f"[digits] {name} over its path's launches ({sum(r['weight'] for r in rs)}): "
+              f"{tot['ms']:.4f} ms; the f32 CUDA-core kernel on the same inputs "
+              f"{tot['f32_route_ms']:.4f} ms ({tot['f32_route_ms'] / tot['ms']:.2f}x); library "
+              f"{tot['library_ms']:.4f} ms; bound {tot['bound_ms']:.4f} ms "
+              f"({tot['bound_ms'] / tot['ms']:.3f} of it), at the float32 rate "
+              f"{tot['f32_bound_ms']:.4f} ms; plain {tot['plain_ms']:.4f} ms")
+    print(f"[time] digit kernel shapes: {time.perf_counter() - t_phase:.1f} s")
+
+
+def digit_paths(torch, dev, failures) -> dict:
+    """The digit-plane path, wide_b7 at full width through the packing walks:
+    (a) AlexNet at batch 64, ``api_schemes.pack_cnn_params`` (Algorithm 1)
+    then ``cnn.forward`` on 64 seeded images: 5 tiled + 3 decode-step launches,
+    all on bf16x3_digits, logits against the same packed model on the CPU (4
+    images, float activations: FLOAT_LOGIT_REL_TOL); (b) qwen3-8b at
+    DIGIT_LM_LAYERS of its 36 layers, bf16, ``pack_lm_params`` (float
+    activations) then ``static_generate`` at the lockstep geometry: the
+    prefill's 28 tiled and each step's 28 decode-step launches on
+    wgmma_digits, exact per phase, the tokens teacher-forced against the plain
+    versions at LM_LOGIT_REL_TOL beside a float64 control and a planted fault.
+    Returns the launches of (a)'s forward and (b)'s generate."""
+    import repro_torch.models.transformer as transformer
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch.api_schemes import pack_cnn_params, pack_lm_params
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul_plain
+    from repro_torch.kernels.fused_decode import fused_decode_matmul_plain
+    from repro_torch.models import cnn
+
+    t_phase = time.perf_counter()
+    wide = wide_format("wide_b7")
+    launches = collections.Counter()
+    with _registered((wide,)):
+        # (a)
+        t0 = time.perf_counter()
+        params = cnn.init_params(cnn.ALEXNET, seed=0)
+        packed = pack_cnn_params(params, wide)
+        del params
+        img_gen = torch.Generator(device=dev).manual_seed(281)
+        batch = torch.randn(BATCH, 224, 224, 3, device=dev, generator=img_gen)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        _zero_counts()
+        logits = cnn.forward(packed, cnn.ALEXNET, batch)
+        torch.cuda.synchronize()
+        c = dict(zip(KERNEL_ROUTES, _counts()))
+        launches.update(c)
+        want = dict(zip(KERNEL_ROUTES, _expected({"elp_bsd_matmul/bf16x3_digits": 5,
+                                                  "fused_decode_matmul/bf16x3_digits": 3})))
+        if c != want:
+            failures.append(f"[digits] (a) AlexNet wide_b7 launches {c}")
+        if tuple(logits.shape) != (BATCH, 1000) or not bool(torch.isfinite(logits).all()):
+            failures.append(f"[digits] (a) logits of shape {tuple(logits.shape)} or not finite")
+        fwd = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            cnn.forward(packed, cnn.ALEXNET, batch)
+            torch.cuda.synchronize()
+            fwd.append((time.perf_counter() - t0) * 1e3)
+        cpu = cnn.forward(ops.tree_map(lambda v: v.to("cpu"), packed), cnn.ALEXNET,
+                          batch[:4].cpu())
+        diff = (logits[:4].cpu() - cpu).abs().max().item()
+        limit = FLOAT_LOGIT_REL_TOL * cpu.abs().max().item()
+        same = bool((logits[:4].cpu().argmax(-1) == cpu.argmax(-1)).all())
+        print(f"[digits] (a) ALEXNET b{BATCH}, wide_b7 (pack_cnn_params with Algorithm 1 and "
+              f"seeded images {pack_s:.2f} s): launches {c}; forward median "
+              f"{statistics.median(fwd):.2f} ms (runs {[round(t, 2) for t in fwd]}); card vs CPU "
+              f"logits, 4 images, float activations: max_abs_diff {diff:.3e} (limit "
+              f"{FLOAT_LOGIT_REL_TOL:g} * max|logit| = {limit:.3e}), argmax identical {same}")
+        if not (diff <= limit and same):
+            failures.append("[digits] (a) card logits differ from the CPU port")
+        del packed, batch, logits, cpu
+        torch.cuda.empty_cache()
+
+        # (b)
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config("qwen3_8b"), n_layers=DIGIT_LM_LAYERS)
+        params = transformer.init_params(cfg, seed=0)
+        gen = torch.Generator(device=dev).manual_seed(282)
+        prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), device=dev, generator=gen)
+        p = pack_lm_params(params, cfg, wide)
+        del params
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pack_s = time.perf_counter() - t0
+        setup = engine_mod.ServeSetup(cfg=cfg, mesh=None, max_len=LM_PROMPT + LM_NEW,
+                                      batch=LM_BATCH)
+        per = DIGIT_LM_LAYERS * 7
+        prefill_counts = _expected({"elp_bsd_matmul/wgmma_digits": per,
+                                    "flash_attention/wgmma": DIGIT_LM_LAYERS})
+        step_counts = _expected({"fused_decode_matmul/wgmma_digits": per})
+        _zero_counts()
+        t0 = time.perf_counter()
+        new, phases = _phased(torch, lambda: engine_mod.static_generate(
+            setup, p, {"tokens": prompts}, LM_NEW))
+        gen_s = time.perf_counter() - t0
+        c = dict(zip(KERNEL_ROUTES, _counts()))
+        launches.update(c)
+        if phases != [("prefill", prefill_counts)] + [("decode", step_counts)] * (LM_NEW - 1):
+            failures.append(f"[digits] (b) launch counts by phase {phases}")
+        if tuple(new.shape) != (LM_BATCH, LM_NEW) or int(new.max()) >= cfg.vocab:
+            failures.append(f"[digits] (b) generated tokens of shape {tuple(new.shape)}")
+        cache = transformer.init_cache(cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+
+        def forced(mm, flash):
+            with _swapped(mm, flash):
+                return _teacher_forced(torch, transformer, p, cfg, prompts, new, cache)
+
+        import repro_torch.kernels.ops as ops_mod
+
+        k_logits = forced((ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul),
+                          transformer.flash_attention)
+        plain_mm = (elp_bsd_matmul_plain, fused_decode_matmul_plain)
+        p_logits = forced(plain_mm, _plain_flash())
+        rel = _rel(k_logits, p_logits)
+        agree = sum(int((new[:, j] == pl[:, -1].argmax(-1)).sum())
+                    for j, pl in enumerate(p_logits))
+        print(f"[digits] (b) qwen3-8b, full width, {DIGIT_LM_LAYERS} of 36 layers, bf16, wide_b7 "
+              f"(pack_lm_params, float activations, {pack_s:.2f} s with the seeded weights): "
+              f"static_generate {LM_BATCH} x {LM_PROMPT} + {LM_NEW} in {gen_s * 1e3:.1f} ms; "
+              f"launches {c}; kernels vs plain, teacher-forced: {rel:.3e} of max |logit| (limit "
+              f"{LM_LOGIT_REL_TOL:g}); greedy = plain argmax at {agree}/{LM_BATCH * LM_NEW}")
+        if rel > LM_LOGIT_REL_TOL:
+            failures.append(f"[digits] (b) logits: kernels vs plain {rel:.3e}")
+        for kind, label, mm, flash in (
+                ("noise", "every kernel's function summed in float64, rounded once",
+                 (_f64_sum,) * 2, _flash_f64),
+                ("fault", "the decode-step matmul skips its last 128 K rows",
+                 (elp_bsd_matmul_plain, _skip_k_tail), _plain_flash())):
+            r = _rel(forced(mm, flash), p_logits)
+            print(f"[digits-control] (b) {kind}: {label}: {r:.3e} of max |logit| (limit "
+                  f"{LM_LOGIT_REL_TOL:g})")
+            if kind == "fault" and r <= LM_LOGIT_REL_TOL:
+                failures.append(f"[digits] (b) the logit gate does not see: {label}")
+        del p, cache, k_logits, p_logits
+    torch.cuda.empty_cache()
+    print(f"[time] digit paths (a) and (b): {time.perf_counter() - t_phase:.1f} s")
+    return {k: launches[k] for k in KERNEL_ROUTES}
+
+
 def main() -> int:
     # One card: the run uses device 0 and its record says so.
     os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
@@ -4879,6 +5243,10 @@ def main() -> int:
     print(f"[time] phases 1-4 (card, build, kernels, AlexNet main path): "
           f"{time.perf_counter() - t_start:.1f} s")
 
+    # -- phase 4c: the digit-plane slice: its kernel shapes, then its paths ---------
+    digit_kernel_phase(torch, dev, rows, failures)
+    digit_launches = digit_paths(torch, dev, failures)
+
     # -- phase 4b: the Sec. V slice: mini CNNs, Fig. 15(a)/(b), the search, artifacts --
     forwards = collections.Counter({ALEXNET_B64: 1})
     t0 = time.perf_counter()
@@ -4987,12 +5355,20 @@ def main() -> int:
                                  "src/repro/kernels/elp_bsd_matmul.py:69"),
         "elp_bsd_matmul/bf16x3": ("src/repro_torch/csrc/elp_bsd_matmul_wgmma.cu",
                                   "src/repro/kernels/elp_bsd_matmul.py:69"),
+        "elp_bsd_matmul/wgmma_digits": ("src/repro_torch/csrc/elp_bsd_matmul_wgmma.cu",
+                                        "src/repro/kernels/elp_bsd_matmul.py:69"),
+        "elp_bsd_matmul/bf16x3_digits": ("src/repro_torch/csrc/elp_bsd_matmul_wgmma.cu",
+                                         "src/repro/kernels/elp_bsd_matmul.py:69"),
         "fused_decode_matmul/f32": ("src/repro_torch/csrc/fused_decode.cu",
                                     "src/repro/kernels/fused_decode.py:70"),
         "fused_decode_matmul/wgmma": ("src/repro_torch/csrc/fused_decode_wgmma.cu",
                                       "src/repro/kernels/fused_decode.py:70"),
         "fused_decode_matmul/bf16x3": ("src/repro_torch/csrc/fused_decode_wgmma.cu",
                                        "src/repro/kernels/fused_decode.py:70"),
+        "fused_decode_matmul/wgmma_digits": ("src/repro_torch/csrc/fused_decode_wgmma.cu",
+                                             "src/repro/kernels/fused_decode.py:70"),
+        "fused_decode_matmul/bf16x3_digits": ("src/repro_torch/csrc/fused_decode_wgmma.cu",
+                                              "src/repro/kernels/fused_decode.py:70"),
         "flash_attention/f32": ("src/repro_torch/csrc/flash_attention.cu",
                                 "src/repro/kernels/flash_attention.py:71"),
         "flash_attention/wgmma": ("src/repro_torch/csrc/flash_attention_wgmma.cu",
@@ -5011,7 +5387,8 @@ def main() -> int:
             "launches": (cnn_launches.get(name, 0) + lm_launches[name] + sec5_launches[name]
                          + engine_launches[name] + moe_launches[name] + vlm_launches[name]
                          + family_launches[name] + vgg_launches[name] + paper_launches[name]
-                         + mesh_launches[name] + tp_launches[name] + cost_launches[name]),
+                         + mesh_launches[name] + tp_launches[name] + cost_launches[name]
+                         + digit_launches[name]),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": wsum("ms"),
             "plain_ms": wsum("plain_ms"),

@@ -34,6 +34,10 @@ in host memory and the row strides of x (elements) and codes (bytes), each
 a multiple of 16 bytes, as TMA asks. Their float32-activation route
 (bf16x3: x split exactly into three bf16 terms) has the same arguments
 with float32 x, as ``<name>_bf16x3`` beside ``<name>_bf16x3_workspace``.
+Their digit-plane routes, for formats whose values are not all exact in
+bf16, are ``<name>_bf16_digits`` and ``<name>_bf16x3_digits`` (each beside
+its ``_workspace``), with the same arguments and the digit-plane words
+(:func:`repro_torch.kernels.ref.plane_words`) in place of the table.
 The attention kernels' entry points are declared by their wrapper
 (:mod:`repro_torch.kernels.flash_attention`).
 """
@@ -60,7 +64,7 @@ NVCC_FLAGS = (
 SOURCES = ("elp_bsd_matmul", "elp_bsd_matmul_wgmma", "fused_decode", "fused_decode_wgmma",
            "flash_attention", "flash_attention_wgmma")
 # Layout of the format descriptor parsed by csrc/elp_decode.cuh.
-MAX_DIGITS = 2
+MAX_DIGITS = 4
 MAX_LUT = 8
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -115,14 +119,16 @@ def build(names: list[str]) -> dict[str, str]:
 
 # The launch entry point's arguments between the workspace and the stream,
 # by entry suffix: the format descriptor (float32 kernels), or the decode
-# table and the row strides of x and codes (the tensor-core kernels).
+# table (digit-plane words) and the row strides of x and codes (the
+# tensor-core kernels).
 _TABLE_STRIDES = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong)
-LAUNCH_EXTRA = {"f32": (ctypes.c_void_p,), "bf16": _TABLE_STRIDES, "bf16x3": _TABLE_STRIDES}
+LAUNCH_EXTRA = {"f32": (ctypes.c_void_p,), "bf16": _TABLE_STRIDES, "bf16x3": _TABLE_STRIDES,
+                "bf16_digits": _TABLE_STRIDES, "bf16x3_digits": _TABLE_STRIDES}
 
 
 def workspace_entry(name: str, kind: str) -> str:
     """The entry point giving the workspace of ``<name>_<kind>``'s launches."""
-    return f"{name}_bf16x3_workspace" if kind == "bf16x3" else f"{name}_workspace"
+    return f"{name}_workspace" if kind in ("f32", "bf16") else f"{name}_{kind}_workspace"
 
 
 def matmul_signatures(name: str, kind: str = "f32") -> dict:
@@ -221,15 +227,17 @@ def launch(name: str, x: torch.Tensor, codes: torch.Tensor, sf: torch.Tensor,
 def launch_tensor_core(name: str, kind: str, x: torch.Tensor, k: int, codes: torch.Tensor,
                        sf: torch.Tensor, out: torch.Tensor, nibble: bool,
                        table: ctypes.Array) -> None:
-    """Launch route ``kind`` (``"bf16"`` or ``"bf16x3"``) of the tensor-core kernel
-    ``csrc/<name>.cu`` on the current stream of ``x``'s device.
+    """Launch route ``kind`` (``"bf16"``, ``"bf16x3"``, ``"bf16_digits"`` or
+    ``"bf16x3_digits"``) of the tensor-core kernel ``csrc/<name>.cu`` on the
+    current stream of ``x``'s device.
 
     ``x`` is bf16 (``"bf16"``) or float32 (``"bf16x3"``, split by the kernel
     into three bf16 terms) with ``k`` logical columns, ``codes`` uint8 with
     ``out.shape[1]`` logical columns, each with unit column stride, a
     16-byte aligned base and a row stride of a multiple of 16 bytes; ``out
     [M, N]`` is contiguous float32, ``sf`` one float32 on the device and
-    ``table`` the 256 decode words. The caller has checked all of that.
+    ``table`` the 256 decode words, or for the ``"_digits"`` kinds the
+    digit-plane words. The caller has checked all of that.
     """
     _launch(name, kind, x, codes, sf, out, k, nibble,
             (ctypes.addressof(table), x.stride(0), codes.stride(0)), f"{x.dtype} x, route {kind}")

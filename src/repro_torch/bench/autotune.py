@@ -12,7 +12,9 @@ What is raced differs from the reference, because the port's CUDA kernels
 take no tile arguments: each wrapper picks its own tiles and split-K. The
 candidates are the two kernels, ``"tiled"`` (``elp_bsd_matmul``) and
 ``"fused"`` (``fused_decode_matmul``, only where ``M <= MAX_FUSED_M``), on
-the route that ``route()`` picks for x's dtype, one candidate each, its
+the route that ``route()`` picks for x's dtype and the format (``wgmma`` or
+``bf16x3``, their ``_digits`` forms for a format that is not bf16-exact,
+else ``f32``; each entry records it), one candidate each, its
 ``blocks`` recording :data:`DEFAULT_BLOCKS`. The reference's ``xla`` impl
 (dequantize, then a library matmul) is ``"library"`` here: the dequantized
 weight times ``torch.matmul``. It is timed and written to the cache, but

@@ -25,10 +25,11 @@
 // Bound on an H100 SXM: the f32 CUDA-core rate, 67 TFLOP/s. A conv GEMM of
 // AlexNet at batch 64 does 2*M*K*N operations on (M*K + M*N)*4 bytes, which
 // at these K and N is far above the card's f32 operations-per-byte line.
-// This kernel serves float32 activations, which would round on the bf16
-// tensor cores; bf16 activations take elp_bsd_matmul_wgmma.cu (wgmma),
-// where a decoded weight (at most two powers of two with shift <= 7) is
-// exact and so is every product.
+// The tensor-core kernels of elp_bsd_matmul_wgmma.cu take bf16, float16
+// and float32 x with any format of at most 3 digits whose terms are normal
+// bf16 values (a bf16-exact format by its table, any other by its digit
+// planes); this kernel serves the rest: 4 or more digits, terms outside
+// bf16's normal range, or x of another type (cast to float32).
 #include <stdint.h>
 
 #include "elp_decode.cuh"

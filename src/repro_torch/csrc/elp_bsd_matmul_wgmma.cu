@@ -73,6 +73,24 @@
 // the tiles of AlexNet's late convs fill the SMs without split-K, whose
 // partial sums cost more device memory traffic than the idle SMs of an
 // unsplit last wave.
+//
+// Digit planes (the wgmma_digits and bf16x3_digits routes): a format whose
+// decoded values are not all exact in bf16 (two digits more than 7 binary
+// places apart) but whose every digit term +-2^shift is a normal bf16, with
+// 2 or 3 digits. Each kernel's Dec = DigitPlanes instance computes
+// x . W = sum_d x . P_d, P_d the plane of digit d's terms (hopper.cuh): each
+// term is exact in bf16, so each product is exact in float32 and only the
+// order of the float32 sums differs from the reference (Sec. IV's shift-add
+// MAC). Per K stage a consumer decodes each digit's plane in turn into the
+// A fragments the table would give (arithmetically, no table: the digit's
+// exponent LUT sits in two registers, prmt), and runs TERMS wgmmas x 4 on
+// each: a unit is one (stage, digit), two fragment sets let the next unit
+// decode while this one's wgmmas run, and a stage is freed after its last
+// digit. Both instances add their wgmma accumulator into a float32 register
+// sum every 768 products, as the bf16x3 kernel does above (D planes double
+// or treble the products a split sums); for that the bf16 instance takes 128
+// x rows a block (m64n128k16), not 256. Bound: D (or 3 D) bf16 passes at the
+// tensor cores' rate.
 #include "elp_decode.cuh"
 #include "hopper.cuh"
 
@@ -86,36 +104,52 @@ constexpr int CONSUMERS = 2;  // warpgroups
 constexpr int PRODUCER_WARP = CONSUMERS * 4;  // issues every TMA load
 constexpr int THREADS = (CONSUMERS + 1) * 128;  // the last warpgroup produces
 constexpr int MAX_SPLITS = 4;
-constexpr int X_STAGE_BYTES = BM * BK * 2;  // 32 KB
 constexpr int C_STAGE_BYTES = BK * BN;      // 8 KB (u8 rows; nibble fills half)
 constexpr int TABLE_WORDS = 256 * 32;       // one copy of the table per lane
-constexpr int SMEM_BYTES =
-    STAGES * (X_STAGE_BYTES + C_STAGE_BYTES) + TABLE_WORDS * 4 + 2 * STAGES * 8 + 1024;
+// The digit-plane instances' tile: 128 x rows, so that a float32 register sum
+// fits beside the wgmma accumulator (64 + 64 floats a thread), into which the
+// consumer adds the accumulator every PROMOTE_UNITS units (64 products each:
+// 768, as the bf16x3 kernels). With D planes a split sums D K products, and
+// a whole split summed on the tensor cores drifts with K (PERF.md).
+constexpr int BM_PLANES = 128;
+constexpr int PROMOTE_UNITS = 12;
+template <class Dec>
+struct Tile {
+  static constexpr int BM_ = Dec::PLANES ? BM_PLANES : BM;
+  static constexpr int X_STAGE = BM_ * BK * 2;  // 32 KB (16 KB)
+  static constexpr int SMEM =
+      STAGES * (X_STAGE + C_STAGE_BYTES) + TABLE_WORDS * 4 + 2 * STAGES * 8 + 1024;
+};
 
-template <bool NIBBLE>
+template <bool NIBBLE, class Dec>
 __global__ void __launch_bounds__(THREADS, 1)
 elp_bsd_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                             const __grid_constant__ CUtensorMap c_map,
-                            const __grid_constant__ DecodeTable table,
+                            const __grid_constant__ Dec table,
                             const float* __restrict__ sf, float* __restrict__ out,
                             float* __restrict__ work, int M, int N, int K, int steps_per_split) {
+  constexpr int TBM = Tile<Dec>::BM_, X_STAGE = Tile<Dec>::X_STAGE;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint8_t* xs = smem;                                       // STAGES x [256][64] bf16
-  uint8_t* cs = xs + STAGES * X_STAGE_BYTES;                // STAGES x code tile
+  uint8_t* xs = smem;                                       // STAGES x [TBM][64] bf16
+  uint8_t* cs = xs + STAGES * X_STAGE;                      // STAGES x code tile
   uint32_t* tab = reinterpret_cast<uint32_t*>(cs + STAGES * C_STAGE_BYTES);  // [256][32]
   uint64_t* full = reinterpret_cast<uint64_t*>(tab + TABLE_WORDS);
   uint64_t* empty = full + STAGES;
 
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = blockIdx.y * TBM;
   const int nk = (K + BK - 1) / BK;
   const int s_beg = blockIdx.z * steps_per_split;
   const int steps = min(nk, s_beg + steps_per_split) - s_beg;
 
-  for (int i = tid; i < TABLE_WORDS; i += THREADS) tab[i] = table.v[i >> 5];
+  if constexpr (Dec::PLANES) {
+    copy_planes(tab, table, tid, THREADS);  // the table's space holds the planes' words
+  } else {
+    for (int i = tid; i < TABLE_WORDS; i += THREADS) tab[i] = table.v[i >> 5];
+  }
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -134,9 +168,9 @@ elp_bsd_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       for (int i = 0; i < steps; ++i) {
         const int st = i % STAGES;
         if (i >= STAGES) mbar_wait(&empty[st], (i / STAGES - 1) & 1);
-        mbar_expect_tx(&full[st], X_STAGE_BYTES + c_bytes);
+        mbar_expect_tx(&full[st], X_STAGE + c_bytes);
         const int k0 = (s_beg + i) * BK;
-        tma_load_2d(xs + st * X_STAGE_BYTES, &x_map, &full[st], k0, m0);
+        tma_load_2d(xs + st * X_STAGE, &x_map, &full[st], k0, m0);
         tma_load_2d(cs + st * C_STAGE_BYTES, &c_map, &full[st], n0, NIBBLE ? k0 / 2 : k0);
       }
     }
@@ -147,33 +181,87 @@ elp_bsd_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   // Consumers: warpgroup wg decodes weight columns [64 wg, 64 wg + 64) of the tile.
   const int wg = warp / 4, w = warp % 4, g = lane / 4, q = lane % 4;
   const int col = wg * 64 + w * 16 + 2 * g;  // this thread's columns: col, col + 1
-  const uint32_t* tab_lane = tab + lane;
-  float d[128];
+  float d[TBM / 2];
 #pragma unroll
-  for (int i = 0; i < 128; ++i) d[i] = 0.f;
-  uint32_t f[16];
+  for (int i = 0; i < TBM / 2; ++i) d[i] = 0.f;
+  if constexpr (Dec::PLANES) {
+    // Unit u is digit u % nd of K stage u / nd; acc is the float32 sum of d.
+    const int nd = table.n, units = steps * nd;
+    float acc[TBM / 2];
+#pragma unroll
+    for (int i = 0; i < TBM / 2; ++i) acc[i] = 0.f;
+    auto promote = [&] {
+#pragma unroll
+      for (int r = 0; r < TBM / 2; ++r) {
+        fence_operand(d[r]);
+        acc[r] += d[r];
+        d[r] = 0.f;
+      }
+    };
+    auto decode = [&](uint32_t(&f)[16], int u) {
+      const int i = u / nd, dg = u - i * nd, st = i % STAGES;
+      if (dg == 0) mbar_wait(&full[st], (i / STAGES) & 1);
+      decode_stage_plane<NIBBLE>(f, cs + st * C_STAGE_BYTES, tab + PLANE_WORDS * dg, col >> 4,
+                                 col & 15, q);
+    };
+    auto issue = [&](uint32_t(&f)[16], int u) {
+#pragma unroll
+      for (int r = 0; r < 16; ++r) fence_operand(f[r]);
+      wgmma_fence();
+      const uint64_t desc = desc_b128(smem_u32(xs + (u / nd % STAGES) * X_STAGE));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<TBM, 0>(d, f + 4 * kk, desc + 2 * kk);
+      wgmma_commit();
+    };
+    // After a unit's wgmmas: its stage is free once its last digit is done.
+    auto release = [&](int u) {
+      const int i = u / nd;
+      __syncwarp();
+      if (u - i * nd == nd - 1 && lane == 0) mbar_arrive(&empty[i % STAGES]);
+    };
+    uint32_t fa[16], fb[16];
+    decode(fa, 0);
+    for (int u = 0; u < units; u += 2) {
+      issue(fa, u);
+      if (u + 1 < units) decode(fb, u + 1);
+      wgmma_wait<0>();
+      release(u);
+      if (u + 1 >= units) break;
+      issue(fb, u + 1);
+      if (u + 2 < units) decode(fa, u + 2);
+      wgmma_wait<0>();
+      release(u + 1);
+      if ((u + 2) % PROMOTE_UNITS == 0) promote();
+    }
+    promote();
+#pragma unroll
+    for (int r = 0; r < TBM / 2; ++r) d[r] = acc[r];
+  } else {
+    const uint32_t* tab_lane = tab + lane;
+    uint32_t f[16];
 
-  for (int i = 0; i < steps; ++i) {
-    const int st = i % STAGES;
-    mbar_wait(&full[st], (i / STAGES) & 1);
-    decode_stage<NIBBLE>(f, cs + st * C_STAGE_BYTES, tab_lane, col >> 4, col & 15, q);
+    for (int i = 0; i < steps; ++i) {
+      const int st = i % STAGES;
+      mbar_wait(&full[st], (i / STAGES) & 1);
+      decode_stage<NIBBLE>(f, cs + st * C_STAGE_BYTES, tab_lane, col >> 4, col & 15, q);
 #pragma unroll
-    for (int r = 0; r < 16; ++r) fence_operand(f[r]);
-    wgmma_fence();
-    const uint64_t desc = desc_b128(smem_u32(xs + st * X_STAGE_BYTES));
+      for (int r = 0; r < 16; ++r) fence_operand(f[r]);
+      wgmma_fence();
+      const uint64_t desc = desc_b128(smem_u32(xs + st * X_STAGE));
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<BM, 0>(d, f + 4 * kk, desc + 2 * kk);
-    wgmma_commit();
-    // The next stage's fragments are decoded only after these wgmmas are
-    // done: A registers written while wgmmas are in flight make ptxas
-    // serialize them anyway. The other consumer warpgroup's wgmmas keep the
-    // tensor cores busy meanwhile.
-    wgmma_wait<0>();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[st]);
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<TBM, 0>(d, f + 4 * kk, desc + 2 * kk);
+      wgmma_commit();
+      // The next stage's fragments are decoded only after these wgmmas are
+      // done: A registers written while wgmmas are in flight make ptxas
+      // serialize them anyway. The other consumer warpgroup's wgmmas keep the
+      // tensor cores busy meanwhile.
+      wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
   }
 #pragma unroll
-  for (int i = 0; i < 128; ++i) fence_operand(d[i]);
+  for (int i = 0; i < TBM / 2; ++i) fence_operand(d[i]);
 
   // d[4j + {0, 1}]: column col at x rows 8j + 2q + {0, 1}; d[4j + {2, 3}]:
   // column col + 1 at the same rows. One split writes the scaled result;
@@ -185,7 +273,7 @@ elp_bsd_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   if (n >= N) return;
   const bool pair = n + 1 < N && (N % 2 == 0);
 #pragma unroll
-  for (int j = 0; j < 32; ++j) {
+  for (int j = 0; j < TBM / 8; ++j) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = m0 + 8 * j + 2 * q + h;
@@ -202,22 +290,24 @@ elp_bsd_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-// The launch's grid: one block per (128-column, 256-row) output tile, times
-// the split-K factor (grid.z) for the current device; steps is the K stages
-// of one split. Returns false for a shape the kernel cannot take.
-template <bool NIBBLE>
+// The launch's grid: one block per (128-column, 256-row; digit planes:
+// 128-row) output tile, times the split-K factor (grid.z) for the current
+// device; steps is the K stages of one split. Returns false for a shape the
+// kernel cannot take.
+template <bool NIBBLE, class Dec = DecodeTable>
 bool plan(int M, int N, int K, dim3* grid, int* steps) {
   if (M <= 0 || N <= 0 || K <= 0) return false;
-  auto kernel = elp_bsd_matmul_wgmma_kernel<NIBBLE>;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES) !=
+  constexpr int TBM = Tile<Dec>::BM_, SMEM = Tile<Dec>::SMEM;
+  auto kernel = elp_bsd_matmul_wgmma_kernel<NIBBLE, Dec>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM) !=
       cudaSuccess)
     return false;
-  const long long tiles = static_cast<long long>((N + BN - 1) / BN) * ((M + BM - 1) / BM);
+  const long long tiles = static_cast<long long>((N + BN - 1) / BN) * ((M + TBM - 1) / TBM);
   const int nk = (K + BK - 1) / BK;
-  const int splits = choose_splits(kernel, THREADS, tiles, nk, MAX_SPLITS, SMEM_BYTES);
+  const int splits = choose_splits(kernel, THREADS, tiles, nk, MAX_SPLITS, SMEM);
   if (splits < 1) return false;
   *steps = (nk + splits - 1) / splits;
-  *grid = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, (nk + *steps - 1) / *steps);
+  *grid = dim3((N + BN - 1) / BN, (M + TBM - 1) / TBM, (nk + *steps - 1) / *steps);
   return grid->y <= 65535u;
 }
 
@@ -254,11 +344,11 @@ constexpr int SMEM = F_STAGES * F_SLOT + B_STAGES * B_SLOT + TABLE_WORDS * 4 +
 static_assert(SMEM <= 232448, "more shared memory than a block can have");
 }  // namespace x3
 
-template <bool NIBBLE>
+template <bool NIBBLE, class Dec>
 __global__ void __launch_bounds__(x3::THREADS, 1)
 elp_bsd_matmul_bf16x3_kernel(const __grid_constant__ CUtensorMap x_map,
                              const __grid_constant__ CUtensorMap c_map,
-                             const __grid_constant__ DecodeTable table,
+                             const __grid_constant__ Dec table,
                              const float* __restrict__ sf, float* __restrict__ out,
                              float* __restrict__ work, int M, int N, int K, int steps_per_split) {
   constexpr int c_bytes = NIBBLE ? x3::BK / 2 * x3::BN : x3::BK * x3::BN;
@@ -280,7 +370,11 @@ elp_bsd_matmul_bf16x3_kernel(const __grid_constant__ CUtensorMap x_map,
   const int s_beg = blockIdx.z * steps_per_split;
   const int steps = min(nk, s_beg + steps_per_split) - s_beg;
 
-  for (int i = tid; i < TABLE_WORDS; i += x3::THREADS) tab[i] = table.v[i >> 5];
+  if constexpr (Dec::PLANES) {
+    copy_planes(tab, table, tid, x3::THREADS);  // the table's space holds the planes' words
+  } else {
+    for (int i = tid; i < TABLE_WORDS; i += x3::THREADS) tab[i] = table.v[i >> 5];
+  }
   if (tid == 0) {
     for (int s = 0; s < x3::F_STAGES; ++s) {
       mbar_init(&ffull[s], 1);
@@ -405,19 +499,52 @@ elp_bsd_matmul_bf16x3_kernel(const __grid_constant__ CUtensorMap x_map,
     if (lane == 0) mbar_arrive(&bempty[i % x3::B_STAGES]);
   };
   uint32_t fa[16], fb[16];
-  // Two fragment sets: the next stage is decoded while this one's wgmmas run.
-  decode(fa, 0);
-  for (int j = 0; j < steps; j += 2) {
-    issue(fa, j);
-    if (j + 1 < steps) decode(fb, j + 1);
-    wgmma_wait<0>();
-    release(j);
-    if (j + 1 >= steps) break;
-    issue(fb, j + 1);
-    if (j + 2 < steps) decode(fa, j + 2);
-    wgmma_wait<0>();
-    release(j + 1);
-    if ((j + 2) % x3::PROMOTE == 0) promote();
+  if constexpr (Dec::PLANES) {
+    // Unit u is digit u % nd of K stage u / nd: a stage's codes leave the TMA
+    // ring after its last digit's decode, its split after its last digit's
+    // wgmmas; the accumulator is promoted every PROMOTE units.
+    const int nd = table.n, units = steps * nd;
+    auto pdecode = [&](uint32_t(&f)[16], int u) {
+      const int i = u / nd, dg = u - i * nd, fst = i % x3::F_STAGES;
+      if (dg == 0) mbar_wait(&ffull[fst], (i / x3::F_STAGES) & 1);
+      decode_stage_plane<NIBBLE>(f, fs + fst * x3::F_SLOT + x3::XF_STAGE,
+                                 tab + PLANE_WORDS * dg, col >> 4, col & 15, q);
+      __syncwarp();
+      if (dg == nd - 1 && lane == 0) mbar_arrive(&fempty[fst]);
+    };
+    auto prelease = [&](int u) {
+      const int i = u / nd;
+      __syncwarp();
+      if (u - i * nd == nd - 1 && lane == 0) mbar_arrive(&bempty[i % x3::B_STAGES]);
+    };
+    pdecode(fa, 0);
+    for (int u = 0; u < units; u += 2) {
+      issue(fa, u / nd);
+      if (u + 1 < units) pdecode(fb, u + 1);
+      wgmma_wait<0>();
+      prelease(u);
+      if (u + 1 >= units) break;
+      issue(fb, (u + 1) / nd);
+      if (u + 2 < units) pdecode(fa, u + 2);
+      wgmma_wait<0>();
+      prelease(u + 1);
+      if ((u + 2) % x3::PROMOTE == 0) promote();
+    }
+  } else {
+    // Two fragment sets: the next stage is decoded while this one's wgmmas run.
+    decode(fa, 0);
+    for (int j = 0; j < steps; j += 2) {
+      issue(fa, j);
+      if (j + 1 < steps) decode(fb, j + 1);
+      wgmma_wait<0>();
+      release(j);
+      if (j + 1 >= steps) break;
+      issue(fb, j + 1);
+      if (j + 2 < steps) decode(fa, j + 2);
+      wgmma_wait<0>();
+      release(j + 1);
+      if ((j + 2) % x3::PROMOTE == 0) promote();
+    }
   }
   promote();
 
@@ -447,10 +574,10 @@ elp_bsd_matmul_bf16x3_kernel(const __grid_constant__ CUtensorMap x_map,
   }
 }
 
-template <bool NIBBLE>
+template <bool NIBBLE, class Dec = DecodeTable>
 bool plan_bf16x3(int M, int N, int K, dim3* grid, int* steps) {
   if (M <= 0 || N <= 0 || K <= 0) return false;
-  auto kernel = elp_bsd_matmul_bf16x3_kernel<NIBBLE>;
+  auto kernel = elp_bsd_matmul_bf16x3_kernel<NIBBLE, Dec>;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, x3::SMEM) !=
       cudaSuccess)
     return false;
@@ -462,6 +589,70 @@ bool plan_bf16x3(int M, int N, int K, dim3* grid, int* steps) {
   *steps = (nk + splits - 1) / splits;
   *grid = dim3((N + x3::BN - 1) / x3::BN, (M + x3::BM - 1) / x3::BM, (nk + *steps - 1) / *steps);
   return grid->y <= 65535u;
+}
+
+// The bf16 route's launch on decoder `dec` (table or digit planes), then the
+// split-K sum where the plan splits K; -1 as the entry points below.
+template <class Dec>
+int launch_bf16(const void* x, const uint8_t* codes, const float* sf, float* out, int M, int N,
+                int K, int nibble, float* work, long long work_floats, const Dec& dec,
+                long long x_ld, long long codes_ld, cudaStream_t st) {
+  dim3 grid;
+  int steps;
+  const bool ok = nibble ? plan<true, Dec>(M, N, K, &grid, &steps)
+                         : plan<false, Dec>(M, N, K, &grid, &steps);
+  if (!ok || x_ld < K || codes_ld < N || (x_ld * 2) % 16 != 0 || codes_ld % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(codes) % 16 != 0)
+    return -1;
+  if (grid.z > 1 && (work == nullptr || work_floats < static_cast<long long>(grid.z) * M * N))
+    return -1;
+  const int krows = nibble ? (K + 1) / 2 : K;
+  CUtensorMap x_map, c_map;
+  if (!make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, x_ld * 2, BK,
+                Tile<Dec>::BM_) ||
+      !make_map(&c_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes, N, krows, codes_ld, BN,
+                nibble ? BK / 2 : BK))
+    return -1;
+  if (nibble)
+    elp_bsd_matmul_wgmma_kernel<true, Dec><<<grid, THREADS, Tile<Dec>::SMEM, st>>>(
+        x_map, c_map, dec, sf, out, work, M, N, K, steps);
+  else
+    elp_bsd_matmul_wgmma_kernel<false, Dec><<<grid, THREADS, Tile<Dec>::SMEM, st>>>(
+        x_map, c_map, dec, sf, out, work, M, N, K, steps);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || grid.z == 1) return err;
+  return splitk_reduce(work, sf, out, static_cast<size_t>(M) * N, grid.z, st);
+}
+
+// The bf16x3 route's launch on decoder `dec`, as launch_bf16.
+template <class Dec>
+int launch_bf16x3(const void* x, const uint8_t* codes, const float* sf, float* out, int M, int N,
+                  int K, int nibble, float* work, long long work_floats, const Dec& dec,
+                  long long x_ld, long long codes_ld, cudaStream_t st) {
+  dim3 grid;
+  int steps;
+  const bool ok = nibble ? plan_bf16x3<true, Dec>(M, N, K, &grid, &steps)
+                         : plan_bf16x3<false, Dec>(M, N, K, &grid, &steps);
+  if (!ok || x_ld < K || codes_ld < N || (x_ld * 4) % 16 != 0 || codes_ld % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(codes) % 16 != 0)
+    return -1;
+  if (grid.z > 1 && (work == nullptr || work_floats < static_cast<long long>(grid.z) * M * N))
+    return -1;
+  const int krows = nibble ? (K + 1) / 2 : K;
+  CUtensorMap x_map, c_map;
+  if (!make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, K, M, x_ld * 4, 32, x3::BM) ||
+      !make_map(&c_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes, N, krows, codes_ld, x3::BN,
+                nibble ? x3::BK / 2 : x3::BK))
+    return -1;
+  if (nibble)
+    elp_bsd_matmul_bf16x3_kernel<true, Dec><<<grid, x3::THREADS, x3::SMEM, st>>>(
+        x_map, c_map, dec, sf, out, work, M, N, K, steps);
+  else
+    elp_bsd_matmul_bf16x3_kernel<false, Dec><<<grid, x3::THREADS, x3::SMEM, st>>>(
+        x_map, c_map, dec, sf, out, work, M, N, K, steps);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0 || grid.z == 1) return err;
+  return splitk_reduce(work, sf, out, static_cast<size_t>(M) * N, grid.z, st);
 }
 
 }  // namespace
@@ -488,33 +679,11 @@ extern "C" int elp_bsd_matmul_wgmma_bf16(const void* x, const uint8_t* codes, co
                                          float* work, long long work_floats,
                                          const uint32_t* table, long long x_ld,
                                          long long codes_ld, void* stream) {
-  dim3 grid;
-  int steps;
-  const bool ok = nibble ? plan<true>(M, N, K, &grid, &steps) : plan<false>(M, N, K, &grid, &steps);
-  if (!ok || table == nullptr || x_ld < K || codes_ld < N || (x_ld * 2) % 16 != 0 ||
-      codes_ld % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
-    return -1;
-  if (grid.z > 1 && (work == nullptr || work_floats < static_cast<long long>(grid.z) * M * N))
-    return -1;
-  const int krows = nibble ? (K + 1) / 2 : K;
-  CUtensorMap x_map, c_map;
-  if (!make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, x_ld * 2, BK, BM) ||
-      !make_map(&c_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes, N, krows, codes_ld, BN,
-                nibble ? BK / 2 : BK))
-    return -1;
+  if (table == nullptr) return -1;
   DecodeTable tab;
   for (int i = 0; i < 256; ++i) tab.v[i] = table[i];
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nibble)
-    elp_bsd_matmul_wgmma_kernel<true><<<grid, THREADS, SMEM_BYTES, st>>>(
-        x_map, c_map, tab, sf, out, work, M, N, K, steps);
-  else
-    elp_bsd_matmul_wgmma_kernel<false><<<grid, THREADS, SMEM_BYTES, st>>>(
-        x_map, c_map, tab, sf, out, work, M, N, K, steps);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || grid.z == 1) return err;
-  return splitk_reduce(work, sf, out, static_cast<size_t>(M) * N, grid.z, st);
+  return launch_bf16(x, codes, sf, out, M, N, K, nibble, work, work_floats, tab, x_ld, codes_ld,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // The bf16x3 route, with the signatures of the two above: float32 x [M, K]
@@ -534,32 +703,50 @@ extern "C" int elp_bsd_matmul_wgmma_bf16x3(const void* x, const uint8_t* codes, 
                                            float* work, long long work_floats,
                                            const uint32_t* table, long long x_ld,
                                            long long codes_ld, void* stream) {
-  dim3 grid;
-  int steps;
-  const bool ok = nibble ? plan_bf16x3<true>(M, N, K, &grid, &steps)
-                         : plan_bf16x3<false>(M, N, K, &grid, &steps);
-  if (!ok || table == nullptr || x_ld < K || codes_ld < N || (x_ld * 4) % 16 != 0 ||
-      codes_ld % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
-    return -1;
-  if (grid.z > 1 && (work == nullptr || work_floats < static_cast<long long>(grid.z) * M * N))
-    return -1;
-  const int krows = nibble ? (K + 1) / 2 : K;
-  CUtensorMap x_map, c_map;
-  if (!make_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, K, M, x_ld * 4, 32, x3::BM) ||
-      !make_map(&c_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, codes, N, krows, codes_ld, x3::BN,
-                nibble ? x3::BK / 2 : x3::BK))
-    return -1;
+  if (table == nullptr) return -1;
   DecodeTable tab;
   for (int i = 0; i < 256; ++i) tab.v[i] = table[i];
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (nibble)
-    elp_bsd_matmul_bf16x3_kernel<true><<<grid, x3::THREADS, x3::SMEM, st>>>(
-        x_map, c_map, tab, sf, out, work, M, N, K, steps);
-  else
-    elp_bsd_matmul_bf16x3_kernel<false><<<grid, x3::THREADS, x3::SMEM, st>>>(
-        x_map, c_map, tab, sf, out, work, M, N, K, steps);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || grid.z == 1) return err;
-  return splitk_reduce(work, sf, out, static_cast<size_t>(M) * N, grid.z, st);
+  return launch_bf16x3(x, codes, sf, out, M, N, K, nibble, work, work_floats, tab, x_ld,
+                       codes_ld, static_cast<cudaStream_t>(stream));
+}
+
+// The digit-plane routes (wgmma_digits: bf16 x; bf16x3_digits: float32 x),
+// with the signatures above, `planes` in place of the table: the host's
+// digit-plane words (hopper.cuh, DigitPlanes). Their plans are the table
+// kernels' (the same tiles, threads and shared memory).
+extern "C" long long elp_bsd_matmul_wgmma_bf16_digits_workspace(int M, int N, int K) {
+  dim3 grid;
+  int steps;
+  if (!plan<true, DigitPlanes>(M, N, K, &grid, &steps)) return -1;
+  return grid.z > 1 ? static_cast<long long>(grid.z) * M * N : 0;
+}
+
+extern "C" int elp_bsd_matmul_wgmma_bf16_digits(const void* x, const uint8_t* codes,
+                                                const float* sf, float* out, int M, int N, int K,
+                                                int nibble, float* work, long long work_floats,
+                                                const uint32_t* planes, long long x_ld,
+                                                long long codes_ld, void* stream) {
+  DigitPlanes dec;
+  if (planes == nullptr || !planes_from_host(&dec, planes)) return -1;
+  return launch_bf16(x, codes, sf, out, M, N, K, nibble, work, work_floats, dec, x_ld, codes_ld,
+                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" long long elp_bsd_matmul_wgmma_bf16x3_digits_workspace(int M, int N, int K) {
+  dim3 grid;
+  int steps;
+  if (!plan_bf16x3<true, DigitPlanes>(M, N, K, &grid, &steps)) return -1;
+  return grid.z > 1 ? static_cast<long long>(grid.z) * M * N : 0;
+}
+
+extern "C" int elp_bsd_matmul_wgmma_bf16x3_digits(const void* x, const uint8_t* codes,
+                                                  const float* sf, float* out, int M, int N,
+                                                  int K, int nibble, float* work,
+                                                  long long work_floats, const uint32_t* planes,
+                                                  long long x_ld, long long codes_ld,
+                                                  void* stream) {
+  DigitPlanes dec;
+  if (planes == nullptr || !planes_from_host(&dec, planes)) return -1;
+  return launch_bf16x3(x, codes, sf, out, M, N, K, nibble, work, work_floats, dec, x_ld,
+                       codes_ld, static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,7 @@
 // A format reaches a kernel as an ElpFormat passed by value: per digit
 // the (offset, sign_bits, index_bits) field layout and the shift, either
 // affine (shift = a + b * index) or from a LUT of at most 8 entries. The
-// decoded value is the sum, in digit order, of at most two exact terms
+// decoded value is the sum, in digit order, of at most four exact terms
 // +-2^shift, each built bitwise as (shift + 127) << 23 | sign << 31 and
 // reinterpreted as float: bit-identical to
 // repro_torch/kernels/ref.py::decode_values_shift_add.
@@ -14,7 +14,7 @@
 
 #include <cuda_runtime.h>
 
-#define ELP_MAX_DIGITS 2
+#define ELP_MAX_DIGITS 4
 #define ELP_MAX_LUT 8
 // Host-side descriptor: n_digits, then per digit
 // off, sbits, ibits, affine, a, b, lut[ELP_MAX_LUT].

@@ -22,8 +22,10 @@
 // 67 TFLOP/s, against 25.7 MB of nibble codes, about 7.7 us at 3.35 TB/s.
 // The headroom is the bf16 tensor-core rate (989 TFLOP/s dense, about
 // 6.6 us for fc0), at which the code stream, not the arithmetic, would
-// bound it. bf16 activations take the tensor-core kernel,
-// fused_decode_wgmma.cu; this one keeps float32 activations.
+// bound it. The tensor-core kernels of fused_decode_wgmma.cu take every
+// format of at most 3 digits whose terms are normal bf16 values (by table
+// or digit planes); this one serves the rest (4 or more digits, terms
+// outside bf16's normal range, x of another type).
 #include <stdint.h>
 
 #include "elp_decode.cuh"

@@ -66,6 +66,20 @@
 // so the sums do not depend on block scheduling. The counters make
 // concurrent launches on several streams of one device unsafe; the port
 // launches on one stream.
+//
+// Digit planes (the wgmma_digits and bf16x3_digits routes): a format whose
+// decoded values are not all exact in bf16 but whose 2 or 3 digit terms
+// +-2^shift are normal bf16 values. The kernel's Dec = DigitPlanes instances
+// (the same NT and TERMS) decode each digit's plane in turn from a K block's
+// codes into the A fragments (arithmetically, hopper.cuh's
+// decode_stage_plane: no table, so the table's 32 KB go to the TMA ring) and
+// run the block's TERMS x 4 wgmmas on each: x . W = sum_d x . P_d, every
+// product exact in float32 as above. A unit is one (K block, digit); the
+// next unit decodes while this one's wgmmas run, a K block's stages are
+// freed after its last digit, and the TERMS = 3 instances promote the
+// accumulator every PROMOTE units (768 products). Each code byte is decoded
+// D times, so at NT = 16 the decode weighs D times as much against the code
+// stream.
 #include "hopper.cuh"
 
 namespace {
@@ -97,13 +111,15 @@ constexpr int threads_for(int nt) {
   return CONSUMER_THREADS + (blocks_per_sm(nt) == 2 ? 32 : 128);
 }
 
-template <int NT, bool NIBBLE>
+template <int NT, bool NIBBLE, bool PLANES = false>
 struct Shape {
   static constexpr int BLOCKS = blocks_per_sm(NT);
   static constexpr int THREADS = threads_for(NT);
   static constexpr int X_STAGE = NT * BK * 2;
   static constexpr int C_STAGE = NIBBLE ? BK / 2 * BN : BK * BN;
-  static constexpr int FIXED = TABLE_WORDS * 4 + 2 * MAX_STAGES * 8 + 16 + 1024;  // + alignment
+  // the per-lane table, or the digit planes' words
+  static constexpr int DEC_WORDS = PLANES ? MAX_PLANES * PLANE_WORDS : TABLE_WORDS;
+  static constexpr int FIXED = DEC_WORDS * 4 + 2 * MAX_STAGES * 8 + 16 + 1024;  // + alignment
   static constexpr int FIT = (SM_SMEM / BLOCKS - 1024 - FIXED) / (X_STAGE + C_STAGE);
   static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
   static constexpr int SMEM = STAGES * (X_STAGE + C_STAGE) + FIXED;
@@ -112,15 +128,15 @@ struct Shape {
 
 // TERMS = 1: x is bf16 [M, K]. TERMS = 3: x is the split [3, M, K] of a
 // float32 x, stage i of a block holding term i % 3 of K block i / 3.
-template <int NT, bool NIBBLE, int TERMS>
+template <int NT, bool NIBBLE, int TERMS, class Dec = DecodeTable>
 __global__ void __launch_bounds__(threads_for(NT), blocks_per_sm(NT))
 fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
                           const __grid_constant__ CUtensorMap c_map,
-                          const __grid_constant__ DecodeTable table,
+                          const __grid_constant__ Dec table,
                           const float* __restrict__ sf, float* __restrict__ out,
                           float* __restrict__ work, int M, int N, int K, int splits,
                           int steps) {
-  using S = Shape<NT, NIBBLE>;
+  using S = Shape<NT, NIBBLE, Dec::PLANES>;
   constexpr int STAGES = S::STAGES;
   // A consumer holds a K block's TERMS stages while it waits for the next one.
   static_assert(TERMS == 1 || STAGES >= TERMS + 1, "the ring cannot hold two K blocks' stages");
@@ -130,7 +146,7 @@ fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   uint8_t* xs = smem;                                                     // STAGES x [NT][64] bf16
   uint8_t* cs = xs + STAGES * S::X_STAGE;                                 // STAGES x code tile
   uint32_t* tab = reinterpret_cast<uint32_t*>(cs + STAGES * S::C_STAGE);  // [256][32]
-  uint64_t* full = reinterpret_cast<uint64_t*>(tab + TABLE_WORDS);
+  uint64_t* full = reinterpret_cast<uint64_t*>(tab + S::DEC_WORDS);
   uint64_t* empty = full + STAGES;
   volatile int* last_flag = reinterpret_cast<volatile int*>(empty + STAGES);
 
@@ -138,7 +154,11 @@ fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   const int nk = (K + BK - 1) / BK;
   const int items = (N + BN - 1) / BN * splits;
 
-  for (int i = tid; i < TABLE_WORDS; i += S::THREADS) tab[i] = table.v[i >> 5];
+  if constexpr (Dec::PLANES) {
+    copy_planes(tab, table, tid, S::THREADS);
+  } else {
+    for (int i = tid; i < TABLE_WORDS; i += S::THREADS) tab[i] = table.v[i >> 5];
+  }
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);
@@ -179,14 +199,13 @@ fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
   // Consumers: warpgroup wg decodes weight columns [64 wg, 64 wg + 64) of the strip.
   const int wg = warp / 4, w = warp % 4, g = lane / 4, q = lane % 4;
   const int col = wg * 64 + w * 16 + 2 * g;  // this thread's columns: col, col + 1
-  const uint32_t* tab_lane = tab + lane;
   const float scale = sf[0];
   const size_t mn = static_cast<size_t>(M) * N;
 
   auto decode = [&](uint32_t(&f)[16], int i) {
     const int st = i % STAGES;
     mbar_wait(&full[st], (i / STAGES) & 1);
-    decode_stage<NIBBLE>(f, cs + st * S::C_STAGE, tab_lane, col >> 4, col & 15, q);
+    decode_stage<NIBBLE>(f, cs + st * S::C_STAGE, tab + lane, col >> 4, col & 15, q);
   };
   // The wgmmas of the K block whose TERMS stages start at stage i, all on
   // the A fragments f (decoded from stage i's codes, whose wait decode did).
@@ -233,19 +252,49 @@ fused_decode_wgmma_kernel(const __grid_constant__ CUtensorMap x_map,
       }
     };
     uint32_t fa[16], fb[16];
-    // Two fragment sets: the next K block is decoded while this one's wgmmas run.
-    decode(fa, i);
-    for (int j = 0; j < n_st; j += 2) {
-      issue(d, fa, i + TERMS * j);
-      if (j + 1 < n_st) decode(fb, i + TERMS * (j + 1));
-      wgmma_wait<0>();
-      release(i + TERMS * j);
-      if (j + 1 >= n_st) break;
-      issue(d, fb, i + TERMS * (j + 1));
-      if (j + 2 < n_st) decode(fa, i + TERMS * (j + 2));
-      wgmma_wait<0>();
-      release(i + TERMS * (j + 1));
-      if ((j + 2) % PROMOTE == 0) promote();
+    if constexpr (Dec::PLANES) {
+      // Unit u is digit u % nd of K block u / nd, whose stages start at
+      // stage i + TERMS (u / nd).
+      const int nd = table.n, units = n_st * nd;
+      auto pdecode = [&](uint32_t(&f)[16], int u) {
+        const int j = u / nd, dg = u - j * nd, s = i + TERMS * j, st = s % STAGES;
+        if (dg == 0) mbar_wait(&full[st], (s / STAGES) & 1);
+        decode_stage_plane<NIBBLE>(f, cs + st * S::C_STAGE, tab + PLANE_WORDS * dg, col >> 4,
+                                   col & 15, q);
+      };
+      // After a unit's wgmmas: its K block's stages are free after its last digit.
+      auto prelease = [&](int u) {
+        const int j = u / nd;
+        if (u - j * nd == nd - 1) release(i + TERMS * j);
+      };
+      pdecode(fa, 0);
+      for (int u = 0; u < units; u += 2) {
+        issue(d, fa, i + TERMS * (u / nd));
+        if (u + 1 < units) pdecode(fb, u + 1);
+        wgmma_wait<0>();
+        prelease(u);
+        if (u + 1 >= units) break;
+        issue(d, fb, i + TERMS * ((u + 1) / nd));
+        if (u + 2 < units) pdecode(fa, u + 2);
+        wgmma_wait<0>();
+        prelease(u + 1);
+        if ((u + 2) % PROMOTE == 0) promote();
+      }
+    } else {
+      // Two fragment sets: the next K block is decoded while this one's wgmmas run.
+      decode(fa, i);
+      for (int j = 0; j < n_st; j += 2) {
+        issue(d, fa, i + TERMS * j);
+        if (j + 1 < n_st) decode(fb, i + TERMS * (j + 1));
+        wgmma_wait<0>();
+        release(i + TERMS * j);
+        if (j + 1 >= n_st) break;
+        issue(d, fb, i + TERMS * (j + 1));
+        if (j + 2 < n_st) decode(fa, i + TERMS * (j + 2));
+        wgmma_wait<0>();
+        release(i + TERMS * (j + 1));
+        if ((j + 2) % PROMOTE == 0) promote();
+      }
     }
     i += TERMS * n_st;
     promote();
@@ -362,12 +411,12 @@ bool plan(int M, int N, int K, int* grid, int* splits, int* steps) {
 
 // x is bf16 [M, K] (TERMS = 1) or three planes [M, K] (TERMS = 3) plane_ld
 // elements apart, rows x_ld elements apart.
-template <int NT, bool NIBBLE, int TERMS>
+template <int NT, bool NIBBLE, int TERMS, class Dec>
 int launch(const void* x, const uint8_t* codes, const float* sf, float* out, int M, int N, int K,
-           float* work, const DecodeTable& tab, long long x_ld, long long plane_ld,
+           float* work, const Dec& tab, long long x_ld, long long plane_ld,
            long long codes_ld, int grid, int splits, int steps, cudaStream_t stream) {
-  using S = Shape<NT, NIBBLE>;
-  auto kernel = fused_decode_wgmma_kernel<NT, NIBBLE, TERMS>;
+  using S = Shape<NT, NIBBLE, Dec::PLANES>;
+  auto kernel = fused_decode_wgmma_kernel<NT, NIBBLE, TERMS, Dec>;
   // All of the SM's memory as shared memory, so BLOCKS blocks fit on one.
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM) !=
           cudaSuccess ||
@@ -391,9 +440,9 @@ int launch(const void* x, const uint8_t* codes, const float* sf, float* out, int
 }
 
 // TERMS = 3 takes M <= X3_ROWS: its NT = 256 instance is never built.
-template <bool NIBBLE, int TERMS>
+template <bool NIBBLE, int TERMS, class Dec>
 int launch_nt(const void* x, const uint8_t* codes, const float* sf, float* out, int M, int N,
-              int K, float* work, const DecodeTable& tab, long long x_ld, long long plane_ld,
+              int K, float* work, const Dec& tab, long long x_ld, long long plane_ld,
               long long codes_ld, int grid, int splits, int steps, cudaStream_t st) {
   if (M <= 16)
     return launch<16, NIBBLE, TERMS>(x, codes, sf, out, M, N, K, work, tab, x_ld, plane_ld,
@@ -457,6 +506,63 @@ long long x3_partial_floats(int M, int N, int K) {
   return most;
 }
 
+// The bf16 route's launch on decoder `dec` (table or digit planes); -1 as
+// the entry points below.
+template <class Dec>
+int launch_bf16(const void* x, const uint8_t* codes, const float* sf, float* out, int M, int N,
+                int K, int nibble, float* work, long long work_floats, const Dec& dec,
+                long long x_ld, long long codes_ld, cudaStream_t st) {
+  int grid, splits, steps;
+  if (!plan(M, N, K, &grid, &splits, &steps) || x_ld < K || codes_ld < N ||
+      (x_ld * 2) % 16 != 0 || codes_ld % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
+    return -1;
+  if (splits > 1 && (work == nullptr || work_floats < static_cast<long long>(splits) * M * N))
+    return -1;
+  return nibble ? launch_nt<true, 1>(x, codes, sf, out, M, N, K, work, dec, x_ld, 0, codes_ld,
+                                     grid, splits, steps, st)
+                : launch_nt<false, 1>(x, codes, sf, out, M, N, K, work, dec, x_ld, 0, codes_ld,
+                                      grid, splits, steps, st);
+}
+
+// The bf16x3 route's launches on decoder `dec`: the split, then the TERMS = 3
+// kernel on x rows X3_ROWS at a time.
+template <class Dec>
+int launch_bf16x3(const void* x, const uint8_t* codes, const float* sf, float* out, int M, int N,
+                  int K, int nibble, float* work, long long work_floats, const Dec& dec,
+                  long long x_ld, long long codes_ld, cudaStream_t st) {
+  const long long part = x3_partial_floats(M, N, K);
+  if (part < 0 || x_ld < K || codes_ld < N || codes_ld % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(codes) % 16 != 0 || work == nullptr ||
+      reinterpret_cast<uintptr_t>(work) % 16 != 0)
+    return -1;
+  const int kp = padded_k(K);
+  if (work_floats < part + 3LL * M * kp / 2) return -1;
+  uint4* x3 = reinterpret_cast<uint4*>(work + part);
+  const long long units = static_cast<long long>(M) * (kp / 8);
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && x_ld % 4 == 0;
+  split_x_kernel<<<static_cast<unsigned>((units + 255) / 256), 256, 0, st>>>(
+      static_cast<const float*>(x), x_ld, M, K, kp, vec, x3);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  // Launches of one stream run in order, so each reuses the partial sums'
+  // space and the strips' counters (reset by each launch's last splits).
+  for (int m0 = 0; m0 < M; m0 += X3_ROWS) {
+    int grid, splits, steps;
+    const int mc = M - m0 < X3_ROWS ? M - m0 : X3_ROWS;
+    plan(mc, N, K, &grid, &splits, &steps);
+    const uint16_t* xm = reinterpret_cast<const uint16_t*>(x3) + static_cast<long long>(m0) * kp;
+    float* om = out + static_cast<long long>(m0) * N;
+    const long long plane = static_cast<long long>(M) * kp;
+    const int e = nibble ? launch_nt<true, 3>(xm, codes, sf, om, mc, N, K, work, dec, kp, plane,
+                                              codes_ld, grid, splits, steps, st)
+                         : launch_nt<false, 3>(xm, codes, sf, om, mc, N, K, work, dec, kp, plane,
+                                               codes_ld, grid, splits, steps, st);
+    if (e != 0) return e;
+  }
+  return 0;
+}
+
 }  // namespace
 
 // C entry points, bound with ctypes, with the signatures of
@@ -480,20 +586,11 @@ extern "C" int fused_decode_wgmma_bf16(const void* x, const uint8_t* codes, cons
                                        float* work, long long work_floats,
                                        const uint32_t* table, long long x_ld,
                                        long long codes_ld, void* stream) {
-  int grid, splits, steps;
-  if (!plan(M, N, K, &grid, &splits, &steps) || table == nullptr || x_ld < K || codes_ld < N ||
-      (x_ld * 2) % 16 != 0 || codes_ld % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(codes) % 16 != 0)
-    return -1;
-  if (splits > 1 && (work == nullptr || work_floats < static_cast<long long>(splits) * M * N))
-    return -1;
+  if (table == nullptr) return -1;
   DecodeTable tab;
   for (int i = 0; i < 256; ++i) tab.v[i] = table[i];
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return nibble ? launch_nt<true, 1>(x, codes, sf, out, M, N, K, work, tab, x_ld, 0, codes_ld,
-                                     grid, splits, steps, st)
-                : launch_nt<false, 1>(x, codes, sf, out, M, N, K, work, tab, x_ld, 0, codes_ld,
-                                      grid, splits, steps, st);
+  return launch_bf16(x, codes, sf, out, M, N, K, nibble, work, work_floats, tab, x_ld, codes_ld,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // The bf16x3 route, with the signatures of the two above: float32 x [M, K]
@@ -512,37 +609,42 @@ extern "C" int fused_decode_wgmma_bf16x3(const void* x, const uint8_t* codes, co
                                          float* work, long long work_floats,
                                          const uint32_t* table, long long x_ld,
                                          long long codes_ld, void* stream) {
-  const long long part = x3_partial_floats(M, N, K);
-  if (part < 0 || table == nullptr || x_ld < K || codes_ld < N || codes_ld % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(codes) % 16 != 0 || work == nullptr ||
-      reinterpret_cast<uintptr_t>(work) % 16 != 0)
-    return -1;
-  const int kp = padded_k(K);
-  if (work_floats < part + 3LL * M * kp / 2) return -1;
-  uint4* x3 = reinterpret_cast<uint4*>(work + part);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long units = static_cast<long long>(M) * (kp / 8);
-  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0 && x_ld % 4 == 0;
-  split_x_kernel<<<static_cast<unsigned>((units + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(x), x_ld, M, K, kp, vec, x3);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
+  if (table == nullptr) return -1;
   DecodeTable tab;
   for (int i = 0; i < 256; ++i) tab.v[i] = table[i];
-  // Launches of one stream run in order, so each reuses the partial sums'
-  // space and the strips' counters (reset by each launch's last splits).
-  for (int m0 = 0; m0 < M; m0 += X3_ROWS) {
-    int grid, splits, steps;
-    const int mc = M - m0 < X3_ROWS ? M - m0 : X3_ROWS;
-    plan(mc, N, K, &grid, &splits, &steps);
-    const uint16_t* xm = reinterpret_cast<const uint16_t*>(x3) + static_cast<long long>(m0) * kp;
-    float* om = out + static_cast<long long>(m0) * N;
-    const long long plane = static_cast<long long>(M) * kp;
-    const int e = nibble ? launch_nt<true, 3>(xm, codes, sf, om, mc, N, K, work, tab, kp, plane,
-                                              codes_ld, grid, splits, steps, st)
-                         : launch_nt<false, 3>(xm, codes, sf, om, mc, N, K, work, tab, kp, plane,
-                                               codes_ld, grid, splits, steps, st);
-    if (e != 0) return e;
-  }
-  return 0;
+  return launch_bf16x3(x, codes, sf, out, M, N, K, nibble, work, work_floats, tab, x_ld,
+                       codes_ld, static_cast<cudaStream_t>(stream));
+}
+
+// The digit-plane routes (wgmma_digits: bf16 x; bf16x3_digits: float32 x),
+// with the signatures and workspaces above, `planes` in place of the table:
+// the host's digit-plane words (hopper.cuh, DigitPlanes).
+extern "C" long long fused_decode_wgmma_bf16_digits_workspace(int M, int N, int K) {
+  return fused_decode_wgmma_workspace(M, N, K);
+}
+
+extern "C" int fused_decode_wgmma_bf16_digits(const void* x, const uint8_t* codes,
+                                              const float* sf, float* out, int M, int N, int K,
+                                              int nibble, float* work, long long work_floats,
+                                              const uint32_t* planes, long long x_ld,
+                                              long long codes_ld, void* stream) {
+  DigitPlanes dec;
+  if (planes == nullptr || !planes_from_host(&dec, planes)) return -1;
+  return launch_bf16(x, codes, sf, out, M, N, K, nibble, work, work_floats, dec, x_ld, codes_ld,
+                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" long long fused_decode_wgmma_bf16x3_digits_workspace(int M, int N, int K) {
+  return fused_decode_wgmma_bf16x3_workspace(M, N, K);
+}
+
+extern "C" int fused_decode_wgmma_bf16x3_digits(const void* x, const uint8_t* codes,
+                                                const float* sf, float* out, int M, int N, int K,
+                                                int nibble, float* work, long long work_floats,
+                                                const uint32_t* planes, long long x_ld,
+                                                long long codes_ld, void* stream) {
+  DigitPlanes dec;
+  if (planes == nullptr || !planes_from_host(&dec, planes)) return -1;
+  return launch_bf16x3(x, codes, sf, out, M, N, K, nibble, work, work_floats, dec, x_ld,
+                       codes_ld, static_cast<cudaStream_t>(stream));
 }

@@ -2,8 +2,9 @@
 // (elp_bsd_matmul_wgmma.cu, fused_decode_wgmma.cu, flash_attention_wgmma.cu):
 // mbarriers, TMA loads and tensor maps, wgmma shared-memory descriptors and
 // instructions, the byte-table decode of ELP_BSD codes into the register A
-// operand of wgmma, and the exact split of float32 activations into three
-// bf16 terms that the float32 (bf16x3) routes feed to wgmma.
+// operand of wgmma, the digit-plane decode of formats whose values are not
+// exact in bf16, and the exact split of float32 activations into three bf16
+// terms that the float32 (bf16x3) routes feed to wgmma.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; libcuda's encoder is fetched at run time
@@ -12,8 +13,28 @@
 
 namespace {
 
+// The byte-indexed decode table of a bf16-exact format (the wgmma and bf16x3
+// routes): each code byte's bf16 value, or a nibble byte's bf16 pair.
 struct DecodeTable {
+  static constexpr bool PLANES = false;
   uint32_t v[256];
+};
+
+// The digit planes of a format whose values are not all exact in bf16 (the
+// wgmma_digits and bf16x3_digits routes): a code's value is the sum of its
+// digits' terms sign_d * 2^shift_d, each an exact bf16, so x . W is the sum
+// over digits of x . P_d, P_d the plane of digit d's terms. The host's words
+// (repro_torch/kernels/ref.py::plane_words): the digit count n (2 or 3), then
+// eight words a digit: the biased exponents 127 + shift of its shift LUT's
+// (at most 8) entries as bytes (two words), its field's offset, its index
+// mask in both 16-bit halves, the left shift that takes its sign bit to bit
+// 15, and the sign mask 0x80008000 (0 for an unsigned digit).
+constexpr int MAX_PLANES = 3;
+constexpr int PLANE_WORDS = 8;
+struct DigitPlanes {
+  static constexpr bool PLANES = true;
+  uint32_t n;
+  uint32_t w[MAX_PLANES][PLANE_WORDS];
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -371,6 +392,73 @@ __device__ __forceinline__ void decode_stage(uint32_t (&f)[16], const uint8_t* c
       f[4 * kk + 3] = __byte_perm(lut(b0 >> 8), lut(b1 >> 8), 0x5410);
     }
   }
+}
+
+// One digit's terms of a code pair as one bf16x2 A register: p holds the
+// even K row's code in bits 0-7 and the odd row's in bits 16-23; lo and hi
+// are the digit's descriptor words (LUT bytes 0-3, LUT bytes 4-7, offset,
+// index mask; sign shift, sign mask, unused). The index field selects
+// the biased exponent from the LUT held in two registers (prmt; the
+// selector's nibbles 0 and 2 are the two indices, 1 and 3 pick byte 0,
+// masked off), which goes to bits 7-14 of each half, the sign bit to bit
+// 15: the bf16 bit pattern of +-2^shift, as ref.py::digit_planes builds it.
+__device__ __forceinline__ uint32_t plane_term2(uint32_t p, const uint4& lo, const uint4& hi) {
+  const uint32_t idx = (p >> lo.z) & lo.w;
+  const uint32_t e = __byte_perm(lo.x, lo.y, idx | (idx >> 8)) & 0x00FF00FFu;
+  return (e << 7) | ((p << hi.x) & hi.y);
+}
+
+// decode_stage for digit-plane formats: the A fragments of one digit's plane
+// (its descriptor words w, in shared memory) over one 64-deep K stage, in
+// decode_stage's layout. u8: register (column, k..k+1) pairs the code bytes
+// of rows k and k + 1 (prmt 0x2420 / 0x2521 take column / column + 1 of the
+// two 16-bit words, whose upper bytes are zero). Nibble: the byte of byte row
+// k/2 holds both codes, the even row's in its low nibble.
+template <bool NIBBLE>
+__device__ __forceinline__ void decode_stage_plane(uint32_t (&f)[16], const uint8_t* ct,
+                                                   const uint32_t* w, int chunk, int inoff,
+                                                   int q) {
+  auto at = [&](int row) {
+    return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(
+        ct + row * 128 + ((chunk ^ (row & 7)) << 4) + inoff));
+  };
+  const uint4 lo = *reinterpret_cast<const uint4*>(w);
+  const uint4 hi = *reinterpret_cast<const uint4*>(w + 4);
+  auto term = [&](uint32_t p) { return plane_term2(p, lo, hi); };
+  auto nib = [](uint32_t b) { return (b & 0xFu) | ((b & 0xF0u) << 12); };
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (NIBBLE) {
+      const uint32_t ba = at(8 * kk + q), bb = at(8 * kk + q + 4);
+      f[4 * kk + 0] = term(nib(ba & 0xFFu));  // column, k..k+1
+      f[4 * kk + 1] = term(nib(ba >> 8));     // column + 1, k..k+1
+      f[4 * kk + 2] = term(nib(bb & 0xFFu));  // column, k+8..k+9
+      f[4 * kk + 3] = term(nib(bb >> 8));     // column + 1, k+8..k+9
+    } else {
+      const int k = 16 * kk + 2 * q;
+      const uint32_t a0 = at(k), a1 = at(k + 1), b0 = at(k + 8), b1 = at(k + 9);
+      f[4 * kk + 0] = term(__byte_perm(a0, a1, 0x2420));
+      f[4 * kk + 1] = term(__byte_perm(a0, a1, 0x2521));
+      f[4 * kk + 2] = term(__byte_perm(b0, b1, 0x2420));
+      f[4 * kk + 3] = term(__byte_perm(b0, b1, 0x2521));
+    }
+  }
+}
+
+// The digit planes' words into shared memory (digit d's at 8 d), once per block.
+__device__ __forceinline__ void copy_planes(uint32_t* dst, const DigitPlanes& dec, int tid,
+                                            int threads) {
+  for (int i = tid; i < MAX_PLANES * PLANE_WORDS; i += threads)
+    dst[i] = dec.w[i / PLANE_WORDS][i % PLANE_WORDS];
+}
+
+// The digit planes from the host's words; false for a digit count the kernels do not take.
+inline bool planes_from_host(DigitPlanes* dec, const uint32_t* words) {
+  dec->n = words[0];
+  if (dec->n < 2 || dec->n > MAX_PLANES) return false;
+  for (int d = 0; d < MAX_PLANES; ++d)
+    for (int i = 0; i < PLANE_WORDS; ++i) dec->w[d][i] = words[1 + d * PLANE_WORDS + i];
+  return true;
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

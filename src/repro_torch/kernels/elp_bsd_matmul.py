@@ -6,8 +6,8 @@ Replaces the JAX package's Pallas TPU kernel
 ``[K, N]`` or nibble-packed ``[K/2, N]`` (low nibble = even row) and one
 float32 scale factor.
 
-Three routes, each its own CUDA C++ kernel for ``sm_90a``; :func:`route`
-picks one before any launch, by one rule:
+Five routes, each a CUDA C++ kernel for ``sm_90a``; :func:`route` picks one
+before any launch, by one rule:
 
 * ``"wgmma"`` (``csrc/elp_bsd_matmul_wgmma.cu``): bf16 x and a format whose
   decoded values are all exact in bf16 (:func:`repro_torch.kernels.ref.bf16_exact`,
@@ -24,18 +24,29 @@ picks one before any launch, by one rule:
   sums the three terms' tensor-core products into one float32
   accumulator: each product is exact, so only the order of the float32
   sums differs from the reference. The AlexNet convs run here.
-* ``"f32"`` (``csrc/elp_bsd_matmul.cu``): a format that is not bf16-exact
-  (or an x of another type), x cast to float32, on CUDA cores: a
-  128 x 128 output tile per block, a K loop inside the block, x and code
-  tiles staged and decoded (shift-add) in shared memory, an 8 x 8 float32
-  micro-tile per thread, capped at the H100's CUDA-core rate (67 TFLOP/s).
+* ``"wgmma_digits"`` and ``"bf16x3_digits"`` (the Dec = DigitPlanes
+  instances of the same two kernels): bf16 x, and float32 or float16 x, with
+  a format that is not bf16-exact but whose 2 or 3 digit terms ``±2^shift``
+  are normal bf16 values (:func:`repro_torch.kernels.ref.planes_ok`; a
+  user's own ``ElpBsdFormat`` such as a second digit reaching ``2^9``). The
+  product is ``Σ_d x @ P_d`` over the digit planes
+  (:func:`repro_torch.kernels.ref.digit_planes`), each plane decoded from
+  the codes in registers and run on the tensor cores like the table's one
+  plane: every product is exact, so again only the order of the float32
+  sums differs.
+* ``"f32"`` (``csrc/elp_bsd_matmul.cu``): any other format (4 or more
+  digits, terms outside bf16's normal range) or an x of another type, x
+  cast to float32, on CUDA cores: a 128 x 128 output tile per block, a K
+  loop inside the block, x and code tiles staged and decoded (shift-add) in
+  shared memory, an 8 x 8 float32 micro-tile per thread, capped at the
+  H100's CUDA-core rate (67 TFLOP/s).
 
 TMA needs a 16-byte aligned base and row stride: x or codes without them
 are first copied once into a buffer with padded rows. An x that is a
 row-strided view with such rows goes as it is: ``kernels/conv.py`` writes
 the im2col patches so, for conv0's K = 363.
 
-All three mask ragged edges and split K over several blocks per tile
+All of them mask ragged edges and split K over several blocks per tile
 (summed by a deterministic second pass) where the tiles alone would leave
 SMs idle in the last wave; each kernel picks that split from its own
 tiles and occupancy. The decoded weight never reaches device memory. A failed
@@ -70,10 +81,14 @@ from repro_torch.kernels.ref import (
     bf16_exact,
     decode_table,
     decode_values_shift_add,
+    plane_words,
+    planes_ok,
     unpack_nibbles_k,
 )
 
-ROUTES = ("wgmma", "bf16x3", "f32")
+ROUTES = ("wgmma", "bf16x3", "wgmma_digits", "bf16x3_digits", "f32")
+# The tensor-core routes, by the x dtypes each takes.
+TENSOR_CORE_DTYPES = {"wgmma": (torch.bfloat16,), "bf16x3": (torch.float32, torch.float16)}
 
 
 def elp_bsd_matmul_plain(
@@ -168,15 +183,17 @@ def launch_checked(name: str, x, codes, sf, fmt, nibble: bool) -> torch.Tensor:
 
 
 def route(x: torch.Tensor, fmt: ElpBsdFormat) -> str:
-    """The kernel :func:`elp_bsd_matmul` launches for a CUDA ``x``. With a
-    :func:`~repro_torch.kernels.ref.bf16_exact` format: ``"wgmma"`` for bf16
-    ``x``, ``"bf16x3"`` for float32 or float16 ``x``; else ``"f32"``."""
+    """The kernel :func:`elp_bsd_matmul` launches for a CUDA ``x``: ``"wgmma"``
+    for bf16 ``x`` and ``"bf16x3"`` for float32 or float16 ``x`` with a
+    :func:`~repro_torch.kernels.ref.bf16_exact` format (every preset); the
+    same with ``"_digits"`` for a format the digit planes take
+    (:func:`~repro_torch.kernels.ref.planes_ok`); else ``"f32"``."""
+    tc = next((r for r, dtypes in TENSOR_CORE_DTYPES.items() if x.dtype in dtypes), None)
+    if tc is None:
+        return "f32"
     if bf16_exact(fmt):
-        if x.dtype == torch.bfloat16:
-            return "wgmma"
-        if x.dtype in (torch.float32, torch.float16):
-            return "bf16x3"
-    return "f32"
+        return tc
+    return tc + "_digits" if planes_ok(fmt) else "f32"
 
 
 def device_route(name: str, x: torch.Tensor, fmt: ElpBsdFormat) -> str:
@@ -209,6 +226,13 @@ def _table_words(fmt: ElpBsdFormat, nibble: bool) -> ctypes.Array:
     return (ctypes.c_uint32 * 256)(*(v & 0xFFFFFFFF for v in decode_table(fmt, nibble).tolist()))
 
 
+@functools.lru_cache(maxsize=None)
+def _plane_words(fmt: ElpBsdFormat) -> ctypes.Array:
+    """:func:`plane_words` as the unsigned words the digit routes' entry points read."""
+    words = plane_words(fmt)
+    return (ctypes.c_uint32 * len(words))(*words)
+
+
 def _tma_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` (2-D) with a 16-byte aligned base and row stride and unit column
     stride, as TMA reads it: ``t`` itself when it already has them (a
@@ -231,21 +255,23 @@ def launch_wgmma(x, codes, sf, fmt, nibble: bool, name: str = "elp_bsd_matmul_wg
                  route: str = "wgmma") -> torch.Tensor:
     """Validate devices and dtypes, then launch route ``route`` of the tensor-core
     kernel ``csrc/<name>.cu`` (this module's, or the decode-step kernel's):
-    ``"wgmma"`` on bf16 ``x`` as it is, ``"bf16x3"`` on float32 or float16
-    ``x`` as float32; float32 ``[M, N]`` out."""
+    ``"wgmma"`` and ``"wgmma_digits"`` on bf16 ``x`` as it is, ``"bf16x3"``
+    and ``"bf16x3_digits"`` on float32 or float16 ``x`` as float32, the
+    ``"_digits"`` routes on the format's digit planes; float32 ``[M, N]`` out."""
     from repro_torch import _build
 
     _check_operands(name, x, codes, sf)
-    if route == "wgmma" and x.dtype != torch.bfloat16:
-        raise TypeError(f"the wgmma route takes bfloat16 x, got {x.dtype}")
-    if route == "bf16x3":
-        if x.dtype not in (torch.float32, torch.float16):
-            raise TypeError(f"the bf16x3 route takes float32 or float16 x, got {x.dtype}")
+    base = route.removesuffix("_digits")
+    if x.dtype not in TENSOR_CORE_DTYPES[base]:
+        takes = " or ".join(str(d)[6:] for d in TENSOR_CORE_DTYPES[base])
+        raise TypeError(f"the {route} route takes {takes} x, got {x.dtype}")
+    if base == "bf16x3":
         x = x.to(torch.float32)
-    table = _table_words(fmt, nibble)
+    words = _plane_words(fmt) if route != base else _table_words(fmt, nibble)
+    kind = ("bf16" if base == "wgmma" else "bf16x3") + route[len(base):]
     out = torch.empty((x.shape[0], codes.shape[1]), dtype=torch.float32, device=x.device)
-    _build.launch_tensor_core(name, "bf16" if route == "wgmma" else route, _tma_rows(x),
-                              x.shape[1], _tma_rows(codes), sf, out, nibble, table)
+    _build.launch_tensor_core(name, kind, _tma_rows(x), x.shape[1], _tma_rows(codes), sf, out,
+                              nibble, words)
     return out
 
 
@@ -275,10 +301,10 @@ def elp_bsd_matmul(
         elif x.is_meta:
             out = torch.empty((x.shape[0], n), dtype=out_dtype, device="meta")
         else:
-            if r in ("wgmma", "bf16x3"):
-                out = launch_wgmma(x, codes, sf, fmt, nibble, route=r)
-            else:
+            if r == "f32":
                 out = launch_checked("elp_bsd_matmul", x, codes, sf, fmt, nibble)
+            else:
+                out = launch_wgmma(x, codes, sf, fmt, nibble, route=r)
             elp_bsd_matmul.launches += 1
             elp_bsd_matmul.launches_by_route[r] += 1
             out = out.to(out_dtype)

@@ -5,8 +5,8 @@ Replaces the JAX package's Pallas TPU kernel
 ``_fused_kernel``): the same product as the tiled kernel for the small M
 of an fc layer or an LM decode step, a weight-streaming GEMV-like op.
 
-Three routes, each its own CUDA C++ kernel for ``sm_90a``; :func:`route`
-(the tiled kernel's rule, :func:`repro_torch.kernels.elp_bsd_matmul.route`)
+Five routes, each a CUDA C++ kernel for ``sm_90a``; :func:`route` (the
+tiled kernel's rule, :func:`repro_torch.kernels.elp_bsd_matmul.route`)
 picks one before any launch:
 
 * ``"wgmma"`` (``csrc/fused_decode_wgmma.cu``): bf16 x and a bf16-exact
@@ -23,13 +23,19 @@ picks one before any launch:
   same kernel walks its K stages in threes, one term each, and runs the
   three terms' wgmmas on A fragments decoded once per K block into one
   float32 accumulator. AlexNet's fc layers (M = 64) run here.
-* ``"f32"`` (``csrc/fused_decode.cu``): a format that is not bf16-exact (or
-  an x of another type), cast to float32, on CUDA cores: one block per
+* ``"wgmma_digits"`` and ``"bf16x3_digits"`` (the Dec = DigitPlanes
+  instances of the same kernel): a format that is not bf16-exact but whose
+  2 or 3 digit terms are normal bf16 values. Each K block's codes are
+  decoded once per digit into that digit's plane of A fragments, and each
+  plane runs the block's wgmmas (:func:`repro_torch.kernels.ref.digit_planes`).
+* ``"f32"`` (``csrc/fused_decode.cu``): any other format (4 or more digits,
+  terms outside bf16's normal range) or an x of another type, cast to
+  float32, on CUDA cores: one block per
   32-column output strip holding all M rows, a K loop that stages the x
   strip and the code tile in shared memory and decodes there, K split over
   blocks and summed in split order by a second pass.
 
-All three are deterministic: no atomics touch the sums. A failed build
+All are deterministic: no atomics touch the sums. A failed build
 or launch raises: nothing retries on another route.
 
 :func:`fused_decode_matmul` takes the plain version
@@ -103,11 +109,11 @@ def fused_decode_matmul(
         elif x.is_meta:
             out = torch.empty((m, n), dtype=out_dtype, device="meta")
         else:
-            if r in ("wgmma", "bf16x3"):
+            if r == "f32":
+                out = launch_checked("fused_decode", x, codes, sf, fmt, nibble)
+            else:
                 out = launch_wgmma(x, codes, sf, fmt, nibble, name="fused_decode_wgmma",
                                    route=r)
-            else:
-                out = launch_checked("fused_decode", x, codes, sf, fmt, nibble)
             fused_decode_matmul.launches += 1
             fused_decode_matmul.launches_by_route[r] += 1
             out = out.to(out_dtype)

@@ -6,7 +6,9 @@ float32 sign and exponent fields, ``(shift + 127) << 23 | sign << 31``,
 viewed as float32. Both are bit-identical to each other and to the JAX
 package's ``kernels/ref.py``. The float32 CUDA kernels run the shift-add
 form; the tensor-core kernels look each code byte up in
-:func:`decode_table`, built from it, and split float32 activations by
+:func:`decode_table`, built from it, or, for a format whose values are not
+all exact in bf16, build each digit's plane of terms (:func:`digit_planes`,
+from :func:`plane_words`), and split float32 activations by
 :func:`split_bf16x3`.
 """
 from __future__ import annotations
@@ -48,10 +50,18 @@ def decode_values_shift_add(codes: torch.Tensor, fmt: ElpBsdFormat) -> torch.Ten
     Per digit the term is the int32 bit pattern ``(shift + 127) << 23``
     with the digit's sign bit OR'd into bit 31; the shift comes from
     ``a + b * index`` for affine LUTs, else from a select chain. The
-    terms (at most two, all exact) are summed in digit order.
+    terms (all exact) are summed in digit order.
     """
-    codes = codes.to(torch.int32)
     out = None
+    for term in digit_terms(codes, fmt):
+        out = term if out is None else out + term
+    return out
+
+
+def digit_terms(codes: torch.Tensor, fmt: ElpBsdFormat) -> list[torch.Tensor]:
+    """Each digit's float32 term ``±2^shift`` of every code (integer tensor), in digit order."""
+    codes = codes.to(torch.int32)
+    out = []
     for off, sbits, ibits, tab, affine in fmt.shift_add_decomposition():
         field = (codes >> off) & ((1 << (sbits + ibits)) - 1)
         idx = field & ((1 << ibits) - 1)
@@ -65,8 +75,7 @@ def decode_values_shift_add(codes: torch.Tensor, fmt: ElpBsdFormat) -> torch.Ten
         bits = (shift + 127) << 23
         if sbits:
             bits = bits | (((field >> ibits) & 1) << 31)
-        term = bits.to(torch.int32).view(torch.float32)
-        out = term if out is None else out + term
+        out.append(bits.to(torch.int32).view(torch.float32))
     return out
 
 
@@ -82,6 +91,60 @@ def bf16_exact(fmt: ElpBsdFormat) -> bool:
     """
     vals = decode_values_shift_add(torch.arange(2**fmt.bits_per_weight), fmt)
     return bool(torch.equal(vals.to(torch.bfloat16).to(torch.float32), vals))
+
+
+MAX_PLANES = 3  # digits of a format the digit-plane kernels take
+PLANE_WORDS = 8  # descriptor words a digit (csrc/hopper.cuh, DigitPlanes)
+
+
+@functools.lru_cache(maxsize=None)
+def planes_ok(fmt: ElpBsdFormat) -> bool:
+    """Whether the tensor-core kernels' digit planes take ``fmt``.
+
+    2 or 3 digits, each with at most 8 shifts (3 index bits: the kernels
+    hold a digit's exponents in two registers) and every term ``±2^shift``
+    a normal bf16 (shift in -126..127), in codes of at most 8 bits. Then
+    ``x @ W = Σ_d x @ P_d`` with each plane ``P_d`` exact in bf16
+    (:func:`digit_planes`).
+    """
+    dec = fmt.shift_add_decomposition()
+    return (2 <= len(dec) <= MAX_PLANES and fmt.bits_per_weight <= 8
+            and all(ibits <= 3 and all(-126 <= int(t) <= 127 for t in tab)
+                    for _, _, ibits, tab, _ in dec))
+
+
+def digit_planes(codes: torch.Tensor, fmt: ElpBsdFormat, nibble: bool = False) -> torch.Tensor:
+    """The digit planes of ``codes``: bf16 ``[D, K, N]``, plane ``d`` digit ``d``'s
+    term ``±2^shift`` of each code (exact in bf16 for a :func:`planes_ok`
+    format). Nibble codes ``[ceil(K/2), N]`` unpack to ``2 * ceil(K/2)`` rows.
+    Their float32 sum in digit order is :func:`decode_values_shift_add`, bit
+    for bit. The digit-plane kernels build each term from :func:`plane_words`."""
+    c = unpack_nibbles_k(codes) if nibble else codes
+    return torch.stack([t.to(torch.bfloat16) for t in digit_terms(c, fmt)])
+
+
+def plane_words(fmt: ElpBsdFormat) -> list[int]:
+    """The digit-plane kernels' descriptor of ``fmt`` (``csrc/hopper.cuh``, DigitPlanes):
+    the digit count, then :data:`PLANE_WORDS` unsigned words for each of
+    :data:`MAX_PLANES` digits (zero past the last): the biased exponents
+    ``127 + shift`` of the digit's shift LUT as bytes (entries 0-3, 4-7; the
+    last repeated), the field's offset, the index mask in both 16-bit
+    halves, the left shift taking the sign bit to bit 15 and the sign mask
+    ``0x80008000`` (both 0 for an unsigned digit), one unused word. Raises
+    ValueError for a format that is not :func:`planes_ok`."""
+    if not planes_ok(fmt):
+        raise ValueError(f"{fmt.name}: the digit-plane kernels take 2-3 digits of at most 8 "
+                         "shifts each, every term a normal bf16")
+    dec = fmt.shift_add_decomposition()
+    words = [len(dec)]
+    for off, sbits, ibits, tab, _ in dec:
+        e = [int(t) + 127 for t in tab]
+        e += [e[-1]] * (8 - len(e))
+        lut = [sum(v << (8 * i) for i, v in enumerate(e[j:j + 4])) for j in (0, 4)]
+        imask = ((1 << ibits) - 1) * 0x10001
+        sign = [15 - (off + ibits), 0x80008000] if sbits else [0, 0]
+        words += [*lut, off, imask, *sign, 0, 0]
+    return words + [0] * (PLANE_WORDS * (MAX_PLANES - len(dec)))
 
 
 def _bf16_bits(v: torch.Tensor) -> torch.Tensor:
@@ -152,6 +215,35 @@ def elp_bsd_matmul_bf16x3(
     out = parts[0] @ w
     for p in parts[1:]:
         out = out + p @ w
+    return out * sf.reshape(())
+
+
+def elp_bsd_matmul_digits(
+    x: torch.Tensor,
+    codes: torch.Tensor,
+    sf: torch.Tensor,
+    fmt: ElpBsdFormat,
+    *,
+    nibble: bool = False,
+    terms: int = 3,
+) -> torch.Tensor:
+    """The digit-plane routes' arithmetic in plain PyTorch, float32 out.
+
+    ``x`` split by :func:`split_bf16x3` into its first ``terms`` bf16 terms
+    (``terms=1`` is a bf16 x itself, the wgmma_digits route; 3 the
+    bf16x3_digits route), each times each digit plane (:func:`digit_planes`)
+    in float32, summed digit by digit and term by term, then ``* sf``. Every
+    product is exact, so this is the float32 product of x and the exactly
+    decoded weight up to the order of its additions (closer to it than the
+    reference where a format's digits span more than float32's 24 bits).
+    """
+    planes = digit_planes(codes, fmt, nibble)[:, : x.shape[1]].to(torch.float32)
+    parts = split_bf16x3(x)[:terms]
+    out = None
+    for p in planes:
+        for t in parts:
+            y = t @ p
+            out = y if out is None else out + y
     return out * sf.reshape(())
 
 

@@ -9,9 +9,11 @@ Tolerance: max |kernel - plain| <= 2e-5 * max |plain| (float32 sums in
 another order; split-K adds its partial sums in a fixed order). The
 matmuls' wgmma routes take bf16 x and their bf16x3 routes float32 x split
 exactly into three bf16 terms: either way every product is exact in
-float32, so the same limit holds. Float32 x reaches the CUDA-core kernels
-(``"f32"``) only for a format that is not bf16-exact, so those kernels are
-also launched directly here (``launch_checked``).
+float32, so the same limit holds; so do the digit-plane routes
+(``"wgmma_digits"``, ``"bf16x3_digits"``), which take formats that are not
+bf16-exact plane by plane. x reaches the CUDA-core kernels (``"f32"``) only
+for formats of 4 or more digits (or terms outside bf16's normal range), so
+those kernels are also launched directly here (``launch_checked``).
 """
 import math
 
@@ -552,6 +554,8 @@ BF16X3_RAGGED = [(300, 363, 96), (100, 71, 34), (129, 130, 130), (1, 2, 1), (64,
                  (7, 4096, 256), (200, 3456, 384)]
 # Two digits 9 binary places apart: 2^9 + 1 needs 10 significant bits.
 WIDE = ElpBsdFormat((DigitSpec(shifts=(0,)), DigitSpec(shifts=(9,))), name="shifts_0_9")
+# Four digits 27 places wide: past the digit planes' three, the CUDA-core route.
+WIDE4 = ElpBsdFormat(tuple(DigitSpec(shifts=(s,)) for s in (0, 9, 18, 27)), name="wide4_d4")
 
 
 def _aligned_rows(x):
@@ -633,18 +637,77 @@ def test_bf16x3_routes_are_deterministic(cuda, m, k, n):
 
 @pytest.mark.parametrize("impl", ["tiled", "fused"])
 def test_format_not_bf16_exact_takes_the_f32_route(cuda, impl):
-    """A format whose values need more than bf16's 8 significant bits: the
-    CUDA-core kernel through the wrapper, float32 and bf16 x alike."""
+    """A format whose values need more than bf16's 8 significant bits: with two
+    digits (``shifts_0_9``) the digit planes on the tensor cores, with four
+    (``wide4_d4``, past the planes' three) the CUDA-core kernel through the
+    wrapper; float32 and bf16 x alike."""
     m = 300 if impl == "tiled" else 64
     g = torch.Generator(device=cuda).manual_seed(6)
     x = torch.randn(m, 256, device=cuda, generator=g)
-    codes = torch.randint(0, 2 ** WIDE.bits_per_weight, (256, 96), device=cuda, generator=g,
-                          dtype=torch.uint8)
     sf = torch.tensor([0.01], device=cuda)
     kernel = elp_bsd_matmul if impl == "tiled" else fused_decode_matmul
-    for xx in (x, x.to(torch.bfloat16)):
-        got = _routed(kernel, "f32", lambda: kernel(xx, codes, sf, WIDE, out_dtype=torch.float32))
-        _close(got, elp_bsd_matmul_plain(xx, codes, sf, WIDE, out_dtype=torch.float32))
+    for fmt, routes in ((WIDE, ("bf16x3_digits", "wgmma_digits")), (WIDE4, ("f32", "f32"))):
+        codes = torch.randint(0, 2 ** fmt.bits_per_weight, (256, 96), device=cuda, generator=g,
+                              dtype=torch.uint8)
+        for xx, r in zip((x, x.to(torch.bfloat16)), routes):
+            got = _routed(kernel, r, lambda: kernel(xx, codes, sf, fmt, out_dtype=torch.float32))
+            _close(got, elp_bsd_matmul_plain(xx, codes, sf, fmt, out_dtype=torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# The digit-plane routes: formats that are not bf16-exact, 2-3 digits
+# ---------------------------------------------------------------------------
+# Table II B's shape with a second digit reaching 2^9; three digits in 7
+# bits; three in a nibble.
+WIDE_B7 = ElpBsdFormat((DigitSpec(shifts=(0, 1, 2, 3, 4, 5, 6, 7)), DigitSpec(shifts=(0, 3, 6, 9))),
+                       name="wide_b7")
+WIDE3_D7 = ElpBsdFormat((DigitSpec((0, 1, 2, 3)), DigitSpec((0, 9)), DigitSpec((4, 13))),
+                        name="wide3_d7")
+WIDE3_N4 = ElpBsdFormat((DigitSpec((0,)), DigitSpec((9,)), DigitSpec((4, 13))), name="wide3_n4")
+DIGIT_LAYOUTS = [(WIDE_B7, False), (WIDE3_D7, False), (WIDE, True), (WIDE3_N4, True)]
+# M: the decode step (16), AlexNet's fc (64), ragged (37; 200, the
+# decode-step kernel's 256-row instance), above the decode-step kernel's 256
+# (300) and the LM prefill (2048, K and N of qwen3-8b's wk/wv).
+DIGIT_MS = [16, 37, 64, 200, 300, 2048]
+
+
+def _digit_case(dev, fmt, nibble, m, dtype, seed=0):
+    k, n = (4096, 1024) if m == 2048 else (999, 200)
+    g = torch.Generator(device=dev).manual_seed(seed + m)
+    x = torch.randn(m, k, device=dev, generator=g).to(dtype)
+    rows = (k + 1) // 2 if nibble else k
+    codes = torch.randint(0, 256 if nibble else 2 ** fmt.bits_per_weight, (rows, n), device=dev,
+                          generator=g, dtype=torch.uint8)
+    return x, codes, torch.tensor([0.013], device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("fmt,nibble", DIGIT_LAYOUTS, ids=lambda v: getattr(v, "name", str(v)))
+@pytest.mark.parametrize("impl,m", [("tiled", m) for m in DIGIT_MS]
+                         + [("fused", m) for m in DIGIT_MS if m <= 256])
+def test_digit_routes_match_plain(cuda, impl, m, fmt, nibble, dtype):
+    """Both digit routes of both kernels, D = 2 and 3, u8 and nibble codes
+    (odd K: the nibble pad row), against the plain version (float32 decode)."""
+    x, codes, sf = _digit_case(cuda, fmt, nibble, m, dtype)
+    kernel = elp_bsd_matmul if impl == "tiled" else fused_decode_matmul
+    r = ("wgmma" if dtype == torch.bfloat16 else "bf16x3") + "_digits"
+    got = _routed(kernel, r, lambda: kernel(x, codes, sf, fmt, nibble=nibble,
+                                            out_dtype=torch.float32))
+    _close(got, elp_bsd_matmul_plain(x, codes, sf, fmt, nibble=nibble, out_dtype=torch.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("impl,m", [("tiled", 2048), ("tiled", 300), ("fused", 16),
+                                    ("fused", 64), ("fused", 200)])
+def test_digit_routes_are_deterministic(cuda, impl, m, dtype):
+    """Four runs bit-identical, split-K sums included (wide_b7 u8, wide3_n4 nibble)."""
+    kernel = elp_bsd_matmul if impl == "tiled" else fused_decode_matmul
+    for fmt, nibble in ((WIDE_B7, False), (WIDE3_N4, True)):
+        x, codes, sf = _digit_case(cuda, fmt, nibble, m, dtype, seed=11)
+        first = kernel(x, codes, sf, fmt, nibble=nibble, out_dtype=torch.float32)
+        for _ in range(3):
+            assert torch.equal(kernel(x, codes, sf, fmt, nibble=nibble,
+                                      out_dtype=torch.float32), first)
 
 
 def test_bf16x3_routes_raise_on_bad_inputs(cuda):

@@ -31,6 +31,8 @@ from repro_torch.kernels import fused_decode as fd  # noqa: E402
 
 # Two digits 9 binary places apart: 2^9 + 1 needs 10 significant bits.
 WIDE = ElpBsdFormat((DigitSpec(shifts=(0,)), DigitSpec(shifts=(9,))), name="shifts_0_9")
+# Four digits: past the digit planes' three, so the CUDA-core route.
+WIDE4 = ElpBsdFormat(tuple(DigitSpec(shifts=(s,)) for s in (0, 9, 18, 27)), name="wide4_d4")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -50,15 +52,17 @@ def test_decode_route_rule_without_launching():
     assert fd.route(x.to(torch.bfloat16), c6) == "wgmma"
     assert fd.route(x, a4) == "bf16x3"
     assert fd.route(x.to(torch.float16), a4) == "bf16x3"
-    assert fd.route(x.to(torch.bfloat16), WIDE) == "f32"
-    assert fd.route(x, WIDE) == "f32"
+    assert fd.route(x.to(torch.bfloat16), WIDE) == "wgmma_digits"
+    assert fd.route(x, WIDE) == "bf16x3_digits"
+    assert fd.route(x.to(torch.bfloat16), WIDE4) == "f32"
+    assert fd.route(x, WIDE4) == "f32"
     before = (fd.fused_decode_matmul.launches, dict(fd.fused_decode_matmul.launches_by_route))
     out = fd.fused_decode_matmul(x.to(torch.bfloat16), torch.zeros(32, 16, dtype=torch.uint8),
                                  1.0, a4, nibble=True)
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (16, 16)
     assert (fd.fused_decode_matmul.launches, fd.fused_decode_matmul.launches_by_route) == before
-    assert set(fd.fused_decode_matmul.launches_by_route) == set(fd.ROUTES) == {"wgmma", "bf16x3",
-                                                                               "f32"}
+    assert set(fd.fused_decode_matmul.launches_by_route) == set(fd.ROUTES) == {
+        "wgmma", "bf16x3", "wgmma_digits", "bf16x3_digits", "f32"}
 
 
 def test_flash_route_rule_without_launching():

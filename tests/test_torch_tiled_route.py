@@ -28,6 +28,8 @@ from repro_torch.kernels.ref import bf16_exact, decode_table  # noqa: E402
 TOL = dict(rtol=1e-5, atol=1e-4)
 # Two digits 9 binary places apart: 2^9 + 1 needs 10 significant bits.
 WIDE = ElpBsdFormat((DigitSpec(shifts=(0,)), DigitSpec(shifts=(9,))), name="shifts_0_9")
+# Four digits: past the digit planes' three, so the CUDA-core route.
+WIDE4 = ElpBsdFormat(tuple(DigitSpec(shifts=(s,)) for s in (0, 9, 18, 27)), name="wide4_d4")
 LAYOUTS = [("elp_bsd_a4", True)] + [(f, False) for f in sorted(TFMT)]
 
 
@@ -104,9 +106,13 @@ def test_route_rule_without_launching():
     assert mm.route(x, a4) == "bf16x3"
     assert mm.route(x, c6) == "bf16x3"
     assert mm.route(x.to(torch.float16), a4) == "bf16x3"
-    assert mm.route(x.to(torch.bfloat16), WIDE) == "f32"
-    assert mm.route(x, WIDE) == "f32"
-    assert mm.route(x.to(torch.float16), WIDE) == "f32"
+    assert mm.route(x.to(torch.bfloat16), WIDE) == "wgmma_digits"
+    assert mm.route(x, WIDE) == "bf16x3_digits"
+    assert mm.route(x.to(torch.float16), WIDE) == "bf16x3_digits"
+    for xx in (x, x.to(torch.bfloat16), x.to(torch.float16)):
+        assert mm.route(xx, WIDE4) == "f32"
+    assert mm.route(x.double(), WIDE) == "f32"
+    assert mm.route(x.double(), a4) == "f32"
     before = (mm.elp_bsd_matmul.launches, dict(mm.elp_bsd_matmul.launches_by_route))
     out = mm.elp_bsd_matmul(x.to(torch.bfloat16), torch.zeros(32, 16, dtype=torch.uint8), 1.0, a4,
                             nibble=True)
