@@ -3,14 +3,14 @@
 
 Builds the six CUDA kernel sources from ``src/repro_torch/csrc`` (one
 ``nvcc`` each, in parallel) and drives the port's two main paths. The two
-packed matmuls have five routes each, flash attention two, picked by the
+packed matmuls have five routes each, flash attention three, picked by the
 wrapper's ``route``: ``<kernel>/wgmma`` (bf16 on the tensor cores; the LM's
-bf16 activations), ``<matmul>/bf16x3`` (float32 activations split exactly
-into three bf16 terms on the tensor cores; AlexNet), ``<matmul>/wgmma_digits``
-and ``<matmul>/bf16x3_digits`` (the same for a format that is not
-bf16-exact, one digit plane at a time) and ``<kernel>/f32`` (float32 on CUDA
-cores; the matmuls' on no main path now, launched directly here so they
-stay held and timed).
+bf16 activations), ``<kernel>/bf16x3`` (float32 operands split exactly
+into three bf16 terms on the tensor cores; AlexNet, the float32 LMs),
+``<matmul>/wgmma_digits`` and ``<matmul>/bf16x3_digits`` (the same for a
+format that is not bf16-exact, one digit plane at a time) and
+``<kernel>/f32`` (float32 on CUDA cores; on no main path now, launched
+directly here so they stay held and timed).
 
 * the packed CNN path: each matmul's bf16x3 route held against its plain
   PyTorch version at full-width AlexNet shapes (batch 64), and the float32
@@ -38,14 +38,21 @@ stay held and timed).
   at the lockstep geometry (28 tiled launches a prefill, 28 decode-step a
   step, on wgmma_digits), teacher-forced against the plain versions;
 * the packed LM serving path at full-width qwen3-8b: the flash-attention
-  kernels held against their plain version (f32 route on float32 inputs,
-  wgmma route on bf16, causal and not, at the prefill shape
+  kernels held against their plain version (bf16x3 route on float32
+  inputs, wgmma route on bf16, causal and not, at the prefill shape
   [16, 32, 128, 128] and at [1, 32, 4096, 128]) and the matmul kernels at
   the LM's shapes (M = 2048 prefill on the tiled wgmma route, plus one
   ragged shape and one c6 u8 shape there; M = 16 decode step on the
   decode-step wgmma route), each timed beside its plain version, one
-  library call and, for the wgmma routes, the f32 route on the same
-  inputs (the kernel the route replaced on the LM path); then
+  library call and, for the wgmma routes and float32 flash, the f32 route
+  on the same inputs (the kernel the route replaced); then lm-100m (the
+  float32 LM the port trains, 16 layers, d 512) served packed at full
+  width and depth (phase 5b: elp4, float activations, ``static_generate``
+  of 16 new tokens for 16 seeded 256-token prompts, 112 tiled + 16 flash
+  launches in the prefill and 112 decode-step launches a step, all on the
+  bf16x3 routes; card against CPU prefill logits and teacher-forced kernels
+  against plain versions within 1e-4 of max |logit|; every shape held, the
+  flash shape beside 3a launched directly); then
   ``api.quantize`` (calibration on [2, 4, 128] seeded token ids, per-slice
   a4 packing of every block matmul) of seeded bf16 qwen3-8b weights and
   ``serve.engine.static_generate`` of 16 new tokens for 16 seeded 128-token
@@ -211,15 +218,15 @@ main paths (one AlexNet forward, the Sec. V phases, one generate, the
 engine phase, the MoE and VLM phases, one generate of each recurrent and
 enc-dec model, one VGG16 forward, the paper-results phase, the mesh phase, both
 ranks of the TP phase, the cost phase's counted step and serve_quantized, the
-digit paths' AlexNet forward and qwen3-8b generate), and
+digit paths' AlexNet forward and qwen3-8b generate, one lm-100m generate), and
 ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are the per-shape
 times of those launches, each shape weighted by its launches (a Sec. V shape
 is timed once per format, an engine shape at the inputs of its first call).
-The two matmul ``/f32`` routes have no launch on any path: their times are
+The three ``/f32`` routes have no launch on any path: the matmuls' times are
 those of AlexNet's a4 shapes (one forward's worth, the kernel launched
-directly). ``flash_attention/f32`` launches in the cost phase's float32
-serve_quantized prefills; its times are those shapes' and the prefill's
-attention shape in float32, weighted as one generate's 36 launches. Every
+directly), flash's those of the bf16x3 route's float32 shapes on the paths
+(the lm-100m generate, the cost phase's serve_quantized), 3a launched
+directly on the same inputs and weighted by the bf16x3 launches. Every
 time is the device's: a launch is queued behind a device sleep, so the
 host's own time to issue it is not counted.
 """
@@ -243,7 +250,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # type (float32 outside the tensor cores, bfloat16 on them) and device memory
 # bandwidth. A kernel's bound takes the rate of its arithmetic: its inputs'
 # type, or for the bf16x3 routes three bf16 passes over the product; the
-# digit routes of a D-digit format D (wgmma_digits) or 3 D (bf16x3_digits).
+# digit routes of a D-digit format D (wgmma_digits) or 3 D (bf16x3_digits);
+# float32 flash attention's bf16x3 route the bf16 products of its (S, P V)
+# pair (_flash_bound).
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "bf16x3": 989e12 / 3,
               **{f"wgmma_digits_d{d}": 989e12 / d for d in (2, 3)},
               **{f"bf16x3_digits_d{d}": 989e12 / (3 * d) for d in (2, 3)}}
@@ -322,8 +331,10 @@ def timed_ms(fn, torch, flush, iters: int = 7) -> float:
 
 def bound(flops: float, nbytes: float, dtype) -> dict:
     """The least time for the work: operations at the peak of ``dtype`` inputs (a
-    torch dtype, or ``"bf16x3"``), bytes at HBM."""
-    rate = PEAK_FLOPS[dtype if isinstance(dtype, str) else str(dtype)[6:]]
+    torch dtype, or a key of PEAK_FLOPS, or a rate in operations a second), bytes
+    at HBM."""
+    rate = (dtype if isinstance(dtype, float)
+            else PEAK_FLOPS[dtype if isinstance(dtype, str) else str(dtype)[6:]])
     ops_ms = flops / rate * 1e3
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return {"flops": flops, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
@@ -331,13 +342,36 @@ def bound(flops: float, nbytes: float, dtype) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def _flash_bound(q, k, causal: bool) -> dict:
-    """Operations (4*hd per unmasked query-key pair) at q's type's peak, q/k/v/out bytes at HBM."""
+def _flash_bound(q, k, causal: bool, q_offset: int = 0, rate=None) -> dict:
+    """Operations (4*hd per query-key pair the mask keeps, ``attention_pairs``) at
+    ``rate`` (default: the route's for q's type: bf16, or for float32 the bf16
+    rate over the bf16x3 route's mean bf16 products a float32 one, from
+    ``ref.FLASH_ROUTE_PRODUCTS``), q/k/v/out bytes at HBM. A float32 call also
+    gets ``f32_bound_ms``, the same work at the CUDA cores' float32 rate."""
+    from repro_torch.kernels.flash_attention import attention_pairs
+    from repro_torch.kernels.ref import FLASH_ROUTE_PRODUCTS
+
     b, h, sq, hd = q.shape
-    sk = k.shape[2]
-    pairs = b * h * (sq * (sq + 1) / 2 if causal else sq * sk)
+    pairs = b * h * attention_pairs(sq, k.shape[2], causal, q_offset)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    return bound(4.0 * hd * pairs, nbytes, q.dtype)
+    f32 = str(q.dtype) == "torch.float32"
+    bf16x3_rate = PEAK_FLOPS["bfloat16"] * len(FLASH_ROUTE_PRODUCTS) / sum(FLASH_ROUTE_PRODUCTS)
+    out = bound(4.0 * hd * pairs, nbytes, rate or (bf16x3_rate if f32 else q.dtype))
+    if f32:
+        out["f32_bound_ms"] = bound(4.0 * hd * pairs, nbytes, "float32")["bound_ms"]
+    return out
+
+
+def _flash_f32_direct(torch, flush, q, k, v, causal: bool, q_offset: int = 0) -> tuple:
+    """3a (``csrc/flash_attention.cu``, float32 on CUDA cores, on no path since the
+    bf16x3 route replaced it) launched directly on the inputs: its output and
+    its time. Not counted as a launch."""
+    from repro_torch.kernels import flash_attention as fa
+
+    out = torch.empty_like(q)
+    ms = timed_ms(lambda: fa._launch("f32", q, k, v, out, q.shape[1] // k.shape[1], causal,
+                                     q_offset), torch, flush)
+    return out, ms
 
 
 def _worst(got, want, tol) -> float:
@@ -382,18 +416,19 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
         row["max_abs_err"] = err
 
     # Flash attention: the issue's two shapes with H = KVH (the JAX kernel's
-    # contract), float32 on the f32 route and bf16 on the wgmma route, then
-    # the main path's own call (strided q, GQA k/v). The f32 route's prefill
-    # shape stands for the 36 launches a generate would make in float32.
+    # contract), float32 on the bf16x3 route (beside 3a, the CUDA-core kernel
+    # it replaced, launched directly on the same inputs) and bf16 on the
+    # wgmma route, then the main path's own call (strided q, GQA k/v). The
+    # float32 shapes weigh nothing here: the float32 paths' own shapes (the
+    # lm-100m phase, the cost phase's serve_quantized) are held where they run.
     cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for b, s in ((LM_BATCH, LM_PROMPT), (1, 4096)):
             q, k, v = (torch.randn(b, 32, s, 128, device=dev, generator=gen).to(dtype)
                        for _ in range(3))
             for causal in (True, False):
-                stand_in = dtype == torch.float32 and s == LM_PROMPT and causal
                 cases.append((f"{str(dtype)[6:]} [{b}, 32, {s}, 128] causal={causal}",
-                              q, k, v, causal, n_layers if stand_in else 0))
+                              q, k, v, causal, 0))
     qm = torch.randn(LM_BATCH, LM_PROMPT, 32, 128, device=dev, generator=gen).to(torch.bfloat16)
     km, vm = (torch.randn(LM_BATCH, LM_PROMPT, 8, 128, device=dev, generator=gen)
               .to(torch.bfloat16) for _ in range(2))
@@ -409,22 +444,27 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
             q, k, v, is_causal=causal, enable_gqa=gqa)
         row = {"shape": label, "weight": weight, "lm": True}
         before = dict(flash_attention.launches_by_route)
-        record(name, row, run(), ref(), FLASH_TOL[str(q.dtype)[6:]])
-        if flash_attention.launches_by_route[name[16:]] != before[name[16:]] + 1:
-            failures.append(f"{name} {label}: not launched on its route")
+        want = ref()
+        record(name, row, run(), want, FLASH_TOL[str(q.dtype)[6:]])
+        if flash_attention.launches_by_route != {**before, name[16:]: before[name[16:]] + 1}:
+            failures.append(f"{name} {label}: not launched on its route alone")
         with full_f32():
             row["library_ms"] = timed_ms(library, torch, flush)
         row["ms"] = timed_ms(run, torch, flush)
         row["plain_ms"] = timed_ms(ref, torch, flush)
-        if name.endswith("wgmma"):
-            # the kernel this route replaced, on the same bf16 inputs
-            out = torch.empty_like(q)
-            row["f32_route_ms"] = timed_ms(
-                lambda: fa._launch("f32", q, k, v, out, q.shape[1] // k.shape[1], causal, 0),
-                torch, flush)
+        # 3a, the CUDA-core kernel the tensor-core route replaced, on the same inputs
+        out, row["f32_route_ms"] = _flash_f32_direct(torch, flush, q, k, v, causal)
         row.update(_flash_bound(q, k, causal))
         row["tflops"] = row["flops"] / row["ms"] / 1e9
         rows[name].append(row)
+        if name.endswith("bf16x3"):
+            f32_row = {"shape": label, "weight": weight, "lm": True, "ms": row["f32_route_ms"],
+                       "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+                       **_flash_bound(q, k, causal, rate="float32")}
+            record("flash_attention/f32", f32_row, out, want, FLASH_TOL["float32"])
+            f32_row["tflops"] = f32_row["flops"] / f32_row["ms"] / 1e9
+            rows["flash_attention/f32"].append(f32_row)
+        del want, out
     # The elementwise limit must see a subtle fault that the logits cannot:
     # P.V accumulated in bf16, at the main path's call. Beside it, what the
     # wgmma kernel would read with P rounded once to bf16 (it adds P_hi.V and
@@ -496,11 +536,13 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
                              x.dtype))
             row["tflops"] = row["flops"] / row["ms"] / 1e9
             rows[name].append(row)
-    for name in ("flash_attention/f32", "flash_attention/wgmma", "elp_bsd_matmul/wgmma",
-                 "fused_decode_matmul/wgmma"):
+    for name in ("flash_attention/f32", "flash_attention/bf16x3", "flash_attention/wgmma",
+                 "elp_bsd_matmul/wgmma", "fused_decode_matmul/wgmma"):
         for r in rows[name]:
             if r.get("lm"):
                 f32 = f", f32 route {r['f32_route_ms']:.4f} ms" if "f32_route_ms" in r else ""
+                if "f32_bound_ms" in r and name.endswith("bf16x3"):
+                    f32 += f", bound at the float32 rate {r['f32_bound_ms']:.4f} ms"
                 print(f"[lm-kernels] {name} {r['shape']}: kernel {r['ms']:.4f} ms "
                       f"({r['tflops']:.1f} TFLOP/s, {r['bound_ms'] / r['ms']:.3f} of bound), "
                       f"plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
@@ -513,12 +555,13 @@ def lm_kernel_phase(torch, dev, gen, flush, rows, failures) -> None:
               f"same inputs {old:.3f} ms ({old / new:.2f}x)")
 
 
-# The twelve kernel routes, in the order of _counts().
+# The thirteen kernel routes, in the order of _counts().
 KERNEL_ROUTES = ("elp_bsd_matmul/wgmma", "elp_bsd_matmul/bf16x3", "elp_bsd_matmul/wgmma_digits",
                  "elp_bsd_matmul/bf16x3_digits", "elp_bsd_matmul/f32",
                  "fused_decode_matmul/wgmma", "fused_decode_matmul/bf16x3",
                  "fused_decode_matmul/wgmma_digits", "fused_decode_matmul/bf16x3_digits",
-                 "fused_decode_matmul/f32", "flash_attention/wgmma", "flash_attention/f32")
+                 "fused_decode_matmul/f32", "flash_attention/wgmma", "flash_attention/bf16x3",
+                 "flash_attention/f32")
 
 
 def _wrappers():
@@ -1353,14 +1396,18 @@ class KernelTap:
         return False
 
 
-def hold_tapped(torch, dev, label, tap, rows, failures, library_for=None) -> None:
+def hold_tapped(torch, dev, label, tap, rows, failures, library_for=None,
+                tag: str = "engine") -> None:
     """Each kernel shape of a run (``tap``), its output from the run held against
     the plain version on the same inputs (matmuls at REL_TOL, flash at
     FLASH_TOL); then the kernel timed at that shape beside the plain version and
-    one library call, each row weighted by the shape's calls in the run. A
-    matmul's library call is ``torch.matmul`` on the dequantized weight, or
-    ``library_for(x, wq)`` where that gives one (a conv's cuDNN call); its bound
-    takes its route's arithmetic (bf16x3: three bf16 passes)."""
+    one library call, each row weighted by the shape's calls in the run and
+    marked ``tag``. A matmul's library call is ``torch.matmul`` on the
+    dequantized weight, or ``library_for(x, wq)`` where that gives one (a conv's
+    cuDNN call); its bound takes its route's arithmetic (bf16x3: three bf16
+    passes). A float32 flash shape (the bf16x3 route) also has 3a, the CUDA-core
+    kernel it replaced, launched directly on the same inputs, held and timed:
+    a ``flash_attention/f32`` row of the same weight, marked ``"direct"``."""
     import torch.nn.functional as F
 
     from repro_torch.device import full_f32
@@ -1389,8 +1436,9 @@ def hold_tapped(torch, dev, label, tap, rows, failures, library_for=None) -> Non
                 q, k, v, attn_mask=mask, is_causal=kw["causal"] and mask is None,
                 enable_gqa=k.shape[1] != q.shape[1])
             tol = FLASH_TOL[str(q.dtype)[6:]]
-            shape = f"q{list(q.shape)} k{list(k.shape)} causal={kw['causal']}"
-            cost = _flash_bound(q, k, kw["causal"])
+            shape = (f"q{list(q.shape)} k{list(k.shape)} causal={kw['causal']}"
+                     + (f" q_offset={kw['q_offset']}" if kw["q_offset"] else ""))
+            cost = _flash_bound(q, k, kw["causal"], kw["q_offset"])
         else:
             x, codes, sf, fmt = args
             kernel, plain = kernels[name.split("/")[0]]
@@ -1417,7 +1465,7 @@ def hold_tapped(torch, dev, label, tap, rows, failures, library_for=None) -> Non
         worst[name] = max(worst[name], w)
         if not ok:
             failures.append(f"[engine-kernels] {label}: {name} {shape}: worst |err| / limit {w:.3f}")
-        row = {"shape": f"{label}: {shape}", "weight": rec["n"], "engine": True,
+        row = {"shape": f"{label}: {shape}", "weight": rec["n"], tag: True,
                "max_abs_err": err}
         with full_f32():
             row["library_ms"] = timed_ms(library, torch, flush)
@@ -1425,18 +1473,37 @@ def hold_tapped(torch, dev, label, tap, rows, failures, library_for=None) -> Non
         row["plain_ms"] = timed_ms(ref, torch, flush)
         row.update(cost)
         rows[name].append(row)
+        f32 = ""
+        if name == "flash_attention/bf16x3":
+            out, row["f32_route_ms"] = _flash_f32_direct(torch, flush, q, k, v, **kw)
+            w3a = _worst(out, want, tol)
+            d = {"shape": row["shape"], "weight": rec["n"], "direct": True, "ms": row["f32_route_ms"],
+                 "max_abs_err": (out - want).abs().max().item(), "plain_ms": row["plain_ms"],
+                 "library_ms": row["library_ms"],
+                 **_flash_bound(q, k, kw["causal"], kw["q_offset"], rate="float32")}
+            rows["flash_attention/f32"].append(d)
+            if not w3a <= 1.0:
+                failures.append(f"[engine-kernels] {label}: 3a launched directly on {shape}: "
+                                f"worst |err| / limit {w3a:.3f}")
+            f32 = (f", 3a (f32 kernel) on the same inputs {d['ms']:.4f} ms (worst |err| / limit "
+                   f"{w3a:.3f}), bound at the float32 rate {d['bound_ms']:.4f} ms")
+            del out
         print(f"[engine-kernels] {label}: {name} {shape}: {rec['n']} launches in the run; "
               f"max_abs_err {err:.3e}, worst |err| / limit {w:.3f} {'ok' if ok else 'FAIL'}; "
               f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+              f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}){f32}")
     for name in sorted(worst):
-        rs = [r for r in rows[name] if r.get("engine") and r["shape"].startswith(label)]
+        rs = [r for r in rows[name] if r.get(tag) and r["shape"].startswith(label)]
         print(f"[engine-kernels] {label}: {name}: {len(rs)} shapes held, worst |err| / limit "
               f"{worst[name]:.3f} (limit 1), {sum(r['weight'] for r in rs)} launches; "
               f"kernel {sum(r['weight'] * r['ms'] for r in rs):.3f} ms over them, plain "
               f"{sum(r['weight'] * r['plain_ms'] for r in rs):.3f} ms, bound "
               f"{sum(r['weight'] * r['bound_ms'] for r in rs):.3f} ms, library "
               f"{sum(r['weight'] * r['library_ms'] for r in rs):.3f} ms")
+        if name == "flash_attention/bf16x3":
+            print(f"[engine-kernels] {label}: {name}: 3a (f32 kernel) launched directly on the "
+                  f"same inputs {sum(r['weight'] * r['f32_route_ms'] for r in rs):.3f} ms over "
+                  f"them")
     tap.calls.clear()
     del flush
     torch.cuda.empty_cache()
@@ -1613,6 +1680,144 @@ def lm_card_vs_cpu(torch, dev, failures) -> None:
               f"{diff:.3e} of max |logit| (limit {rel:g}); greedy tokens identical {same}")
         if diff > rel or (act == "float" and not same):
             failures.append(f"reduced LM card vs CPU, act={act}")
+
+
+# lm-100m, the float32 LM the port trains (experiments/train_lm.py's CFG: 16
+# layers, d 512, 8 heads, 4 KV heads, hd 64, vocab 32000), served packed at
+# full width and depth: elp4 codes, float activations, so its prefill runs
+# float32 flash on the bf16x3 route and its matmuls on the bf16x3 routes.
+# Lockstep geometry: LM100_BATCH prompts of the config's training length.
+LM100_BATCH, LM100_PROMPT, LM100_NEW = 16, 256, 16
+LM100_PER_LAYER = 7  # wq, wk, wv, wo, w1, w3, w2
+LM100_CPU_ROWS = 4  # prompts of the card-against-CPU prefill
+
+
+def lm100m_phase(torch, dev, failures, rows) -> dict:
+    """lm-100m served packed in float32: seeded weights, ``api.quantize`` (elp4,
+    float activations) on the card, ``static_generate`` at LM100_BATCH x
+    LM100_PROMPT + LM100_NEW, its launches per model call against the counts the
+    model's code gives (a prefill: 7 tiled + 1 flash a layer, every one on its
+    bf16x3 route, M = 4096; a decode step: 7 decode-step bf16x3 a layer, M = 16);
+    prefill, decode-step, tokens/s and peak memory; the prefill logits of the
+    first LM100_CPU_ROWS prompts against the port's CPU run of the same packed
+    model, and the teacher-forced logits at full depth with the kernels against
+    the plain versions on the card, both within FLOAT_LOGIT_REL_TOL of max
+    |logit|; every kernel shape of the generate held and timed (flash beside 3a,
+    launched directly on the same inputs). Returns the generate's launches."""
+    import repro_torch.kernels.ops as ops_mod
+    import repro_torch.models.transformer as transformer
+    import repro_torch.serve.engine as engine_mod
+    from repro_torch import api
+    from repro_torch.experiments.train_lm import CFG as cfg
+    from repro_torch.kernels.elp_bsd_matmul import elp_bsd_matmul_plain
+    from repro_torch.kernels.fused_decode import fused_decode_matmul_plain
+
+    t_phase = time.perf_counter()
+    n_layers = cfg.n_layers
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab, (LM100_BATCH, LM100_PROMPT), device=dev, generator=gen)
+    t0 = time.perf_counter()
+    qm = api.quantize(cfg, params, api.QuantScheme(fmt="elp4", act="float"))
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    del params
+    print(f"[lm-100m] {cfg.name} ({cfg.param_count()} parameters, {cfg.dtype_str}, "
+          f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}): api.quantize (elp4, float activations) {conv_s:.2f} s")
+
+    setup = engine_mod.ServeSetup(cfg=cfg, mesh=None, max_len=LM100_PROMPT + LM100_NEW,
+                                  batch=LM100_BATCH)
+
+    def static_run():
+        return engine_mod.static_generate(setup, qm.params, {"tokens": prompts}, LM100_NEW)
+
+    prefill_counts = _expected({"elp_bsd_matmul/bf16x3": n_layers * LM100_PER_LAYER,
+                                "flash_attention/bf16x3": n_layers})
+    step_counts = _expected({"fused_decode_matmul/bf16x3": n_layers * LM100_PER_LAYER})
+    want_phases = [("prefill", prefill_counts)] + [("decode", step_counts)] * (LM100_NEW - 1)
+    tap = KernelTap()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with tap:
+        new, phases = _phased(torch, static_run)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(zip(KERNEL_ROUTES, _counts()))
+    print(f"[lm-100m] launches by model call: prefill {dict(zip(KERNEL_ROUTES, phases[0][1]))}, "
+          f"decode steps {sorted(set(p_[1] for p_ in phases[1:]))} over {len(phases) - 1} steps "
+          f"(expected prefill {prefill_counts}, each step {step_counts})")
+    if phases != want_phases:
+        failures.append(f"[lm-100m] launch counts by model call {phases}")
+    if (tuple(new.shape) != (LM100_BATCH, LM100_NEW) or int(new.min()) < 0
+            or int(new.max()) >= cfg.vocab):
+        failures.append(f"[lm-100m] generated tokens of shape {tuple(new.shape)} or out of the vocab")
+    gen_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        again = static_run()
+        torch.cuda.synchronize()
+        gen_ms.append((time.perf_counter() - t0) * 1e3)
+        if not torch.equal(again, new):
+            failures.append("[lm-100m] a later generate gave other tokens")
+    cache = transformer.init_cache(cfg, LM100_BATCH, LM100_PROMPT + LM100_NEW, device=dev)
+    pre_ms, step_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = transformer.prefill(qm.params, cfg, prompts, cache)
+        torch.cuda.synchronize()
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    for i in range(LM100_NEW - 1):
+        t0 = time.perf_counter()
+        _, cache = transformer.decode_step(qm.params, cfg, new[:, i:i + 1], cache, LM100_PROMPT + i)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[lm-100m] generate ({LM100_BATCH} x {LM100_PROMPT} tokens, {LM100_NEW} new): "
+          f"{[round(t, 2) for t in gen_ms]} ms, tokens/s {LM100_BATCH * LM100_NEW / gen_ms[-1] * 1e3:.1f} "
+          f"(the later run); prefill {pre_ms[-1]:.2f} ms (first {pre_ms[0]:.2f}); decode ms/step "
+          f"median {statistics.median(step_ms):.3f} (min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}); max_memory_allocated {peak} B (the counted generate)")
+
+    # Teacher-forced at full depth: the kernels against their plain versions.
+    plain_mm = (elp_bsd_matmul_plain, fused_decode_matmul_plain)
+
+    def forced(mm, flash) -> list:
+        with _swapped(mm, flash):
+            c = transformer.init_cache(cfg, LM100_BATCH, LM100_PROMPT + LM100_NEW, device=dev)
+            return _teacher_forced(torch, transformer, qm.params, cfg, prompts, new, c)
+
+    kernel_logits = forced((ops_mod.elp_bsd_matmul, ops_mod.fused_decode_matmul),
+                           transformer.flash_attention)
+    plain_logits = forced(plain_mm, _plain_flash())
+    rel = _rel(kernel_logits, plain_logits)
+    same = sum(int((new[:, j] == pl[:, -1].argmax(-1)).sum()) for j, pl in enumerate(plain_logits))
+    print(f"[lm-100m] kernels vs plain versions, teacher-forced on the generated tokens, prefill "
+          f"and {LM100_NEW - 1} steps: max |logit diff| / max |logit| {rel:.3e} (limit "
+          f"{FLOAT_LOGIT_REL_TOL:g}); greedy = plain argmax at {same}/{LM100_BATCH * LM100_NEW}")
+    if not rel <= FLOAT_LOGIT_REL_TOL:
+        failures.append(f"[lm-100m] logits, kernels vs plain {rel:.3e} relative")
+    # Card against CPU: the same packed model's prefill of the first prompts.
+    t0 = time.perf_counter()
+    cpu = qm.to("cpu")
+    rows_cpu = LM100_CPU_ROWS
+    with torch.no_grad():
+        lc, _ = transformer.prefill(cpu.params, cfg, prompts[:rows_cpu].cpu(),
+                                    transformer.init_cache(cfg, rows_cpu, LM100_PROMPT,
+                                                           device="cpu"))
+    lg = kernel_logits[0][:rows_cpu].cpu()
+    diff = (lg - lc).abs().max().item() / lc.abs().max().item()
+    print(f"[lm-100m] card vs CPU prefill logits, first {rows_cpu} prompts: max |diff| / max "
+          f"|logit| {diff:.3e} (limit {FLOAT_LOGIT_REL_TOL:g}); argmax identical "
+          f"{bool(torch.equal(lg.argmax(-1), lc.argmax(-1)))} ({time.perf_counter() - t0:.1f} s "
+          f"on the CPU)")
+    if not diff <= FLOAT_LOGIT_REL_TOL:
+        failures.append(f"[lm-100m] card vs CPU prefill logits {diff:.3e} relative")
+    del cpu, kernel_logits, plain_logits, cache, lc, lg
+    hold_tapped(torch, dev, "lm-100m", tap, rows, failures, tag="lm100m")
+    del qm
+    _collect(torch)
+    print(f"[time] lm-100m phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # The MoE and VLM slice (the transformer families beside dense). olmoe-1b-7b
@@ -2913,7 +3118,7 @@ def _no_kernel_launches(label, failures) -> None:
     """The training forward and backward run no kernel (the flash counter among them)."""
     c = dict(zip(KERNEL_ROUTES, _counts()))
     print(f"[train] {label}: kernel launches during training {sum(c.values())} (flash "
-          f"{c['flash_attention/wgmma'] + c['flash_attention/f32']}; must be 0)")
+          f"{sum(v for k, v in c.items() if k.startswith('flash_attention'))}; must be 0)")
     if any(c.values()):
         failures.append(f"{label}: kernels launched during training {c}")
 
@@ -5285,6 +5490,8 @@ def main() -> int:
     lm_kernel_phase(torch, dev, gen, flush, rows, failures)
     del flush
     torch.cuda.empty_cache()
+    # -- phase 5b: lm-100m served packed in float32 (the bf16x3 flash route) ---------
+    lm100m_launches = lm100m_phase(torch, dev, failures, rows)
 
     # -- phase 6: the LM main path, and phase 7: its kernels held on the card -----
     # -- the mesh phase: a one-rank NCCL group and the (1, 1) mesh over it -----------
@@ -5373,6 +5580,8 @@ def main() -> int:
                                 "src/repro/kernels/flash_attention.py:71"),
         "flash_attention/wgmma": ("src/repro_torch/csrc/flash_attention_wgmma.cu",
                                   "src/repro/kernels/flash_attention.py:71"),
+        "flash_attention/bf16x3": ("src/repro_torch/csrc/flash_attention_wgmma.cu",
+                                   "src/repro/kernels/flash_attention.py:71"),
     }
     kernels = []
     for name, rs in rows.items():
@@ -5388,7 +5597,7 @@ def main() -> int:
                          + engine_launches[name] + moe_launches[name] + vlm_launches[name]
                          + family_launches[name] + vgg_launches[name] + paper_launches[name]
                          + mesh_launches[name] + tp_launches[name] + cost_launches[name]
-                         + digit_launches[name]),
+                         + digit_launches[name] + lm100m_launches[name]),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": wsum("ms"),
             "plain_ms": wsum("plain_ms"),

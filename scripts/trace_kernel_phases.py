@@ -57,11 +57,11 @@ STAMP_ENTRY = (
 # ready, 1 + 3i = stage i arrived, 2 + 3i = stage i decoded, 3 + 3i = stage i
 # freed (i < 19), 61 = main loop done, 62 = partial sums flagged, 63 = end.
 DECODE_STAMPS = [
-    ("  using S = Shape<NT, NIBBLE>;\n", STAMP_ENTRY),
+    ("  using S = Shape<NT, NIBBLE, Dec::PLANES>;\n", STAMP_ENTRY),
     ("  __syncthreads();\n\n  const int warp", None),  # replaced below
     ("    mbar_wait(&full[st], (i / STAGES) & 1);\n",
      "    if (i < 19) STAMP(1 + 3 * i);\n"),
-    ("    decode_stage<NIBBLE>(f, cs + st * S::C_STAGE, tab_lane, col >> 4, col & 15, q);\n",
+    ("    decode_stage<NIBBLE>(f, cs + st * S::C_STAGE, tab + lane, col >> 4, col & 15, q);\n",
      "    if (i < 19) STAMP(2 + 3 * i);\n"),
     ("  auto release = [&](int i) {\n", "    if (i < 19) STAMP(3 + 3 * i);\n"),
     ("    i += TERMS * n_st;\n", "    STAMP(61);\n"),
@@ -110,7 +110,7 @@ TILED_STAMPS = [
      "    " + TSLOT + "STAMP(16 + ts); }\n"),
     ("    if (lane == 0) mbar_arrive(&bempty[i % x3::B_STAGES]);\n",
      "    " + TSLOT + "STAMP(3 + 3 * ts); }\n"),
-    ("  for (int r = 0; r < x3::BM / 2; ++r) fence_operand(d[r]);\n", "  STAMP(62);\n"),
+    ("    }\n  }\n  promote();\n", "  STAMP(62);\n"),
     ("#pragma unroll\n  for (int j = 0; j < x3::BM / 8; ++j) {\n", "    STAMP(63);\n"),
 ]
 
@@ -147,7 +147,7 @@ def patched_flash(src: str) -> str:
     src = src.replace("    __syncwarp();\n    if (lane == 0) mbar_arrive(&empty[st]);\n  }\n",
                       "    if (kt < 3) STAMP(4 + 4 * kt);\n"
                       "    __syncwarp();\n    if (lane == 0) mbar_arrive(&empty[st]);\n  }\n", 1)
-    last = src.rindex("\n}\n\n// A 4-D map")
+    last = src.index("\n}\n\n// ----")  # the end of the bf16 kernel, before the bf16x3 one
     return src[:last] + "\n  STAMP(63);" + src[last:]
 
 
@@ -274,7 +274,7 @@ def main() -> int:
         report(f"tiled bf16x3 {label} M={m} K={k} N={n}", read_stamps(lib), names)
 
     name = "flash_attention_wgmma"
-    lib = build_traced(name, patched_flash, fa._signatures(name))
+    lib = build_traced(name, patched_flash, fa._signatures("wgmma"))
     q = torch.randn(16, 128, 32, 128, device=dev, generator=gen).to(torch.bfloat16).transpose(1, 2)
     k, v = (torch.randn(16, 128, 8, 128, device=dev, generator=gen).to(torch.bfloat16)
             .transpose(1, 2) for _ in range(2))

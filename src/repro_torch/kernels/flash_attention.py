@@ -8,8 +8,8 @@ softmax whose running max, running sum and accumulator are float32, scale
 logits ``-1e30``, the running sum clamped at ``1e-30`` and the output in
 ``q.dtype``.
 
-Two CUDA C++ kernels for ``sm_90a`` compute it, one block per
-(batch*head, 64-query tile) looping over 64-key tiles with m, l and the
+Three CUDA C++ kernels for ``sm_90a`` compute it, one block per
+(batch*head, query tile) looping over 64-key tiles with m, l and the
 accumulator in float32 registers and causal blocks stopping at their
 diagonal tile; :func:`route` picks one before any launch, by one rule:
 
@@ -21,9 +21,23 @@ diagonal tile; :func:`route` picks one before any launch, by one rule:
   prefill shape (q ``[16, 32, 128, 128]``, k and v with 8 heads) the
   causal work is 2.2 GFLOP against 42 MB of q, k, v and out: bytes-bound
   on an H100 (12.5 us at 3.35 TB/s).
-* ``"f32"`` (``csrc/flash_attention.cu``): anything else (float32), in
-  float32 on CUDA cores with the query tile and K and V staged in shared
-  memory.
+* ``"bf16x3"`` (the same source's second kernel): float32 q, k and v. q
+  (scaled by ``1/sqrt(hd)`` in float32, as the reference scales it), k, v
+  and P are each split exactly into three bf16 terms
+  (:func:`repro_torch.kernels.ref.split_bf16x3`) and each product is a sum
+  of float32 cross-products of the terms on the tensor cores, six for
+  ``Q K^T`` and five for ``P V`` (:data:`repro_torch.kernels.ref.FLASH_PRODUCTS`;
+  :func:`repro_torch.kernels.ref.flash_attention_bf16x3` models it). A
+  splitter warpgroup splits the float32 tiles TMA loads for two consumer
+  warpgroups of 64 query rows, which take turns on the tensor cores; each
+  tile's ``P V`` is summed into a zeroed accumulator and added into a
+  float32 register sum. Every float32 call (the float32 LMs' prefill) runs
+  here.
+* ``"f32"`` (``csrc/flash_attention.cu``): float32 on CUDA cores with the
+  query tile and K and V staged in shared memory. No call of the wrapper
+  reaches it (q, k and v of one dtype are bf16 or float32); it stays as
+  the CUDA-core kernel the bf16x3 route replaced, launched directly
+  (:func:`_launch`) to time it beside it.
 
 A failed build or launch raises: nothing retries on the other route.
 
@@ -34,8 +48,8 @@ so the caller does not repeat them), any strides with a unit stride along
 in place, and the output has q's strides), and a ``q_offset`` that places
 the queries at absolute positions ``q_offset ..`` for the causal mask
 (prefill into a cache that already holds ``q_offset`` positions). Sk
-need not tile by ``block_k``: both kernels mask keys at ``kpos >= Sk``
-(the wgmma kernel's TMA loads read zeros past the tensor's extent), and
+need not tile by ``block_k``: the kernels mask keys at ``kpos >= Sk``
+(the tensor-core kernels' TMA loads read zeros past the tensor's extent), and
 the plain version attends over the ``Sk`` keys it is given, so a
 non-causal call never sees a padded key. The JAX kernel asks its callers
 to pad Sk; with causal masking that padding lies past every query, but
@@ -44,7 +58,7 @@ without it each zero key would add ``exp(0 - m)`` to every row's softmax.
 :func:`flash_attention` takes the plain version
 (:func:`flash_attention_plain`) only for tensors on the CPU; on a CUDA
 tensor it launches the routed kernel or raises. ``flash_attention.launches``
-counts both kernels' launches and ``flash_attention.launches_by_route[route]``
+counts every kernel's launches and ``flash_attention.launches_by_route[route]``
 each one's: real launches only. Inputs that require grad, with grad mode on,
 raise (the kernels have no backward).
 
@@ -71,7 +85,7 @@ from repro_torch.models.layers import NEG_INF
 F32 = torch.float32
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HD = 128  # the CUDA kernels' widest head
-ROUTES = ("wgmma", "f32")
+ROUTES = ("wgmma", "bf16x3", "f32")
 
 
 def _check(q, k, v, block_q: int, block_k: int) -> tuple[int, int]:
@@ -120,16 +134,23 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, q_offset: int = 0) ->
 
 def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel :func:`flash_attention` launches for CUDA tensors: ``"wgmma"`` when
-    q, k and v are all bf16, else ``"f32"``."""
-    return "wgmma" if q.dtype == k.dtype == v.dtype == torch.bfloat16 else "f32"
+    q, k and v are all bf16, else ``"bf16x3"`` (the wrapper has refused every
+    other dtype but float32)."""
+    return "wgmma" if q.dtype == k.dtype == v.dtype == torch.bfloat16 else "bf16x3"
 
 
-def _signatures(name: str) -> dict:
+# Each route's library (csrc/<name>.cu) and C entry point.
+_ENTRY = {"wgmma": ("flash_attention_wgmma", "flash_attention_wgmma_launch"),
+          "bf16x3": ("flash_attention_wgmma", "flash_attention_wgmma_bf16x3_launch"),
+          "f32": ("flash_attention", "flash_attention_launch")}
+
+
+def _signatures(r: str) -> dict:
     # every pointer and the stream as c_void_p (undeclared, ctypes would cut them to 32 bits);
-    # the float32 kernel's entry point also takes the dtype code
-    ints = 7 if name == "flash_attention" else 6
+    # the CUDA-core kernel's entry point also takes the dtype code
+    ints = 7 if r == "f32" else 6
     return {
-        f"{name}_launch": (
+        _ENTRY[r][1]: (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints
             + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p],
             ctypes.c_int,
@@ -154,24 +175,24 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
 def _launch(r: str, q, k, v, out, group: int, causal: bool, q_offset: int) -> None:
     from repro_torch import _build
 
-    name = "flash_attention_wgmma" if r == "wgmma" else "flash_attention"
-    if r == "wgmma":
+    name, entry = _ENTRY[r]
+    if r != "f32":
         q, k, v = (_tma_ready(t) for t in (q, k, v))
     b, h, sq, hd = q.shape
     sk = k.shape[2]
-    lib = _build.load(name, _signatures(name))
+    lib = _build.load(name, _signatures(r))
     strides = (ctypes.c_longlong * 12)(*[t.stride(i) for t in (q, k, v, out) for i in range(3)])
-    dtype = () if r == "wgmma" else (DTYPE_CODES[q.dtype],)
+    dtype = (DTYPE_CODES[q.dtype],) if r == "f32" else ()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, f"{name}_launch")(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dtype,
             b, h, group, sq, sk, hd, strides, int(causal), int(q_offset),
             1.0 / math.sqrt(hd), stream,
         )
     if err != 0:
         raise RuntimeError(
-            f"{name} launch failed with code {err} (q{tuple(q.shape)}, "
+            f"{entry} launch failed with code {err} (q{tuple(q.shape)}, "
             f"k{tuple(k.shape)}, {q.dtype}, causal={causal}, q_offset={q_offset}); "
             "-1 means the kernel refused the shape"
         )

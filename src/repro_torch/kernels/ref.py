@@ -9,11 +9,13 @@ form; the tensor-core kernels look each code byte up in
 :func:`decode_table`, built from it, or, for a format whose values are not
 all exact in bf16, build each digit's plane of terms (:func:`digit_planes`,
 from :func:`plane_words`), and split float32 activations by
-:func:`split_bf16x3`.
+:func:`split_bf16x3`. :func:`flash_attention_bf16x3` models the float32
+flash-attention route's arithmetic (both operands of each product split so).
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
@@ -216,6 +218,105 @@ def elp_bsd_matmul_bf16x3(
     for p in parts[1:]:
         out = out + p @ w
     return out * sf.reshape(())
+
+
+# The cross-products of two operands split by split_bf16x3, (term of the
+# left operand, term of the right), in the order the bf16x3 flash route
+# takes them: hi.hi, then the pairs of exponent sum 1, then 2. A product
+# q_i k_j is about 2^-8 (i + j) of q k; the first six are those with
+# i + j <= 2, and what they drop is about 2^-21 of each product.
+FLASH_PRODUCTS = ((0, 0), (0, 1), (1, 0), (0, 2), (1, 1), (2, 0))
+FLASH_BLOCK_K = 64  # keys a step of the route's online softmax
+# The kernel's (S, P V) product counts: the fewest whose worst error stays
+# under half the float32 limit (tests/test_torch_flash_bf16x3.py).
+FLASH_ROUTE_PRODUCTS = (6, 5)
+
+
+def flash_attention_bf16x3(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    q_offset: int = 0,
+    products: int | tuple[int, int] = FLASH_ROUTE_PRODUCTS,
+) -> torch.Tensor:
+    """The bf16x3 flash route's arithmetic in plain PyTorch, float32 out.
+
+    ``q [B, H, Sq, hd]``, ``k/v [B, KVH, Sk, hd]`` (grouped-query heads).
+    q is scaled by ``1/sqrt(hd)`` in float32, then ``S = Q K^T`` is summed
+    from the first ``products`` of FLASH_PRODUCTS of the bf16x3 splits of the
+    scaled q and of k; an online softmax over FLASH_BLOCK_K-key tiles keeps
+    float32 m, l and accumulator in log2 units (masked logits -1e30, l
+    clamped at 1e-30), and each tile's ``P V`` is summed the same way from
+    the splits of P and v (in one float32 product over the concatenated
+    terms) and added to the rescaled accumulator. ``products`` is one count for both products or
+    a pair (``S``, ``P V``); FLASH_ROUTE_PRODUCTS is the kernel's, fewer the
+    controls.
+    """
+    return _flash_bf16x3_sets(q, k, v, causal, q_offset, [products])[0]
+
+
+def _flash_bf16x3_sets(q, k, v, causal: bool, q_offset: int, sets: list) -> list:
+    """:func:`flash_attention_bf16x3` for each product set of ``sets`` (counts or
+    (S, P V) pairs), sharing each tile's S cross-products among them. A causal
+    call runs its queries in chunks of 512, each over the key tiles it sees:
+    a tile past every query of a chunk changes none of its rows (p = 0,
+    corr = 1 once a row has seen key 0)."""
+    sets = [(n, n) if isinstance(n, int) else n for n in sets]
+    f32 = torch.float32
+    h, sq, hd = q.shape[1], q.shape[2], q.shape[3]
+    group = h // k.shape[1]
+    sk = k.shape[2]
+    qs = split_bf16x3(q.to(f32) * (1.0 / math.sqrt(hd)))
+    ks = split_bf16x3(k.to(f32).repeat_interleave(group, dim=1).transpose(-1, -2))
+    vs = split_bf16x3(v.to(f32).repeat_interleave(group, dim=1))
+    log2e = 1.4426950408889634
+    neg = -1e30
+    n_s_max = max(n for n, _ in sets)
+
+    def rows(lo: int, hi: int) -> list:
+        qc = tuple(t[:, :, lo:hi] for t in qs)
+        m = [torch.full((*q.shape[:2], hi - lo, 1), neg, dtype=f32, device=q.device)
+             for _ in sets]
+        l = [torch.zeros_like(t) for t in m]
+        acc = [torch.zeros((*q.shape[:2], hi - lo, hd), dtype=f32, device=q.device)
+               for _ in sets]
+        qpos = q_offset + torch.arange(lo, hi, device=q.device)[:, None]
+        last = min(sk, q_offset + hi) if causal else sk  # keys any of these rows sees
+        for k0 in range(0, last, FLASH_BLOCK_K):
+            kt = tuple(t[..., k0:k0 + FLASH_BLOCK_K] for t in ks)
+            vt = tuple(t[:, :, k0:k0 + FLASH_BLOCK_K] for t in vs)
+            terms = [qc[i] @ kt[j] for i, j in FLASH_PRODUCTS[:n_s_max]]
+            mask = None
+            if causal:
+                mask = qpos < k0 + torch.arange(kt[0].shape[-1], device=q.device)[None, :]
+            for c, (n_s, n_pv) in enumerate(sets):
+                x = terms[n_s - 1]
+                for t in reversed(terms[:n_s - 1]):  # smallest first, as the kernel
+                    x = x + t
+                x = x * log2e
+                if mask is not None:
+                    x = x.masked_fill(mask, neg)
+                m_new = torch.maximum(m[c], x.amax(-1, keepdim=True))
+                corr = torch.exp2(m[c] - m_new)
+                p = torch.exp2(x - m_new)
+                l[c] = l[c] * corr + p.sum(-1, keepdim=True)
+                # the tile's P V from its n_pv cross-products, as one product over
+                # the concatenated terms, added to the rescaled accumulator
+                sp = split_bf16x3(p)
+                pairs = FLASH_PRODUCTS[:n_pv]
+                pc = torch.cat([sp[i] for i, _ in pairs], -1)
+                vc = torch.cat([vt[j] for _, j in pairs], -2)
+                a = acc[c] * corr
+                acc[c] = torch.baddbmm(a.flatten(0, 1), pc.flatten(0, 1),
+                                       vc.flatten(0, 1)).view_as(a)
+                m[c] = m_new
+        return [a / torch.clamp(b, min=1e-30) for a, b in zip(acc, l)]
+
+    chunk = 512 if causal else sq
+    parts = [rows(lo, min(lo + chunk, sq)) for lo in range(0, sq, chunk)]
+    return [torch.cat([part[c] for part in parts], 2) for c in range(len(sets))]
 
 
 def elp_bsd_matmul_digits(

@@ -258,12 +258,14 @@ def test_entry_points_default_to_the_card(cuda):
 # ---------------------------------------------------------------------------
 FLASH_SHAPES = [
     # (B, H, KVH, Sq, Sk, hd, q_offset, block): the JAX tests' shapes, GQA heads,
-    # qwen3-8b's head, a prefill after a cached prefix, a ragged small head
+    # qwen3-8b's head, a prefill after a cached prefix, a ragged small head, and
+    # a long sequence (4096 keys: the P V sum over 64 key tiles)
     (1, 2, 2, 256, 256, 64, 0, 128),
     (2, 4, 4, 384, 384, 128, 0, 128),
     (2, 8, 2, 256, 256, 128, 0, 128),
     (1, 4, 2, 128, 256, 128, 128, 128),
     (1, 4, 4, 48, 48, 16, 0, 16),
+    (1, 2, 2, 4096, 4096, 128, 0, 128),
 ]
 
 
@@ -286,33 +288,57 @@ def _assert_flash_close(got, want) -> None:
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,h,kvh,sq,sk,hd,q_offset,block", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda, dtype, causal, b, h, kvh, sq, sk, hd, q_offset, block):
+    """float32 reaches the bf16x3 route, bf16 the wgmma route."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     g = torch.Generator(device=cuda).manual_seed(sq + hd)
     q = torch.randn(b, h, sq, hd, device=cuda, generator=g).to(dtype)
     k = torch.randn(b, kvh, sk, hd, device=cuda, generator=g).to(dtype)
     v = torch.randn(b, kvh, sk, hd, device=cuda, generator=g).to(dtype)
-    before = flash_attention.launches
+    before = dict(flash_attention.launches_by_route)
     got = flash_attention(q, k, v, causal=causal, block_q=block, block_k=block,
                           q_offset=q_offset)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1 and got.dtype == dtype
+    r = "bf16x3" if dtype == torch.float32 else "wgmma"
+    assert flash_attention.launches_by_route == {**before, r: before[r] + 1}
+    assert got.dtype == dtype
     _assert_flash_close(got, flash_attention_plain(q, k, v, causal=causal, q_offset=q_offset))
 
 
-def test_flash_kernel_reads_strided_activations(cuda):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_strided_activations(cuda, dtype):
     """q/k/v as [B, H, S, hd] views of [B, S, H, hd] tensors: read in place, output
     in q's strides."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     g = torch.Generator(device=cuda).manual_seed(5)
-    q = torch.randn(2, 128, 8, 128, device=cuda, generator=g).to(torch.bfloat16)
-    kv = torch.randn(2, 2, 128, 2, 128, device=cuda, generator=g).to(torch.bfloat16)
+    q = torch.randn(2, 128, 8, 128, device=cuda, generator=g).to(dtype)
+    kv = torch.randn(2, 2, 128, 2, 128, device=cuda, generator=g).to(dtype)
     qt, kt, vt = q.transpose(1, 2), kv[0].transpose(1, 2), kv[1].transpose(1, 2)
     got = flash_attention(qt, kt, vt)
     assert got.stride() == qt.stride()
     _assert_flash_close(got, flash_attention_plain(qt.contiguous(), kt.contiguous(),
                                                    vt.contiguous()))
+
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,hd,q_offset,block", FLASH_SHAPES[:4])
+def test_flash_f32_kernel_launched_directly(cuda, b, h, kvh, sq, sk, hd, q_offset, block):
+    """3a, the CUDA-core kernel no call of the wrapper reaches since the bf16x3
+    route replaced it, launched directly: still the plain version's function
+    (and not counted as a launch)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(sq + hd + 1)
+    q = torch.randn(b, h, sq, hd, device=cuda, generator=g)
+    k, v = (torch.randn(b, kvh, sk, hd, device=cuda, generator=g) for _ in range(2))
+    before = dict(fa.flash_attention.launches_by_route)
+    for causal in (True, False):
+        out = torch.empty_like(q)
+        fa._launch("f32", q, k, v, out, h // kvh, causal, q_offset)
+        torch.cuda.synchronize()
+        _assert_flash_close(out, fa.flash_attention_plain(q, k, v, causal=causal,
+                                                          q_offset=q_offset))
+    assert fa.flash_attention.launches_by_route == before
 
 
 def test_flash_wrapper_raises_on_bad_inputs(cuda):
@@ -538,7 +564,8 @@ def test_flash_routes_by_dtype(cuda):
     flash_attention(*(q.to(torch.bfloat16),) * 3, block_q=64, block_k=64)
     torch.cuda.synchronize()
     assert flash_attention.launches_by_route == {"wgmma": before["wgmma"] + 1,
-                                                 "f32": before["f32"] + 1}
+                                                 "bf16x3": before["bf16x3"] + 1,
+                                                 "f32": before["f32"]}
 
 
 # ---------------------------------------------------------------------------

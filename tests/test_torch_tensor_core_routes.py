@@ -69,14 +69,16 @@ def test_flash_route_rule_without_launching():
     b16 = torch.zeros(1, 4, 128, 64, dtype=torch.bfloat16)
     f32 = b16.float()
     assert fa.route(b16, b16[:, :2], b16[:, :2]) == "wgmma"
-    assert fa.route(f32, f32, f32) == "f32"
-    assert fa.route(b16, f32, f32) == "f32"
-    assert fa.route(b16.half(), b16.half(), b16.half()) == "f32"
+    assert fa.route(f32, f32, f32) == "bf16x3"
+    assert fa.route(f32, f32[:, :2], f32[:, :2]) == "bf16x3"
+    assert fa.route(b16, f32, f32) == "bf16x3"
+    assert fa.route(b16.half(), b16.half(), b16.half()) == "bf16x3"
     before = (fa.flash_attention.launches, dict(fa.flash_attention.launches_by_route))
     out = fa.flash_attention(b16, b16[:, :2], b16[:, :2], q_offset=3)
     assert out.dtype == torch.bfloat16 and tuple(out.shape) == (1, 4, 128, 64)
     assert (fa.flash_attention.launches, fa.flash_attention.launches_by_route) == before
-    assert set(fa.flash_attention.launches_by_route) == set(fa.ROUTES) == {"wgmma", "f32"}
+    assert set(fa.flash_attention.launches_by_route) == set(fa.ROUTES) == {
+        "wgmma", "bf16x3", "f32"}
 
 
 @pytest.mark.parametrize("fmt_name,nibble", [("elp_bsd_a4", True), ("elp_bsd_c6", False)])
